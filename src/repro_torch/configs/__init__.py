@@ -1,0 +1,5 @@
+"""Architecture configs (one module per architecture) + registry."""
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig, get_config, register, reduced_config)
+# Imported for registration.
+from repro_torch.configs import qwen3_0p6b  # noqa: F401

@@ -1,0 +1,129 @@
+"""Process-wide engine configuration: backend, device, machine, fused policy.
+
+  * ``backend`` -- ``"engine"`` (descriptor -> plan -> hand-written
+    Hopper kernel; the default, because the port targets the card) or
+    ``"torch"`` (plain torch ops, with ``torch.matmul``/cuBLAS as the
+    vendor baseline);
+  * ``device``  -- where entry points put models and tensors when the
+    caller names none: ``"cuda"`` by default, ``"cpu"`` for the tests.
+    Asking for CUDA on a host without it raises; nothing falls back;
+  * ``machine`` -- the :class:`~repro_torch.core.machine.MachineModel`
+    every planner reads (``H100_SXM`` by default);
+  * ``fused``   -- ``"auto"`` follows the plan's ``fused`` bit, ``"on"`` /
+    ``"off"`` force the single-launch or the multi-launch / dense-grid
+    lowering.  ``REPRO_FUSED=auto|on|off`` seeds the process default.
+
+Configuration is layered: a process-wide default (``configure``) under a
+thread-local override stack (``use``).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import threading
+import warnings
+from typing import Optional
+
+import torch
+
+from .machine import DEFAULT_MACHINE, MachineModel, get_machine
+
+BACKENDS = ("torch", "engine")
+FUSED_MODES = ("auto", "on", "off")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """One immutable snapshot of the engine's ambient configuration."""
+
+    backend: str = "engine"
+    device: str = "cuda"
+    machine: MachineModel = DEFAULT_MACHINE
+    fused: str = "auto"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, "
+                             f"got {self.backend!r}")
+        if self.fused not in FUSED_MODES:
+            raise ValueError(f"fused must be one of {FUSED_MODES}, "
+                             f"got {self.fused!r}")
+        if torch.device(self.device).type not in ("cuda", "cpu"):
+            raise ValueError(f"device must be cuda or cpu, got {self.device!r}")
+
+    def replace(self, **kw) -> "EngineConfig":
+        kw = {k: v for k, v in kw.items() if v is not None}
+        if isinstance(kw.get("machine"), str):
+            kw["machine"] = get_machine(kw["machine"])
+        if "device" in kw:
+            kw["device"] = str(kw["device"])
+        return dataclasses.replace(self, **kw)
+
+
+def _env_default() -> EngineConfig:
+    fused = os.environ.get("REPRO_FUSED", "").lower()
+    if fused in ("1", "true", "yes"):
+        fused = "on"
+    elif fused in ("0", "false", "no"):
+        fused = "off"
+    if fused not in FUSED_MODES:
+        if fused:
+            warnings.warn(f"ignoring REPRO_FUSED={fused!r}: "
+                          f"must be one of {FUSED_MODES}")
+        fused = "auto"
+    return EngineConfig(fused=fused)
+
+
+_DEFAULT = _env_default()
+_default_lock = threading.Lock()
+_tls = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_tls, "stack"):
+        _tls.stack = []
+    return _tls.stack
+
+
+def get_config() -> EngineConfig:
+    """Effective config: innermost thread-local override, else the global."""
+    stack = _stack()
+    return stack[-1] if stack else _DEFAULT
+
+
+def configure(*, backend: Optional[str] = None, device=None, machine=None,
+              fused: Optional[str] = None) -> EngineConfig:
+    """Mutate the process-wide default (all threads without an override)."""
+    global _DEFAULT
+    with _default_lock:
+        _DEFAULT = _DEFAULT.replace(backend=backend, device=device,
+                                    machine=machine, fused=fused)
+        return _DEFAULT
+
+
+@contextlib.contextmanager
+def use(*, backend: Optional[str] = None, device=None, machine=None,
+        fused: Optional[str] = None):
+    """Thread-local override: ``with use(backend="torch"): ...``."""
+    stack = _stack()
+    stack.append(get_config().replace(backend=backend, device=device,
+                                      machine=machine, fused=fused))
+    try:
+        yield stack[-1]
+    finally:
+        stack.pop()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    configured default.  CUDA on a host without a usable card raises."""
+    dev = torch.device(device if device is not None else get_config().device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' (or use(device='cpu')) to run the "
+            "plain CPU versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,157 @@
+"""Machine models: the constants every planner reads.
+
+``TPU_V5E`` is the reference package's pinned model, copied as data only
+so the port's planners can be checked plan-for-plan against the
+reference.  ``H100_SXM`` is the port's target and ``DEFAULT_MACHINE``:
+its peaks are NVIDIA's published H100 SXM figures (dense, no sparsity,
+at the 700 W limit), and its legality comes from what the port's CUDA
+kernels accept rather than from a scratchpad size:
+
+  * the GEMM kernels stream operands from device memory tile by tile,
+    so any GEMM is legal for the fused single-launch lowering;
+  * their accumulator blockings are the shapes ``csrc/gemm.cu``
+    instantiates (``bm_candidates`` x ``bn_candidates``), with a fixed
+    K panel of ``k_panel`` elements;
+  * the flash kernels take ``(block_q, block_k)`` from ``flash_blocks``.
+
+The dispatch overheads are pinned assumptions, not measurements; a later
+calibration replaces them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import hashlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+DEFAULT_STEP_OVERHEAD_S = 2.0e-7
+DEFAULT_LAUNCH_OVERHEAD_S = 2.0e-6
+DEFAULT_FUSED_TILE_DECODE_S = 6e-7
+DEFAULT_EXTRA_LAUNCH_FACTOR = 0.25
+DEFAULT_STITCH_DISCOUNT = 0.25
+
+_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1,
+             "float8_e4m3": 1, "float64": 8}
+
+_TORCH_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8",
+                torch.float64: "float64",
+                torch.float8_e4m3fn: "float8_e4m3"}
+
+_NAME_TO_TORCH = {v: k for k, v in _TORCH_NAMES.items()}
+
+
+def canonical_dtype(dtype) -> str:
+    """Canonical descriptor dtype name for a torch dtype or a name."""
+    if isinstance(dtype, str):
+        name = "float8_e4m3" if dtype == "float8_e4m3fn" else dtype
+        if name in _ITEMSIZE:
+            return name
+        raise ValueError(f"unsupported dtype for machine model: {dtype}")
+    if dtype in _TORCH_NAMES:
+        return _TORCH_NAMES[dtype]
+    raise ValueError(f"unsupported dtype for machine model: {dtype}")
+
+
+def itemsize(dtype) -> int:
+    """Bytes per element of a dtype name or torch dtype."""
+    return _ITEMSIZE[canonical_dtype(dtype)]
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a canonical name (or a torch dtype)."""
+    return _NAME_TO_TORCH[canonical_dtype(dtype)]
+
+
+@dataclasses.dataclass(frozen=True)
+class MachineModel:
+    """Performance and legality model of one accelerator."""
+
+    name: str
+    peak_flops: Dict[str, float]  # dtype name -> FLOP/s
+    hbm_bw: float  # bytes/s
+    # On-chip staging budget: VMEM on the TPU, the shared memory one
+    # thread block may use on Hopper.
+    vmem_bytes: int
+    sublanes: Dict[str, int]
+    lanes: int
+    step_overhead_s: float = DEFAULT_STEP_OVERHEAD_S
+    launch_overhead_s: float = DEFAULT_LAUNCH_OVERHEAD_S
+    fused_tile_decode_s: float = DEFAULT_FUSED_TILE_DECODE_S
+    extra_launch_factor: float = DEFAULT_EXTRA_LAUNCH_FACTOR
+    stitch_discount: float = DEFAULT_STITCH_DISCOUNT
+    # --- GEMM palette (the reference hard-wires these in blocking.py) ----
+    acc_budget_elems: int = 256 * 256
+    bm_candidates: Tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512)
+    bn_candidates: Tuple[int, ...] = (128, 256, 512, 1024)
+    # --- legality ---------------------------------------------------------
+    # True: fused kernels stage whole operands on chip (the TPU lowering),
+    # so fused legality is a VMEM fit.  False: they stream from device
+    # memory and every problem is legal.
+    stages_whole_operands: bool = True
+    # Fixed K-panel depth of the kernel; None plans bk against VMEM.
+    k_panel: Optional[int] = None
+    # Flash (block_q, block_k) shapes the kernels take; None derives them
+    # from VMEM fit.
+    flash_blocks: Optional[Tuple[Tuple[int, int], ...]] = None
+
+    @functools.cached_property
+    def fingerprint(self) -> str:
+        """Short digest of every model constant (plan-cache keys)."""
+        blob = repr(dataclasses.astuple(self)).encode()
+        return hashlib.md5(blob).hexdigest()[:8]
+
+    def peak(self, dtype) -> float:
+        return self.peak_flops[canonical_dtype(dtype)]
+
+    def reg_tile(self, dtype) -> Tuple[int, int]:
+        """(row, column) alignment granule of an accumulator block."""
+        return (self.sublanes[canonical_dtype(dtype)], self.lanes)
+
+
+TPU_V5E = MachineModel(
+    name="tpu_v5e",
+    peak_flops={"bfloat16": 197e12, "float16": 197e12, "float32": 98.5e12,
+                "int8": 394e12, "float8_e4m3": 394e12, "float64": 0.5e12},
+    hbm_bw=819e9,
+    vmem_bytes=128 * 1024**2,
+    sublanes={"float32": 8, "bfloat16": 16, "float16": 16, "int8": 32,
+              "float8_e4m3": 32, "float64": 8},
+    lanes=128,
+)
+
+# NVIDIA H100 SXM: 989 TFLOP/s bf16/fp16 dense, 1979 fp8/int8, 67 TFLOP/s
+# fp32 outside the tensor cores (the port's fp32 GEMMs never use TF32),
+# 80 GB HBM3 at 3.35 TB/s, 227 KB shared memory per block.
+H100_SXM = MachineModel(
+    name="h100_sxm",
+    peak_flops={"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
+                "int8": 1979e12, "float8_e4m3": 1979e12, "float64": 67e12},
+    hbm_bw=3.35e12,
+    vmem_bytes=232448,
+    sublanes={"float32": 16, "bfloat16": 16, "float16": 16, "int8": 16,
+              "float8_e4m3": 16, "float64": 16},
+    lanes=64,
+    # A kernel launch costs a few microseconds; tiles run in parallel on
+    # 132 SMs, so a tile step costs ~1/132 of a serial one.
+    step_overhead_s=2.0e-8,
+    launch_overhead_s=4.0e-6,
+    fused_tile_decode_s=1.0e-8,
+    # The region kernel writes straight into C: nothing is stitched.
+    stitch_discount=0.0,
+    acc_budget_elems=128 * 128,
+    bm_candidates=(16, 64, 128),
+    bn_candidates=(64, 128),
+    stages_whole_operands=False,
+    k_panel=32,
+    flash_blocks=((64, 64),),
+)
+
+DEFAULT_MACHINE = H100_SXM
+
+
+def get_machine(name: str) -> MachineModel:
+    """Look up a built-in machine model by name."""
+    return {"tpu_v5e": TPU_V5E, "h100_sxm": H100_SXM}[name]

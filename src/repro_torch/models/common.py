@@ -1,0 +1,104 @@
+"""Shared layer primitives: linear, norms, embeddings, initialisers and the
+dtype policy.
+
+Parameters are fp32 masters, cast to the compute dtype (``cfg.dtype``) at
+the point of use.  Linear weights keep the reference's ``(d_in, d_out)``
+layout, so every projection is the same ``nn`` GEMM descriptor, and the
+tied read-out the same ``nt`` one, as in the reference package.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core import matmul
+
+
+class Init:
+    """Seeded draws for a model's parameters, on the model's device, with
+    the reference's distributions: N(0, 1) / sqrt(fan_in) for linear
+    weights, N(0, 0.02^2) for embeddings, ones for norm scales, zeros for
+    biases.  (The numbers differ from JAX's: tests convert JAX-initialised
+    parameters instead, see ``repro_torch.convert``.)"""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        return scale * torch.randn(shape, generator=self.gen,
+                                   device=self.device)
+
+    def scaled(self, shape, fan_in: int) -> torch.Tensor:
+        return torch.randn(shape, generator=self.gen,
+                           device=self.device) / fan_in ** 0.5
+
+
+def cast_param(p: torch.Tensor, dtype) -> torch.Tensor:
+    return p if p.dtype == dtype else p.to(dtype)
+
+
+class Linear(nn.Module):
+    """``y = x @ w (+ b)`` through :func:`repro_torch.core.matmul`, with an
+    optional fused activation epilogue."""
+
+    def __init__(self, d_in: int, d_out: int, init: Init, bias: bool = False):
+        super().__init__()
+        self.w = nn.Parameter(init.scaled((d_in, d_out), d_in))
+        self.b = nn.Parameter(torch.zeros(d_out, device=init.device)) \
+            if bias else None
+
+    def forward(self, x, *, epilogue: Optional[str] = None,
+                compute_dtype=None):
+        w, b = self.w, self.b
+        if compute_dtype is not None:
+            w = cast_param(w, compute_dtype)
+            x = x.to(compute_dtype)
+            if b is not None:
+                b = cast_param(b, compute_dtype)
+        if b is not None:
+            epi = {"gelu": "bias_gelu", "silu": "bias_silu",
+                   None: "bias"}.get(epilogue, epilogue)
+            return matmul(x, w, epilogue=epi, bias=b)
+        return matmul(x, w, epilogue=epilogue)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm computed in fp32 whatever the activation dtype."""
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, init: Init):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=init.device))
+
+    def forward(self, x, eps: float):
+        return rmsnorm(self.scale, x, eps)
+
+
+def make_norm(kind: str, d: int, init: Init) -> RMSNorm:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm_type={kind!r} is not ported")
+    return RMSNorm(d, init)
+
+
+class Embedding(nn.Module):
+    """Token table; ``unembed`` is the tied read-out ``x @ table^T``, an
+    ``nt`` GEMM."""
+
+    def __init__(self, vocab: int, d: int, init: Init):
+        super().__init__()
+        self.table = nn.Parameter(init.normal((vocab, d), 0.02))
+
+    def embed(self, ids, compute_dtype):
+        # Gather first, then cast: the same values as casting the table.
+        return self.table[ids].to(compute_dtype)
+
+    def unembed(self, x, compute_dtype, out_dtype):
+        table = cast_param(self.table, compute_dtype)
+        return matmul(x, table, layout="nt", out_dtype=out_dtype)

@@ -1,0 +1,73 @@
+"""Decoder-only language model.
+
+  * ``LanguageModel(cfg, device=None, seed=0)`` -- builds the modules with
+    seeded fp32 master weights on ``device`` (the configured default,
+    CUDA unless the caller says otherwise);
+  * ``model.apply(tokens, ...) -> (logits, cache, aux)`` (also ``forward``);
+  * ``model.init_cache(batch, capacity) -> cache``.
+
+Decode is ``apply`` with a one-token input and a cache.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core import matmul
+from repro_torch.core.config import resolve_device
+from repro_torch.core.machine import torch_dtype
+from repro_torch.models.blocks import Block, check_ported, stack_apply, \
+    stack_cache
+from repro_torch.models.common import Embedding, Init, Linear, cast_param, \
+    make_norm
+
+
+class LanguageModel(nn.Module):
+    def __init__(self, cfg, *, device=None, seed: int = 0):
+        super().__init__()
+        check_ported(cfg)
+        self.cfg = cfg
+        init = Init(seed, resolve_device(device))
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, init)
+        self.blocks = nn.ModuleList(Block(cfg, init)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = make_norm(cfg.norm_type, cfg.d_model, init)
+        if not cfg.tie_embeddings:
+            self.lm_head = Linear(cfg.d_model, cfg.vocab_size, init)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def forward(self, tokens, *, positions=None, cache=None,
+                logits_mode="all"):
+        """tokens: (b, s) integer ids.  ``logits_mode="last"`` unembeds only
+        the final position.  Returns (logits, new_cache, aux_loss)."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        s = tokens.shape[1]
+        x = self.embed.embed(tokens, dt)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+        x, new_cache = stack_apply(self.blocks, x, positions, cache=cache)
+        x = self.final_norm(x, cfg.norm_eps)
+        if logits_mode == "last":
+            x = x[:, -1:]
+        ldt = torch_dtype(cfg.logits_dtype)
+        if cfg.tie_embeddings:
+            logits = self.embed.unembed(x, dt, out_dtype=ldt)
+        else:
+            logits = matmul(x, cast_param(self.lm_head.w, dt), out_dtype=ldt)
+        if cfg.final_logit_softcap:
+            cap = cfg.final_logit_softcap
+            logits = torch.tanh(logits / cap) * cap
+        return logits, new_cache, torch.zeros((), device=tokens.device)
+
+    # The reference's name for the forward pass.  (It shadows
+    # nn.Module.apply(fn); the port never applies functions to submodules.)
+    apply = forward
+
+    def init_cache(self, batch: int, capacity: int):
+        return stack_cache(self.cfg, batch, capacity, self.device)
