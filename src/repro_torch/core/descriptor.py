@@ -93,7 +93,7 @@ class GemmDescriptor(KernelDescriptor):
 
     @classmethod
     def from_operands(cls, a, b, layout="nn", accumulate=False, epilogue=None,
-                      acc_dtype="float32", out_dtype=None, edge="mask"):
+                      acc_dtype="float32", out_dtype=None):
         if a.ndim != b.ndim:
             raise ValueError(f"rank mismatch: A{tuple(a.shape)} vs B{tuple(b.shape)}")
         batch = 0
@@ -117,8 +117,7 @@ class GemmDescriptor(KernelDescriptor):
         return cls(m=m, n=n, k=k, layout=layout, in_dtype=in_dtype,
                    acc_dtype=canonical_dtype(acc_dtype),
                    out_dtype=canonical_dtype(out_dtype or acc_dtype),
-                   accumulate=accumulate, epilogue=epilogue, edge=edge,
-                   batch=batch)
+                   accumulate=accumulate, epilogue=epilogue, batch=batch)
 
     @property
     def flops(self) -> int:

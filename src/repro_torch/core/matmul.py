@@ -15,23 +15,21 @@ import torch
 from repro_torch.kernels import disable_tf32
 from repro_torch.kernels.epilogue import apply_epilogue
 
-from .blocking import BlockingPlan
 from .config import get_config
 from .descriptor import GemmDescriptor, check_bias
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
            *, layout: str = "nn", epilogue: Optional[str] = None,
-           bias: Optional[torch.Tensor] = None, out_dtype=None,
-           plan: Optional[BlockingPlan] = None,
-           backend_override: Optional[str] = None) -> torch.Tensor:
+           bias: Optional[torch.Tensor] = None,
+           out_dtype=None) -> torch.Tensor:
     """Planned (batched) GEMM: ``out = epilogue(c? + a @ op(b))``.
 
     ``a``: (..., M, K).  ``b``: (K, N) | (nb, K, N) for layout "nn",
     (N, K) | (nb, N, K) for "nt".  Leading dims of ``a`` are flattened
     into M when ``b`` is rank-2 (the dense-layer case).
     """
-    be = backend_override or get_config().backend
+    be = get_config().backend
     out_dtype = out_dtype or a.dtype
     check_bias(epilogue, bias)
     if be == "torch":
@@ -43,7 +41,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
         a = a.reshape(-1, a.shape[-1])
         if c is not None:
             c = c.reshape(-1, c.shape[-1])
-    out = _EngineGemm.apply(a, b, c, bias, layout, epilogue, out_dtype, plan)
+    out = _EngineGemm.apply(a, b, c, bias, layout, epilogue, out_dtype)
     if lead is not None:
         out = out.reshape(*lead, out.shape[-1])
     return out
@@ -55,14 +53,14 @@ class _EngineGemm(torch.autograd.Function):
     (dense GEMM has no kernel of its own for the backward)."""
 
     @staticmethod
-    def forward(ctx, a, b, c, bias, layout, epilogue, out_dtype, plan):
+    def forward(ctx, a, b, c, bias, layout, epilogue, out_dtype):
         from repro_torch.core import engine
         desc = GemmDescriptor.from_operands(
             a, b, layout=layout, accumulate=c is not None, epilogue=epilogue,
             out_dtype=out_dtype)
         ctx.save_for_backward(a, b, c, bias)
         ctx.opts = (layout, epilogue, out_dtype)
-        return engine.dispatch(desc, a, b, plan=plan, bias=bias, c=c)
+        return engine.dispatch(desc, a, b, bias=bias, c=c)
 
     @staticmethod
     def backward(ctx, g):
@@ -80,7 +78,7 @@ class _EngineGemm(torch.autograd.Function):
                 grads = iter(torch.autograd.grad(out, wanted, g))
         result = [next(grads) if t is not None and need else None
                   for t, need in zip(inputs, ctx.needs_input_grad[:4])]
-        return (*result, None, None, None, None)
+        return (*result, None, None, None)
 
 
 def _torch_gemm(a, b, c, layout, epilogue, bias, out_dtype):

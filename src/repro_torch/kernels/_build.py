@@ -11,6 +11,10 @@ All sources are compiled in parallel, one nvcc each.  The output name
 carries a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused.  A missing nvcc, a failed build or a
 kernel that reports a launch error raises; nothing falls back.
+
+The libraries go to ``$REPRO_TORCH_BUILD_DIR`` if it is set, else to
+``build/repro_torch/`` in the source checkout the package runs from.
+An installed package (no checkout around it) must set the variable.
 """
 from __future__ import annotations
 
@@ -28,7 +32,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _KERNELS_DIR = Path(__file__).resolve().parent
-_BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch"
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,10 +52,24 @@ def _nvcc() -> str:
     return nvcc
 
 
+def build_dir() -> Path:
+    """Where the kernel libraries are written (see the module docstring)."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    checkout = _KERNELS_DIR.parents[2]  # <checkout>/src/repro_torch/kernels
+    if _KERNELS_DIR.parents[1].name != "src" \
+            or not (checkout / "pyproject.toml").is_file():
+        raise RuntimeError(f"repro_torch at {_KERNELS_DIR.parent} is not in a "
+                           f"source checkout; set REPRO_TORCH_BUILD_DIR to "
+                           f"the directory the CUDA kernels are built into")
+    return checkout / "build" / "repro_torch"
+
+
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+    return build_dir() / f"{src.stem}-{digest[:16]}.so"
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
@@ -63,7 +80,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         if all(name in _libs for name in srcs):
             return _libs
         t0 = time.perf_counter()
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir().mkdir(parents=True, exist_ok=True)
         pending = {}
         for name, src in srcs.items():
             out = _target(src)

@@ -22,7 +22,9 @@ from repro_torch.kernels import _build, disable_tf32
 
 NEG_INF = -1e30
 
-# Limits of flash_fwd.cu: block edges up to 64 rows, head dim up to 128.
+# Limits of flash_fwd.cu (its BQ_MAX = BK_MAX and D_MAX): block edges up
+# to 64 rows, head dim up to 128.  tests/test_torch_kernel_sources.py
+# holds the .cu file and H100_SXM.flash_blocks to these.
 MAX_BLOCK = 64
 MAX_HEAD_DIM = 128
 

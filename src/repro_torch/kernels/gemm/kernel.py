@@ -12,18 +12,23 @@ launch adds one to :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
 
+from repro_torch.core.machine import H100_SXM
 from repro_torch.core.schedule import TileSchedule, pack_table
 from repro_torch.kernels import _build, disable_tf32
 from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
 
-# Accumulator blockings gemm.cu instantiates, in its switch order.  The
-# H100_SXM palette lists exactly these.
-TEMPLATE_SHAPES = ((16, 64), (16, 128), (64, 64), (64, 128), (128, 64),
-                   (128, 128))
+# The H100_SXM palette owns the kernel's shapes: gemm.cu instantiates its
+# (bm, bn) accumulator blockings in this order (its ``tile_by_shape``
+# switch) and a K panel of ``k_panel`` (its ``BK``);
+# tests/test_torch_kernel_sources.py holds the .cu files to these.
+TEMPLATE_SHAPES = tuple(itertools.product(H100_SXM.bm_candidates,
+                                          H100_SXM.bn_candidates))
+K_PANEL = H100_SXM.k_panel
 
 LAUNCHES = {"gemm_fused": 0, "gemm_region": 0}
 

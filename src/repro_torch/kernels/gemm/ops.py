@@ -14,7 +14,6 @@ Both report their launch counts through ``engine.count_launches``.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
@@ -25,14 +24,13 @@ from repro_torch.core.config import use
 from repro_torch.core.descriptor import GemmDescriptor, check_bias
 from repro_torch.core.machine import torch_dtype
 from repro_torch.core.schedule import plan_launches
-from repro_torch.kernels.gemm.kernel import FusedGemm, gemm_fused, gemm_region
+from repro_torch.kernels.gemm.kernel import (K_PANEL, FusedGemm, gemm_fused,
+                                             gemm_region)
 
 
 def _fused_executor(desc: GemmDescriptor, plan: BlockingPlan, device):
-    """Build (and cache) one plan's fused kernel state on ``device``.
-    ``(regions, bk)`` determine the tile table; ``edge`` does not."""
-    key = (dataclasses.replace(desc, edge="mask").cache_key()
-           + ("fused", plan.regions, plan.bk, str(device)))
+    """Build (and cache) one plan's fused kernel state on ``device``."""
+    key = desc.cache_key() + ("fused", plan.regions, plan.bk, str(device))
     return engine.build_cached(key, lambda: FusedGemm(plan.tile_schedule(),
                                                       device))
 
@@ -41,10 +39,14 @@ def execute(desc: GemmDescriptor, plan: BlockingPlan, a, b, *, bias=None,
             c=None) -> torch.Tensor:
     """Engine executor: run one planned (possibly batched) GEMM."""
     check_bias(desc.epilogue, bias)
+    if desc.edge != "mask":
+        raise NotImplementedError(f"edge={desc.edge!r} is not ported; the "
+                                  f"kernels mask edges")
+    if a.is_cuda and plan.bk != K_PANEL:
+        raise NotImplementedError(f"plan bk={plan.bk}, but the CUDA GEMM's "
+                                  f"K panel is {K_PANEL}; plan with the "
+                                  f"H100_SXM machine model")
     fused = engine.resolve_fused(plan)
-    if desc.edge == "pad" and not fused:
-        raise NotImplementedError("edge='pad' multi-launch lowering is not "
-                                  "ported; the kernels mask edges")
     out_dtype = torch_dtype(desc.out_dtype)
     a3, b3 = (a, b) if desc.batch else (a[None], b[None])
     c3 = c if c is None or desc.batch else c[None]
@@ -69,9 +71,7 @@ engine.register_family("gemm", planner=plan_gemm, execute=execute)
 
 def gemm(a, b, c: Optional[torch.Tensor] = None, *, layout: str = "nn",
          epilogue: Optional[str] = None, bias: Optional[torch.Tensor] = None,
-         out_dtype=None, edge: str = "mask",
-         plan: Optional[BlockingPlan] = None,
-         fused: Optional[bool] = None) -> torch.Tensor:
+         out_dtype=None, fused: Optional[bool] = None) -> torch.Tensor:
     """Planned, shape-specialised (batched) GEMM via the engine.
 
     ``a``: (..., M, K); ``b``: (..., K, N) for layout "nn" or (..., N, K)
@@ -80,8 +80,8 @@ def gemm(a, b, c: Optional[torch.Tensor] = None, *, layout: str = "nn",
     """
     desc = GemmDescriptor.from_operands(
         a, b, layout=layout, accumulate=c is not None, epilogue=epilogue,
-        out_dtype=out_dtype or a.dtype, edge=edge)
+        out_dtype=out_dtype or a.dtype)
     if fused is None:
-        return engine.dispatch(desc, a, b, plan=plan, bias=bias, c=c)
+        return engine.dispatch(desc, a, b, bias=bias, c=c)
     with use(fused="on" if fused else "off"):
-        return engine.dispatch(desc, a, b, plan=plan, bias=bias, c=c)
+        return engine.dispatch(desc, a, b, bias=bias, c=c)

@@ -120,6 +120,18 @@ def test_launch_counts_fused_and_multi():
     assert engine.stats()["gemm"]["launches"] == len(plan.regions)
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_pad_edge_is_not_ported(fused):
+    """The kernels mask edges; a padded-edge descriptor raises on either
+    lowering instead of running as a masked one."""
+    ops = _operands(20, 70, 40, "nn")
+    _, (ta, tb, _, _) = _both(ops, "float32")
+    desc = GemmDescriptor(m=20, n=70, k=40, edge="pad")
+    with use(fused="on" if fused else "off"), \
+            pytest.raises(NotImplementedError, match="edge='pad'"):
+        engine.dispatch(desc, ta, tb)
+
+
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     """On CPU tensors the wrappers take the plain versions; the kernel
     launch counters move only on the card."""
