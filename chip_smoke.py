@@ -8,10 +8,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device  -- the card's name, the device count and nvidia-smi's name and
                 power limit; no CUDA device is a failure;
   2. build   -- nvcc builds every kernel source in the checkout;
-  3. kernels -- each of the four kernels against its plain torch version on
-                the card, at full-width Qwen3-0.6B main-path shapes (batch
-                4, prompt 256) and ragged cases, with errors, kernel /
-                plain / library times (CUDA events) and the bound;
+  3. kernels -- each of the five kernels against its plain torch version on
+                the card, at full-width Qwen3-0.6B main-path shapes (serving:
+                batch 4, prompt 256; training: batch 8, sequence 128) and
+                ragged cases, with errors, kernel / plain / library times
+                (CUDA events) and the bound; the flash forward also in its
+                LSE form, and the flash backward;
   4. serve   -- full-width Qwen3-0.6B (seeded random weights) through
                 ``generate`` on the engine backend, fused="auto": batch 4,
                 prompt 256, 16 new tokens; launch counts must equal what
@@ -23,14 +25,24 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 against device time, and the kernels that take it;
      reduced -- reduced_config(qwen3-0.6b) in fp32: engine and torch give
                 identical greedy tokens;
-  7. the ``kernels`` line, then the card's nvidia-smi line, then
-  8. the last line: {"ok": true, "device": {...}}.
+  7. train   -- full-width Qwen3-0.6B training (seeded random fp32 masters,
+                bf16 compute; batch 8, sequence 128, AdamW with warmup_cosine,
+                the synthetic bigram stream): loss and gradients of one batch
+                under the engine and the torch backends, within stated
+                bounds; 4 steps through run_with_restarts with checkpoints
+                every 2 steps, finite losses and exact launch counts per
+                step; the step-2 checkpoint restored and stepped again, equal
+                to the run's steps 3 and 4 within stated tolerances; a
+                profile of one more step;
+  8. the ``kernels`` line, then the card's nvidia-smi line, then
+  9. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,11 +52,33 @@ ROOT = Path(__file__).resolve().parent
 
 BATCH, PROMPT, GEN = 4, 256, 16
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # atol = rtol, kernel vs plain
+# Flash backward vs its plain version (atol = rtol): both compute in fp32
+# from the same inputs, but in another summation order, and the kernel's
+# atomic dQ adds in an order that changes from run to run.
+BWD_TOL = 1e-3
+# The forward's LSE rows vs the plain version's (fp32 on both sides).
+LSE_TOL = 1e-4
 # Prefill last-position logits, engine vs torch backend (both bf16): the
 # largest difference may be at most this fraction of the logits' range.
 LOGIT_BOUND = 0.05
 PEAK = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet, dense
 HBM_BPS = 3.35e12
+
+# Training: the reference CLI's defaults (batch 8, sequence 128, peak lr
+# 3e-3 with warmup_cosine over the run), 4 steps, a checkpoint every 2.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR, SAVE_EVERY = 8, 128, 4, 3e-3, 2
+# Engine vs torch backend on one batch (both bf16 compute from the same
+# fp32 masters; the GEMM and attention kernels round in other places than
+# cuBLAS and the chunked softmax): the loss may differ by this fraction of
+# itself, the whole gradient by this fraction of its L2 norm.
+LOSS_BOUND, GRAD_BOUND = 0.01, 0.05
+# Resume from the step-2 checkpoint against the uninterrupted run.  Step 2's
+# loss comes from restored weights through a deterministic forward: equal
+# to 1e-6.  Its grad_norm, and step 3's loss, pass through the atomic dQ
+# adds, whose order changes from run to run: 1e-3.  The parameters after
+# step 4 likewise: relative L2 gap 1e-3 (Adam moves an element by at most
+# about 2 lr when a near-zero gradient flips sign).
+RESUME_EXACT, RESUME_TOL = 1e-6, 1e-3
 
 
 def emit(**kw):
@@ -85,16 +119,17 @@ def main():
     counts_on, model, prompts, logits = phase_serve(torch)
     counts_off = phase_serve_off(torch, model, prompts, logits)
     phase_profile(torch, model, prompts)
-    del model
+    del model, logits  # free the serving model before training
     phase_reduced(torch)
+    torch.cuda.empty_cache()
+    counts_train = phase_train(torch)
 
-    launches = {"gemm_fused": counts_on["gemm_fused"],
-                "gemm_region": counts_off["gemm_region"],
-                "flash_fwd_fused": counts_on["flash_fwd_fused"],
-                "flash_fwd_dense": counts_off["flash_fwd_dense"]}
+    by_path = {"serve": counts_on, "serve_off": counts_off,
+               "train": counts_train}
     kernels = []
     for kname, meta in KERNELS.items():
-        if launches[kname] == 0:
+        paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
+        if not paths:
             fail(f"{kname} was never launched on the main path")
         rows = [r for r in results if r["kernel"] == kname and r["main_path"]]
         # The cases run one after another: the least time for all of them
@@ -105,7 +140,8 @@ def main():
         lib = [r["library_ms"] for r in rows]
         kernels.append({
             "name": kname, "route": "cuda", "source": meta[0],
-            "replaces": meta[1], "launches": launches[kname],
+            "replaces": meta[1], "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -130,6 +166,8 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:204"),
     "flash_fwd_dense": ("src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
                         "src/repro/kernels/flash_attention/kernel.py:115"),
+    "flash_bwd_fused": ("src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:500"),
 }
 
 
@@ -176,6 +214,10 @@ def gemm_cases():
                   (f"{stage}_up", m, ff, d, "nn", None),
                   (f"{stage}_down", m, d, ff, "nn", None)]
     cases.append(("readout_nt", BATCH, vocab, d, "nt", None))
+    # Training runs the prefill shapes (8 x 128 = 1024 tokens) and the
+    # read-out over every position.
+    cases.append(("train_readout_nt", TRAIN_BATCH * TRAIN_SEQ, vocab, d,
+                  "nt", None))
     cases = [c + ("bfloat16", False, 0, True) for c in cases]
     cases += [
         ("ragged_bias_gelu_acc_nt", 997, 1003, 1001, "nt", "bias_gelu",
@@ -342,6 +384,100 @@ def run_flash_case(torch, case, gen):
     return rows
 
 
+def flash_bwd_cases():
+    """(label, bh, sq, sk, d, causal, dtype, main): the training shape
+    (batch 8 x 16 heads, sequence 128) and ragged fp32 cases."""
+    return [("train_causal", TRAIN_BATCH * 16, TRAIN_SEQ, TRAIN_SEQ, 128,
+             True, "bfloat16", True),
+            ("ragged_f32_causal_100x130", 6, 100, 130, 64, True, "float32",
+             False),
+            ("ragged_f32_noncausal_130x70", 6, 130, 70, 96, False, "float32",
+             False)]
+
+
+def run_flash_bwd_case(torch, case, gen):
+    """The LSE form of flash_fwd_fused and flash_bwd_fused against their
+    plain versions, with SDPA's forward / backward as the library."""
+    import torch.nn.functional as F
+    from repro_torch.core import (FlashBwdDescriptor, FlashDescriptor,
+                                  plan_flash_bwd)
+    from repro_torch.kernels.flash_attention.kernel import (
+        FusedFlash, flash_bwd_fused, flash_bwd_fused_plain, flash_fwd_fused,
+        flash_fwd_fused_plain)
+    label, bh, sq, sk, d, causal, dname, main_path = case
+    dt = getattr(torch, dname)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda").to(dt)
+               for s in (sq, sk, sk))
+    do = torch.randn((bh, sq, d), generator=gen, device="cuda").to(dt)
+    desc = FlashDescriptor(batch_heads=bh, sq=sq, sk=sk, d=d, causal=causal,
+                           dtype=dname)
+    bdesc = FlashBwdDescriptor.from_forward(desc)
+    plan = plan_flash_bwd(bdesc)
+    exe = FusedFlash(plan.tile_schedule(), "cuda")
+    rows = []
+
+    def row(kname, errs, tol, ms, plain_ms, lib_ms, nbytes, flops):
+        op_ms = flops / PEAK[dname] * 1e3
+        byte_ms = nbytes / HBM_BPS * 1e3
+        r = dict(phase="kernel", kernel=kname, case=label,
+                 main_path=main_path, shape=[bh, sq, sk, d], causal=causal,
+                 dtype=dname, blocks=[exe.schedule.bq, exe.schedule.bk],
+                 max_abs_err=max(e[0] for e in errs.values()),
+                 errors={n: e[0] for n, e in errs.items()},
+                 max_rel_err=max(e[1] for e in errs.values()), tolerance=tol,
+                 mismatches=sum(e[2] for e in errs.values()), ms=ms,
+                 plain_ms=plain_ms, library_ms=lib_ms, op_ms=op_ms,
+                 byte_ms=byte_ms, bound_ms=max(op_ms, byte_ms),
+                 bound_by="bytes" if byte_ms >= op_ms else "operations")
+        emit(**r)
+        if r["mismatches"]:
+            fail(f"{kname} {label}: {r['mismatches']} elements outside "
+                 f"atol=rtol={tol}")
+        rows.append(r)
+
+    def errors(got, want, tol):
+        diff = (got.float() - want.float()).abs()
+        if not torch.isfinite(got.float()).all():
+            fail(f"{label}: kernel output is not finite")
+        bad = int((diff > tol + tol * want.float().abs()).sum().item())
+        return (diff.max().item(),
+                diff.max().item() / max(want.float().abs().max().item(), 1e-30),
+                bad)
+
+    # Forward with the LSE rows.
+    o, lse = flash_fwd_fused(exe, q, k, v, return_lse=True)
+    o_p, lse_p = flash_fwd_fused_plain(exe.schedule, q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], is_causal=causal), 20)
+    row("flash_fwd_fused", {"o": errors(o, o_p, TOL[dname]),
+                            "lse": errors(lse, lse_p, LSE_TOL)},
+        {"o": TOL[dname], "lse": LSE_TOL},
+        time_ms(torch, lambda: flash_fwd_fused(exe, q, k, v, return_lse=True),
+                20),
+        time_ms(torch, lambda: flash_fwd_fused_plain(
+            exe.schedule, q, k, v, return_lse=True), 2),
+        lib_fwd, desc.in_bytes + desc.out_bytes + bh * sq * 4, desc.flops)
+
+    # Backward, on the kernel's own o and lse.
+    got = flash_bwd_fused(exe, q, k, v, o, do, lse)
+    want = flash_bwd_fused_plain(exe.schedule, q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    qs, ks, vs = (t.detach()[None].requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do[None], retain_graph=True), 20)
+    row("flash_bwd_fused",
+        {n: errors(g, w, BWD_TOL) for n, g, w in zip(("dq", "dk", "dv"),
+                                                      got, want)},
+        BWD_TOL,
+        time_ms(torch, lambda: flash_bwd_fused(exe, q, k, v, o, do, lse), 20),
+        time_ms(torch, lambda: flash_bwd_fused_plain(exe.schedule, q, k, v,
+                                                     o, do, lse), 2),
+        lib_bwd, bdesc.in_bytes + bdesc.out_bytes, bdesc.flops)
+    return rows
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -349,6 +485,8 @@ def phase_kernels(torch):
         rows += run_gemm_case(torch, case, gen)
     for case in flash_cases():
         rows += run_flash_case(torch, case, gen)
+    for case in flash_bwd_cases():
+        rows += run_flash_bwd_case(torch, case, gen)
     return rows
 
 
@@ -375,7 +513,9 @@ def _read_counts():
             "engine_gemm_calls": st.get("gemm", {}).get("plan_hits", 0)
             + st.get("gemm", {}).get("plan_misses", 0),
             "engine_flash_launches": st.get("flash_attention", {})
-            .get("launches", 0)}
+            .get("launches", 0),
+            "engine_flash_launches_bwd": st.get("flash_attention", {})
+            .get("launches_bwd", 0)}
 
 
 def _prompts(torch, vocab):
@@ -483,26 +623,19 @@ def phase_serve_off(torch, model, prompts, logits_auto):
     return counts
 
 
-def phase_profile(torch, model, prompts, steps: int = 2):
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import use
-    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
-    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
-        logits, cache = make_prefill_step(model, PROMPT + GEN)(
-            {"tokens": prompts})
-        tok = torch.argmax(logits, -1)[:, None]
-        pos = torch.tensor(PROMPT, dtype=torch.int32, device="cuda")
-        serve = make_serve_step(model)
-        _, cache, pos = serve(cache, tok, pos)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                _, cache, pos = serve(cache, tok, pos)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+def _device_profile(torch, fn, steps: int):
+    """``fn()`` run ``steps`` times under torch.profiler: wall time against
+    device time per step, and the kernels that take it."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     rows = []  # device-side events only: the kernels themselves
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
@@ -511,13 +644,33 @@ def phase_profile(torch, model, prompts, steps: int = 2):
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / steps
-    emit(phase="profile", decode_steps=steps,
-         wall_ms_per_step=wall * 1e3 / steps,
-         device_ms_per_step=device_ms if rows else "not measured",
-         device_busy_share=device_ms / (wall * 1e3 / steps) if rows
-         else "not measured",
-         top=[[name[:80], us / 1e3 / steps, n // steps]
-              for us, name, n in rows[:12]])
+    return dict(wall_ms_per_step=wall * 1e3 / steps,
+                device_ms_per_step=device_ms if rows else "not measured",
+                device_busy_share=device_ms / (wall * 1e3 / steps) if rows
+                else "not measured",
+                top=[[name[:80], us / 1e3 / steps, n // steps]
+                     for us, name, n in rows[:12]])
+
+
+def phase_profile(torch, model, prompts, steps: int = 2):
+    from repro_torch.core import use
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        logits, cache = make_prefill_step(model, PROMPT + GEN)(
+            {"tokens": prompts})
+        tok = torch.argmax(logits, -1)[:, None]
+        state = {"cache": cache,
+                 "pos": torch.tensor(PROMPT, dtype=torch.int32,
+                                     device="cuda")}
+        serve = make_serve_step(model)
+
+        def step():
+            _, state["cache"], state["pos"] = serve(state["cache"], tok,
+                                                    state["pos"])
+
+        step()  # warm
+        emit(phase="profile", decode_steps=steps,
+             **_device_profile(torch, step, steps))
 
 
 def phase_reduced(torch):
@@ -539,6 +692,172 @@ def phase_reduced(torch):
          tokens_identical=same, tokens=toks["engine"].tolist())
     if not same:
         fail("reduced fp32 engine and torch tokens differ")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: training at full width
+# ---------------------------------------------------------------------------
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _train_parts(torch, cfg):
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import LanguageModel
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime.steps import make_train_step
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    opt = adamw(warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
+
+    def make_state():
+        model = LanguageModel(cfg, device="cuda", seed=0)
+        return model, opt.init(dict(model.named_parameters()))
+
+    def batch_fn(step):
+        return {k: torch.from_numpy(v).to("cuda")
+                for k, v in ds.host_batch(step).items()}
+
+    return make_state, batch_fn, make_train_step(cfg, opt)
+
+
+def _backend_gap(torch, cfg, make_state, batch_fn):
+    """Loss and gradients of one batch under both backends, same weights."""
+    from repro_torch.core import use
+    from repro_torch.runtime.steps import make_loss_fn
+    model, _ = make_state()
+    params = [p for _, p in model.named_parameters()]
+    batch = batch_fn(0)
+    loss, grads = {}, {}
+    for be in ("torch", "engine"):
+        with use(backend=be, device="cuda"):
+            total, _ = make_loss_fn(cfg)(model, batch)
+            grads[be] = torch.autograd.grad(total, params)
+            loss[be] = total.item()
+    diff = sum((a.float() - b.float()).square().sum()
+               for a, b in zip(grads["engine"], grads["torch"]))
+    norm = sum(b.float().square().sum() for b in grads["torch"])
+    grad_gap = (diff / norm).sqrt().item()
+    loss_gap = _rel(loss["engine"], loss["torch"])
+    emit(phase="train_backends", loss_engine=loss["engine"],
+         loss_torch=loss["torch"], loss_rel_gap=loss_gap,
+         loss_bound=LOSS_BOUND, grad_rel_l2_gap=grad_gap,
+         grad_bound=GRAD_BOUND, grad_norm_torch=norm.sqrt().item())
+    if not (loss_gap <= LOSS_BOUND and grad_gap <= GRAD_BOUND):
+        fail(f"engine vs torch: loss gap {loss_gap:.4g} (bound {LOSS_BOUND}),"
+             f" gradient gap {grad_gap:.4g} (bound {GRAD_BOUND})")
+
+
+def phase_train(torch):
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import use
+    from repro_torch.runtime.train_loop import (TrainLoopConfig,
+                                                run_with_restarts)
+    cfg = get_config("qwen3-0.6b")
+    make_state, batch_fn, step_fn = _train_parts(torch, cfg)
+    with use(backend="engine", fused="auto", device="cuda"):
+        _backend_gap(torch, cfg, make_state, batch_fn)
+    torch.cuda.empty_cache()
+
+    per_step = []
+
+    def counted_step(model, opt_state, batch, step):
+        _reset_counts()
+        metrics = step_fn(model, opt_state, batch, step)
+        per_step.append(_read_counts())
+        return metrics
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=ckpt,
+                               save_every=SAVE_EVERY, log_every=1)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with use(backend="engine", fused="auto", device="cuda"):
+            out = run_with_restarts(make_state, counted_step, batch_fn, loop)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        hist = out["metrics"]
+        losses = [m["loss"] for m in hist]
+        step_s = [m["step_seconds"] for m in hist]
+        want = {"gemm_fused": 7 * cfg.num_layers + 1, "gemm_region": 0,
+                "flash_fwd_fused": cfg.num_layers, "flash_fwd_dense": 0,
+                "flash_bwd_fused": cfg.num_layers,
+                "engine_flash_launches": cfg.num_layers,
+                "engine_flash_launches_bwd": cfg.num_layers}
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        emit(phase="train", model=cfg.name, params=cfg.param_count(),
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=len(hist),
+             losses=losses, nll=[m["nll"] for m in hist],
+             grad_norm=[m["grad_norm"] for m in hist],
+             step_seconds=step_s,
+             tokens_per_s=[tokens / t for t in step_s],
+             run_seconds=run_s, peak_memory_bytes=peak,
+             restarts=out["restarts"], launches_per_step=per_step,
+             expected_per_step=want)
+        if len(hist) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            fail(f"training losses not finite over {TRAIN_STEPS} steps: "
+                 f"{losses}")
+        for i, counts in enumerate(per_step):
+            bad = {k: (counts[k], n) for k, n in want.items()
+                   if counts[k] != n}
+            if bad:
+                fail(f"step {i}: launch counts (got, want) {bad}")
+        model, opt_state = _resume(torch, cfg, make_state, batch_fn, step_fn,
+                                   ckpt, out)
+        del out
+        with use(backend="engine", fused="auto", device="cuda"):
+            batch = batch_fn(TRAIN_STEPS)
+            emit(phase="train_profile", steps=1, **_device_profile(
+                torch, lambda: step_fn(model, opt_state, batch, TRAIN_STEPS),
+                1))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    total = {}
+    for counts in per_step:
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _resume(torch, cfg, make_state, batch_fn, step_fn, ckpt, out):
+    """Restore the step-2 checkpoint into fresh state and take steps 3 and
+    4 again; compare with the uninterrupted run."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core import use
+    hist = out["metrics"]
+    model, opt_state = make_state()
+    restored, meta = restore_checkpoint(
+        ckpt, SAVE_EVERY, {"params": dict(model.named_parameters()),
+                           "opt_state": opt_state})
+    model.load_state_dict(restored["params"])
+    opt_state = restored["opt_state"]
+    del restored
+    again = []
+    with use(backend="engine", fused="auto", device="cuda"):
+        for step in range(meta["data_step"], TRAIN_STEPS):
+            m = step_fn(model, opt_state, batch_fn(step), step)
+            again.append({k: float(v) for k, v in m.items()})
+    first, second = again[0], again[1]
+    diff = sum((a - b).float().square().sum() for a, b in zip(
+        model.parameters(), out["model"].parameters()))
+    norm = sum(b.float().square().sum() for b in out["model"].parameters())
+    param_gap = (diff / norm).sqrt().item()
+    # hist[i] is the run's step i (0-based): the restored state steps 2, 3.
+    gaps = {"loss[2]": _rel(first["loss"], hist[2]["loss"]),
+            "grad_norm[2]": _rel(first["grad_norm"], hist[2]["grad_norm"]),
+            "loss[3]": _rel(second["loss"], hist[3]["loss"]),
+            "final_params_rel_l2": param_gap}
+    bounds = {"loss[2]": RESUME_EXACT, "grad_norm[2]": RESUME_TOL,
+              "loss[3]": RESUME_TOL, "final_params_rel_l2": RESUME_TOL}
+    emit(phase="train_resume", from_step=meta["data_step"],
+         losses=[a["loss"] for a in again], gaps=gaps, bounds=bounds)
+    bad = {k: g for k, g in gaps.items() if not g <= bounds[k]}
+    if bad:
+        fail(f"resume from step {meta['data_step']} differs: {bad}")
+    return model, opt_state
 
 
 if __name__ == "__main__":

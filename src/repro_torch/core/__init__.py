@@ -10,10 +10,10 @@
   * ``matmul``     -- the GEMM front door every model layer calls
 """
 from repro_torch.core.descriptor import (  # noqa: F401
-    FlashDescriptor, GemmDescriptor, KernelDescriptor)
+    FlashBwdDescriptor, FlashDescriptor, GemmDescriptor, KernelDescriptor)
 from repro_torch.core.blocking import (  # noqa: F401
-    BlockingPlan, FlashPlan, Region, flash_fused_legal, fused_legal, palette,
-    plan_flash, plan_gemm)
+    BlockingPlan, FlashPlan, Region, flash_bwd_fused_legal, flash_fused_legal,
+    fused_legal, palette, plan_flash, plan_flash_bwd, plan_gemm)
 from repro_torch.core.schedule import (  # noqa: F401
     FlashTileSchedule, TileSchedule, flash_tile_schedule, flatten_regions,
     plan_launches)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
-from .descriptor import FlashDescriptor, GemmDescriptor
+from .descriptor import FlashBwdDescriptor, FlashDescriptor, GemmDescriptor
 from .machine import DEFAULT_MACHINE, MachineModel, itemsize
 from .schedule import (FlashTileSchedule, TileSchedule, ceil_div,
                        flash_tile_schedule, flatten_regions, round_up)
@@ -348,6 +348,34 @@ def plan_flash(desc: FlashDescriptor,
     """Pick (block_q, block_k) from the legal set by the cost model;
     fused whenever :func:`flash_fused_legal` allows."""
     fused = flash_fused_legal(desc, machine)
+    best = min(_flash_legal(desc, machine),
+               key=lambda s: _predict_flash_seconds(desc, *s, machine=machine,
+                                                    fused=fused))
+    return FlashPlan(desc, *best, fused=fused)
+
+
+def flash_bwd_fused_legal(desc: FlashBwdDescriptor,
+                          machine: MachineModel = DEFAULT_MACHINE) -> bool:
+    """Can this flash backward run as one scheduled launch?  A kernel that
+    stages whole batch-head slices needs q/k/v/o/do, dq, the fp32 dk/dv
+    and the LSE row to fit half of its fast memory; a streaming kernel
+    takes every problem."""
+    if not machine.stages_whole_operands:
+        return True
+    isz = itemsize(desc.dtype)
+    need = (3 * desc.sq + 2 * desc.sk) * desc.d * isz  # q/o/do + k/v
+    need += desc.sq * desc.d * isz                     # dq
+    need += 2 * desc.sk * desc.d * 4                   # dk/dv, fp32
+    need += desc.sq * 4                                # lse row
+    return need <= machine.vmem_bytes // 2
+
+
+def plan_flash_bwd(desc: FlashBwdDescriptor,
+                   machine: MachineModel = DEFAULT_MACHINE) -> FlashPlan:
+    """Plan the flash backward walk: the forward's (block_q, block_k)
+    search -- the backward walks the same causal-pruned table -- gated by
+    :func:`flash_bwd_fused_legal`."""
+    fused = flash_bwd_fused_legal(desc, machine)
     best = min(_flash_legal(desc, machine),
                key=lambda s: _predict_flash_seconds(desc, *s, machine=machine,
                                                     fused=fused))

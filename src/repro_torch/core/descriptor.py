@@ -185,3 +185,38 @@ class FlashDescriptor(KernelDescriptor):
     @property
     def out_bytes(self) -> int:
         return self.batch_heads * self.sq * self.d * itemsize(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdDescriptor(FlashDescriptor):
+    """Flash-attention backward: dO, O, LSE, Q, K, V -> dQ, dK, dV.
+
+    The forward's geometry fields (the backward walks the forward's
+    ``FlashTileSchedule``) under its own ``family``, so the engine caches
+    and counts backward plans apart from forward ones.
+    """
+
+    family = "flash_attention_bwd"
+
+    @classmethod
+    def from_forward(cls, desc: FlashDescriptor) -> "FlashBwdDescriptor":
+        """Backward descriptor sharing a forward descriptor's geometry."""
+        return cls(**dataclasses.asdict(desc))
+
+    @property
+    def flops(self) -> int:
+        # Five tile products per visited (q, k) tile (the recomputed P,
+        # dV, dP, dK, dQ) against the forward's two: 5/2 of the forward.
+        return (5 * super().flops) // 2
+
+    @property
+    def in_bytes(self) -> int:
+        # q/k/v/o/do plus the fp32 LSE rows.
+        return (self.batch_heads * (3 * self.sq + 2 * self.sk) * self.d
+                * itemsize(self.dtype) + self.batch_heads * self.sq * 4)
+
+    @property
+    def out_bytes(self) -> int:
+        # dQ in the operand dtype, dK/dV accumulated in fp32.
+        return self.batch_heads * (self.sq * self.d * itemsize(self.dtype)
+                                   + 2 * self.sk * self.d * 4)

@@ -42,6 +42,7 @@ _registry_lock = threading.Lock()
 _FAMILY_MODULES = {
     "gemm": "repro_torch.kernels.gemm.ops",
     "flash_attention": "repro_torch.kernels.flash_attention.ops",
+    "flash_attention_bwd": "repro_torch.kernels.flash_attention.ops",
 }
 
 PLAN_CACHE = LruCache(max_entries=65536)
@@ -130,25 +131,37 @@ _STAT_KEYS = ("plan_hits", "plan_misses", "plan_evictions", "planner_calls",
 
 
 def stats() -> Dict[str, Dict[str, int]]:
-    """Per-family engine stats across both cache layers."""
+    """Per-family engine stats across both cache layers.
+
+    A backward family (``<family>_bwd``) folds into its forward family's
+    row under ``*_bwd`` keys (``launches_bwd``, ``plan_hits_bwd``, ...),
+    so one row tells a family's forward and backward story.
+    """
     out: Dict[str, Dict[str, int]] = {}
 
-    def bucket(fam: str) -> Dict[str, int]:
-        return out.setdefault(fam, dict.fromkeys(_STAT_KEYS, 0))
+    def slot(fam: str):
+        """The family's row and the key suffix it reports under."""
+        fam, sfx = (fam[:-4], "_bwd") if fam.endswith("_bwd") else (fam, "")
+        row = out.setdefault(fam, {k + s: 0 for s in ("", "_bwd")
+                                   for k in _STAT_KEYS})
+        return row, sfx
 
     for fam, c in PLAN_CACHE.family_stats().items():
-        b = bucket(fam)
-        b["plan_hits"], b["plan_misses"] = c["hits"], c["misses"]
-        b["plan_evictions"] = c["evictions"]
+        b, sfx = slot(fam)
+        b["plan_hits" + sfx], b["plan_misses" + sfx] = c["hits"], c["misses"]
+        b["plan_evictions" + sfx] = c["evictions"]
     with _counters_lock:
         for fam, n in _plan_calls.items():
-            bucket(fam)["planner_calls"] = n
+            b, sfx = slot(fam)
+            b["planner_calls" + sfx] = n
         for fam, n in _launches.items():
-            bucket(fam)["launches"] = n
+            b, sfx = slot(fam)
+            b["launches" + sfx] = n
     for fam, c in GLOBAL_KERNEL_CACHE.family_stats().items():
-        b = bucket(fam)
-        b["kernel_hits"], b["kernel_misses"] = c["hits"], c["misses"]
-        b["kernel_evictions"] = c["evictions"]
+        b, sfx = slot(fam)
+        b["kernel_hits" + sfx], b["kernel_misses" + sfx] = \
+            c["hits"], c["misses"]
+        b["kernel_evictions" + sfx] = c["evictions"]
     return out
 
 

@@ -163,6 +163,24 @@ class FlashTileSchedule:
             runs[-1][1] += 1
         return np.asarray(runs, dtype=np.int32)
 
+    @property
+    def num_k_blocks(self) -> int:
+        return ceil_div(self.sk, self.bk)
+
+    def k_block_index(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The k-block-major counterpart of :meth:`q_block_index`, in CSR
+        form: ``offsets`` (``(num_k_blocks + 1,)`` int32) and ``rows``
+        (int32 table-row ids) such that ``rows[offsets[j]:offsets[j+1]]``
+        are the rows whose key columns are k-block ``j``, ascending.  One
+        CUDA thread block of the backward walks one k-block's rows and
+        owns its dK/dV rows; a causal k-block no query reaches has none."""
+        per_block = [[] for _ in range(self.num_k_blocks)]
+        for i, tile in enumerate(self.tiles):
+            per_block[tile[3] // self.bk].append(i)
+        offsets = np.cumsum([0] + [len(r) for r in per_block])
+        rows = [i for r in per_block for i in r]
+        return (offsets.astype(np.int32), np.asarray(rows, dtype=np.int32))
+
     def validate(self):
         """Every query row drained exactly once; every kept tile's k
         range in bounds, non-empty and causal-reachable; carry flags

@@ -8,7 +8,10 @@
 //     grid (q_blocks, BH); each thread block walks its q-block's contiguous
 //     run of FlashTileSchedule rows, so causal k-blocks dropped at plan time
 //     are never touched; the carry resets at `first`, drains at `last`
-//     into the owned rows [q0, q_end) only;
+//     into the owned rows [q0, q_end) only.  Given a non-null `lse`
+//     ((BH, sq) fp32), the drain also writes lse = m + log(max(l, 1e-30))
+//     for the owned rows: the residual the backward (flash_bwd.cu)
+//     recomputes P from, as `return_lse=True` does in the reference;
 //   * flash_fwd_dense <- build_flash_kernel (_flash_kernel): grid
 //     (ceil(sq/bq), BH); every k-block is visited in order and those past
 //     the causal diagonal (ki*bk > qi*bq + bq - 1) are skipped; the KV tail
@@ -49,6 +52,7 @@ struct FlashArgs {
   const void* k;  // (BH, sk, d)
   const void* v;  // (BH, sk, d)
   void* o;        // (BH, sq, d)
+  float* lse;     // (BH, sq) or null: no LSE output
   int sq, sk, d, bq, bk, causal;
   float scale;
 };
@@ -146,15 +150,22 @@ __device__ void attend_tile(const FlashArgs& f, const Smem& sm, const T* K,
 }
 
 // Normalised output of the carry for window rows [qs, qs + bq) that fall in
-// [o_lo, o_hi).
+// [o_lo, o_hi), and their log-sum-exp when L is not null.
 template <typename T>
-__device__ void drain(const FlashArgs& f, const Smem& sm, T* O, int qs,
-                      int o_lo, int o_hi) {
+__device__ void drain(const FlashArgs& f, const Smem& sm, T* O, float* L,
+                      int qs, int o_lo, int o_hi) {
   __syncthreads();
   for (int i = threadIdx.x; i < f.bq * f.d; i += NT) {
     const int r = i / f.d, c = i % f.d, qpos = qs + r;
     if (qpos >= o_lo && qpos < o_hi)
       O[(int64_t)qpos * f.d + c] = from_f<T>(sm.acc[i] / fmaxf(sm.l[r], 1e-30f));
+  }
+  if (L != nullptr) {
+    for (int r = threadIdx.x; r < f.bq; r += NT) {
+      const int qpos = qs + r;
+      if (qpos >= o_lo && qpos < o_hi)
+        L[qpos] = sm.m[r] + logf(fmaxf(sm.l[r], 1e-30f));
+    }
   }
 }
 
@@ -169,6 +180,7 @@ flash_fused_kernel(FlashArgs f, const int* __restrict__ table,
   const T* K = reinterpret_cast<const T*>(f.k) + bh * f.sk * f.d;
   const T* V = reinterpret_cast<const T*>(f.v) + bh * f.sk * f.d;
   T* O = reinterpret_cast<T*>(f.o) + bh * f.sq * f.d;
+  float* L = f.lse == nullptr ? nullptr : f.lse + bh * f.sq;
   const int start = qindex[2 * blockIdx.x], count = qindex[2 * blockIdx.x + 1];
   const int qs = table[start * 8 + 2];
   load_rows<T>(sm.q, f.d, Q, qs, f.bq, f.sq, f.d);
@@ -179,7 +191,7 @@ flash_fused_kernel(FlashArgs f, const int* __restrict__ table,
       carry_init(sm, f.bq, f.d);
     }
     attend_tile<T>(f, sm, K, V, qs, row[5], row[3], row[4]);
-    if (row[7]) drain<T>(f, sm, O, qs, row[0], row[1]);
+    if (row[7]) drain<T>(f, sm, O, L, qs, row[0], row[1]);
   }
 }
 
@@ -200,7 +212,7 @@ __global__ void __launch_bounds__(NT) flash_dense_kernel(FlashArgs f) {
     if (f.causal && ki * f.bk > q0 + f.bq - 1) continue;  // uniform branch
     attend_tile<T>(f, sm, K, V, q0, ki * f.bk, ki * f.bk, f.sk);
   }
-  drain<T>(f, sm, O, q0, q0, f.sq);
+  drain<T>(f, sm, O, nullptr, q0, q0, f.sq);
 }
 
 size_t smem_bytes(int bq, int bk, int d) {
@@ -227,11 +239,12 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
 }  // namespace
 
 extern "C" int flash_fwd_fused(const void* q, const void* k, const void* v,
-                               void* o, const int* table, const int* qindex,
-                               int num_q_blocks, int bh, int sq, int sk, int d,
-                               int bq, int bk, int causal, float scale,
-                               int dtype, void* stream) {
-  FlashArgs f{q, k, v, o, sq, sk, d, bq, bk, causal, scale};
+                               void* o, float* lse, const int* table,
+                               const int* qindex, int num_q_blocks, int bh,
+                               int sq, int sk, int d, int bq, int bk,
+                               int causal, float scale, int dtype,
+                               void* stream) {
+  FlashArgs f{q, k, v, o, lse, sq, sk, d, bq, bk, causal, scale};
   if (!shape_ok(f)) return cudaErrorInvalidValue;
   dim3 grid(num_q_blocks, bh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -248,7 +261,7 @@ extern "C" int flash_fwd_dense(const void* q, const void* k, const void* v,
                                void* o, int bh, int sq, int sk, int d, int bq,
                                int bk, int causal, float scale, int dtype,
                                void* stream) {
-  FlashArgs f{q, k, v, o, sq, sk, d, bq, bk, causal, scale};
+  FlashArgs f{q, k, v, o, nullptr, sq, sk, d, bq, bk, causal, scale};
   if (!shape_ok(f)) return cudaErrorInvalidValue;
   dim3 grid((sq + bq - 1) / bq, bh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

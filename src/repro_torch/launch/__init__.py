@@ -1,1 +1,1 @@
-"""Entry points (the static serving CLI)."""
+"""Entry points: the static serving CLI and the training CLI."""

@@ -1,1 +1,1 @@
-"""Serving step builders."""
+"""Step builders (train, prefill, decode) and the training loop."""

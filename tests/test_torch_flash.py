@@ -1,6 +1,7 @@
 """The port's flash-attention forward (plain versions on the CPU) against
 the reference's ``flash_attention`` in interpret mode and its
-``ref_attention`` oracle, on both lowerings.
+``ref_attention`` oracle, on both lowerings.  (The backward is in
+tests/test_torch_flash_bwd.py.)
 
 Tolerances 2e-3 for float32 and 3e-2 for bfloat16, as in the reference's
 own flash parity test.  Causal sq != sk is held to the start-aligned
@@ -126,10 +127,15 @@ def test_one_launch_per_call_on_either_lowering():
 
 
 def test_backward_not_ported_raises():
+    """The backward is ported now: with gradients the call no longer
+    raises, it differentiates through one scheduled backward launch
+    (tests/test_torch_flash_bwd.py holds the gradients to the reference)."""
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
                   for x in _qkv(1, 1, 8, 8, 16))
-    with pytest.raises(NotImplementedError):
-        flash_attention(tq, tk, tv)
+    out = flash_attention(tq, tk, tv)
+    grads = torch.autograd.grad(out.sum(), (tq, tk, tv))
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert engine.stats()["flash_attention"]["launches_bwd"] == 1
 
 
 @pytest.mark.gpu

@@ -19,6 +19,8 @@ from repro_torch.kernels.gemm import kernel as gemm_kernel
 KERNELS = Path(gemm_kernel.__file__).resolve().parents[1]
 GEMM_CU = (KERNELS / "gemm" / "csrc" / "gemm.cu").read_text()
 FLASH_CU = (KERNELS / "flash_attention" / "csrc" / "flash_fwd.cu").read_text()
+FLASH_BWD_CU = (KERNELS / "flash_attention" / "csrc"
+                / "flash_bwd.cu").read_text()
 
 
 def _constexpr(src, name):
@@ -68,6 +70,22 @@ def test_flash_limits_match_kernel_py():
     assert _constexpr(FLASH_CU, "BK_MAX") == flash_kernel.MAX_BLOCK
     assert _constexpr(FLASH_CU, "D_MAX") == flash_kernel.MAX_HEAD_DIM
     assert _constexpr(FLASH_CU, "NEG_INF") == flash_kernel.NEG_INF
+
+
+def test_flash_bwd_limits_match_kernel_py():
+    assert _constexpr(FLASH_BWD_CU, "BQ_MAX") == flash_kernel.MAX_BLOCK
+    assert _constexpr(FLASH_BWD_CU, "BK_MAX") == flash_kernel.MAX_BLOCK
+    assert _constexpr(FLASH_BWD_CU, "D_MAX") == flash_kernel.MAX_HEAD_DIM
+
+
+def test_flash_bwd_shared_memory_fits_h100_at_the_limits():
+    """The backward stages k, v, q and dO windows (rows padded), fp32
+    dK/dV, the P tile and two per-row vectors, all fp32: at the largest
+    blocks and head dim it must fit a block's shared memory."""
+    pad = _constexpr(FLASH_BWD_CU, "PAD")
+    b, d = flash_kernel.MAX_BLOCK, flash_kernel.MAX_HEAD_DIM
+    floats = 4 * b * (d + pad) + 2 * b * d + b * (b + pad) + 2 * b
+    assert 4 * floats <= H100_SXM.vmem_bytes
 
 
 def test_h100_flash_blocks_within_kernel_limits():

@@ -127,6 +127,9 @@ def test_import_does_not_load_jax_or_reference():
     code = ("import sys\n"
             "import repro_torch, repro_torch.models, repro_torch.convert\n"
             "import repro_torch.launch.serve, repro_torch.runtime.steps\n"
+            "import repro_torch.launch.train, repro_torch.runtime.train_loop\n"
+            "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+            "import repro_torch.models.losses\n"
             "import repro_torch.kernels.gemm, repro_torch.kernels.flash_attention\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'repro' or m.startswith('repro.')]\n"
