@@ -10,7 +10,6 @@ rtol 2e-3 in float32; 1e-1 in bfloat16 (the two packages round the bf16
 operands and outputs at different points).  The LSE agrees to 1e-5
 (float32, the same online-softmax arithmetic).
 """
-import functools
 
 import jax
 import jax.numpy as jnp
