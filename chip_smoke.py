@@ -30,8 +30,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the synthetic bigram stream): loss and gradients of one batch
                 under the engine and the torch backends, within stated
                 bounds; 4 steps through run_with_restarts with checkpoints
-                every 2 steps, finite losses and exact launch counts per
-                step; the step-2 checkpoint restored and stepped again, equal
+                every 2 steps and no restart allowed, finite losses and
+                exact launch counts per step; the step-2 checkpoint restored and stepped again, equal
                 to the run's steps 3 and 4 within stated tolerances; a
                 profile of one more step;
   8. the ``kernels`` line, then the card's nvidia-smi line, then
@@ -771,8 +771,11 @@ def phase_train(torch):
 
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
+        # No fault is injected, so a restart could only hide a kernel
+        # error: the first exception ends the run.
         loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=ckpt,
-                               save_every=SAVE_EVERY, log_every=1)
+                               save_every=SAVE_EVERY, log_every=1,
+                               max_restarts=0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with use(backend="engine", fused="auto", device="cuda"):
@@ -795,7 +798,7 @@ def phase_train(torch):
              step_seconds=step_s,
              tokens_per_s=[tokens / t for t in step_s],
              run_seconds=run_s, peak_memory_bytes=peak,
-             restarts=out["restarts"], launches_per_step=per_step,
+             launches_per_step=per_step,
              expected_per_step=want)
         if len(hist) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             fail(f"training losses not finite over {TRAIN_STEPS} steps: "

@@ -6,8 +6,8 @@
   * atomic commit: the files are written to ``step_N.tmp``, which
     ``os.replace`` renames, so a crash mid-write never corrupts the
     latest checkpoint;
-  * asynchronous: the device -> host copy happens on the caller's thread,
-    the file write on a background thread;
+  * asynchronous: the host copy (a snapshot, on the CPU too) happens on
+    the caller's thread, the file write on a background thread;
   * retention: the last ``max_to_keep`` steps are kept;
   * metadata (step, data position) rides along, so resume is exact.
 
@@ -36,10 +36,12 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
+    """A host snapshot that owns its memory.  ``copy=True`` matters for a
+    CPU tensor: ``.cpu().numpy()`` would alias it, and the next training
+    step, which updates in place, would change what the writer thread is
+    still saving."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dtype, copy=True).numpy()
 
 
 def save_checkpoint(directory: str, step: int, tree, *,

@@ -126,18 +126,6 @@ def test_one_launch_per_call_on_either_lowering():
         assert engine.stats()["flash_attention"]["launches"] == 1
 
 
-def test_backward_not_ported_raises():
-    """The backward is ported now: with gradients the call no longer
-    raises, it differentiates through one scheduled backward launch
-    (tests/test_torch_flash_bwd.py holds the gradients to the reference)."""
-    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
-                  for x in _qkv(1, 1, 8, 8, 16))
-    out = flash_attention(tq, tk, tv)
-    grads = torch.autograd.grad(out.sum(), (tq, tk, tv))
-    assert all(torch.isfinite(g).all() for g in grads)
-    assert engine.stats()["flash_attention"]["launches_bwd"] == 1
-
-
 @pytest.mark.gpu
 def test_flash_kernels_on_card(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)

@@ -15,6 +15,7 @@ so there they agree to two bf16 ulps of each leaf's largest entry.
 """
 import math
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -328,6 +329,34 @@ def test_checkpoint_round_trip_and_retention(tmp_path):
         assert set(arrays) == {"params/a.w", "params/b", "opt_state/m/a.w"}
     with pytest.raises(KeyError, match="missing"):
         restore_checkpoint(str(tmp_path), 4, {"other": torch.zeros(1)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int64, torch.bfloat16])
+def test_async_save_is_a_snapshot(tmp_path, monkeypatch, dtype):
+    """An asynchronous save writes the values the tensors held at the call,
+    even when the caller changes them in place (as the next training step
+    does) before the writer thread reaches them."""
+    go = threading.Event()
+    savez = np.savez
+
+    def gated_savez(*args, **kwargs):
+        go.wait(timeout=60)
+        savez(*args, **kwargs)
+
+    monkeypatch.setattr(np, "savez", gated_savez)
+    w = torch.arange(6).reshape(2, 3).to(dtype)
+    m = torch.ones(3, dtype=dtype)
+    tree = {"params": {"w": w}, "opt_state": {"m": {"w": m}}}
+    want = {"params": {"w": w.clone()}, "opt_state": {"m": {"w": m.clone()}}}
+    writer = save_checkpoint(str(tmp_path), 1, tree)
+    with torch.no_grad():
+        w.add_(100)
+        m.mul_(7)
+    go.set()
+    writer.join()
+    got, _ = restore_checkpoint(str(tmp_path), 1, tree)
+    assert torch.equal(got["params"]["w"], want["params"]["w"])
+    assert torch.equal(got["opt_state"]["m"]["w"], want["opt_state"]["m"]["w"])
 
 
 def _job(tmp_path, steps, vocab=128, seq=32, batch=8, save_every=10):
