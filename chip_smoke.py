@@ -8,12 +8,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device  -- the card's name, the device count and nvidia-smi's name and
                 power limit; no CUDA device is a failure;
   2. build   -- nvcc builds every kernel source in the checkout;
-  3. kernels -- each of the five kernels against its plain torch version on
+  3. kernels -- each of the six kernels against its plain torch version on
                 the card, at full-width Qwen3-0.6B main-path shapes (serving:
-                batch 4, prompt 256; training: batch 8, sequence 128) and
-                ragged cases, with errors, kernel / plain / library times
-                (CUDA events) and the bound; the flash forward also in its
-                LSE form, and the flash backward;
+                batch 4, prompt 256; training: batch 8, sequence 128;
+                continuous decode: 8 slots over a paged pool) and ragged
+                cases, with errors, kernel / plain / library times (CUDA
+                events) and the bound; the flash forward also in its LSE
+                form, the flash backward, and the paged decode;
   4. serve   -- full-width Qwen3-0.6B (seeded random weights) through
                 ``generate`` on the engine backend, fused="auto": batch 4,
                 prompt 256, 16 new tokens; launch counts must equal what
@@ -23,8 +24,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 which runs the region GEMM and the dense-grid flash kernel;
   6. profile -- torch.profiler over two full-width decode steps: wall time
                 against device time, and the kernels that take it;
+     continuous -- full-width Qwen3-0.6B through ``run_continuous``: a
+                Poisson trace of 12 requests (prompts 96-256, 16-48 new
+                tokens) over 8 slots and a 96-page pool of 16-token pages,
+                which forces evictions; every request finishes, the pool's
+                invariants hold, one flash_decode launch per layer per
+                decode step, GEMM and flash launches as the prefills and
+                steps imply; one decode step's logits against the static
+                dense path's; a profile of two decode steps;
      reduced -- reduced_config(qwen3-0.6b) in fp32: engine and torch give
-                identical greedy tokens;
+                identical greedy tokens, and a continuous run with an
+                eviction gives the static path's tokens;
   7. train   -- full-width Qwen3-0.6B training (seeded random fp32 masters,
                 bf16 compute; batch 8, sequence 128, AdamW with warmup_cosine,
                 the synthetic bigram stream): loss and gradients of one batch
@@ -80,6 +90,13 @@ LOSS_BOUND, GRAD_BOUND = 0.01, 0.05
 # about 2 lr when a near-zero gradient flips sign).
 RESUME_EXACT, RESUME_TOL = 1e-6, 1e-3
 
+# Continuous batching at full width: 8 slots over 96 pages of 16 positions
+# (at most 24 pages, 384 positions, a sequence), and a Poisson trace that
+# overflows the pool, so that growth evicts.
+CONT_SLOTS, CONT_PAGES, CONT_PAGE, CONT_BLOCKS = 8, 96, 16, 24
+CONT_TRACE = dict(num_requests=12, rate=1.0, prompt_len=(96, 256),
+                  max_new=(16, 48), seed=0)
+
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
@@ -119,13 +136,14 @@ def main():
     counts_on, model, prompts, logits = phase_serve(torch)
     counts_off = phase_serve_off(torch, model, prompts, logits)
     phase_profile(torch, model, prompts)
+    counts_cont = phase_continuous(torch, model)
     del model, logits  # free the serving model before training
     phase_reduced(torch)
     torch.cuda.empty_cache()
     counts_train = phase_train(torch)
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
-               "train": counts_train}
+               "continuous": counts_cont, "train": counts_train}
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -168,6 +186,8 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:115"),
     "flash_bwd_fused": ("src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
                         "src/repro/kernels/flash_attention/kernel.py:500"),
+    "flash_decode": ("src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:358"),
 }
 
 
@@ -478,6 +498,79 @@ def run_flash_bwd_case(torch, case, gen):
     return rows
 
 
+def decode_cases():
+    """(label, slot lengths, dtype, main): the continuous phase's pool (8
+    slots, 16 query / 8 KV heads of 128, 96 pages of 16, 24 blocks) with
+    ragged lengths, one slot empty."""
+    return [("serve_ragged", (0, 1, 16, 17, 300, 255, 100, 33), "bfloat16",
+             True),
+            ("f32_ragged", (0, 1, 15, 16, 47, 64, 5, 200), "float32", False)]
+
+
+def run_decode_case(torch, case, gen):
+    """flash_decode against its plain version over shuffled block tables;
+    the library is SDPA on the slots' pages gathered to a contiguous,
+    masked K/V (the gather outside the timed region)."""
+    import torch.nn.functional as F
+    from repro_torch.core import DecodeTileSchedule
+    from repro_torch.kernels.flash_attention.kernel import (
+        FlashDecode, flash_decode, flash_decode_plain)
+    label, lengths, dname, main_path = case
+    dt = getattr(torch, dname)
+    S, P, B, h, hkv, hd = (CONT_SLOTS, CONT_PAGE, CONT_BLOCKS, 16, 8, 128)
+    q = torch.randn((S, h, hd), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((CONT_PAGES, P, hkv, hd), generator=gen,
+                        device="cuda").to(dt) for _ in range(2))
+    perm = torch.randperm(CONT_PAGES, generator=torch.Generator()
+                          .manual_seed(len(label)))
+    bt = torch.zeros((S, B), dtype=torch.int32)
+    used = 0
+    for slot, n in enumerate(-(-L // P) for L in lengths):
+        bt[slot, :n] = perm[used:used + n]
+        used += n
+    bt, lens = bt.cuda(), torch.tensor(lengths, dtype=torch.int32,
+                                       device="cuda")
+    exe = FlashDecode(DecodeTileSchedule(num_seqs=S, pages=CONT_PAGES,
+                                         page_size=P, max_blocks=B), "cuda")
+    exe.update(bt, lens)
+    got = flash_decode(exe, q, k, v)
+    want = flash_decode_plain(exe, q, k, v)
+    torch.cuda.synchronize()
+    max_abs, rel, nbad, tol = compare(torch, got, want, dname)
+    empty = [i for i, L in enumerate(lengths) if L == 0]
+    if any(got[i].abs().max().item() != 0 for i in empty):
+        fail(f"flash_decode {label}: an empty slot did not drain zeros")
+    # Library: SDPA over the gathered pages, heads expanded to h.
+    span = torch.arange(B * P, device="cuda")
+    gk, gv = (t[bt.long()].reshape(S, B * P, hkv, hd).transpose(1, 2)
+              .repeat_interleave(h // hkv, dim=1).contiguous() for t in (k, v))
+    mask = (span[None, :] < lens[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
+
+    isz = 2 if dname == "bfloat16" else 4
+    live_pages = sum(-(-L // P) for L in lengths)
+    nbytes = isz * (2 * live_pages * P * hkv * hd + 2 * S * h * hd)
+    op_ms = 4 * h * hd * sum(lengths) / PEAK[dname] * 1e3
+    byte_ms = nbytes / HBM_BPS * 1e3
+    row = dict(phase="kernel", kernel="flash_decode", case=label,
+               main_path=main_path, shape=[S, h, hkv, hd, P],
+               lengths=list(lengths), dtype=dname, max_abs_err=max_abs,
+               max_rel_err=rel, tolerance=tol, mismatches=nbad,
+               ms=time_ms(torch, lambda: flash_decode(exe, q, k, v), 50),
+               plain_ms=time_ms(torch, lambda: flash_decode_plain(
+                   exe, q, k, v), 2),
+               library_ms=time_ms(torch, library, 50), op_ms=op_ms,
+               byte_ms=byte_ms, bound_ms=max(op_ms, byte_ms),
+               bound_by="bytes" if byte_ms >= op_ms else "operations")
+    emit(**row)
+    if nbad:
+        fail(f"flash_decode {label}: {nbad} elements outside atol=rtol={tol}")
+    return [row]
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -487,6 +580,8 @@ def phase_kernels(torch):
         rows += run_flash_case(torch, case, gen)
     for case in flash_bwd_cases():
         rows += run_flash_bwd_case(torch, case, gen)
+    for case in decode_cases():
+        rows += run_decode_case(torch, case, gen)
     return rows
 
 
@@ -515,7 +610,9 @@ def _read_counts():
             "engine_flash_launches": st.get("flash_attention", {})
             .get("launches", 0),
             "engine_flash_launches_bwd": st.get("flash_attention", {})
-            .get("launches_bwd", 0)}
+            .get("launches_bwd", 0),
+            "engine_decode_launches": st.get("flash_decode", {})
+            .get("launches", 0)}
 
 
 def _prompts(torch, vocab):
@@ -673,6 +770,136 @@ def phase_profile(torch, model, prompts, steps: int = 2):
              **_device_profile(torch, step, steps))
 
 
+def phase_continuous(torch, model):
+    """Full-width continuous batching through ``run_continuous`` (the
+    static-path oracle included), with its gates; then one decode step's
+    logits against the static dense path, and a profile."""
+    from repro_torch.core import use
+    from repro_torch.launch.serve import run_continuous
+    cfg = model.cfg
+    L = cfg.num_layers
+    with use(backend="engine", fused="auto", device="cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = run_continuous(model, num_slots=CONT_SLOTS,
+                             num_pages=CONT_PAGES, page_size=CONT_PAGE,
+                             max_blocks=CONT_BLOCKS, **CONT_TRACE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    m, reqs, pool = res["metrics"], res["trace"], res["pool"]
+    steps = m["decode_steps"]
+    admissions = len(reqs) + m["evictions"]
+    oracle_forwards = sum(r.max_new for r in reqs)
+    want = {
+        "flash_decode": steps * L, "engine_decode_launches": steps * L,
+        "engine_gemm_calls": (admissions + steps + oracle_forwards)
+        * (7 * L + 1),
+        "flash_fwd_fused": (admissions + len(reqs)) * L,
+        "engine_flash_launches": (admissions + len(reqs)) * L,
+    }
+    emit(phase="continuous", model=cfg.name, slots=CONT_SLOTS,
+         num_pages=CONT_PAGES, page_size=CONT_PAGE, max_blocks=CONT_BLOCKS,
+         trace=CONT_TRACE,
+         prompt_lens=[len(r.prompt) for r in reqs],
+         max_new=[r.max_new for r in reqs],
+         tokens_per_s=m["tokens_per_s"], total_tokens=m["total_tokens"],
+         p50_token_latency_s=m["p50_token_latency_s"],
+         p99_token_latency_s=m["p99_token_latency_s"],
+         phase_seconds=m["phase_seconds"], decode_steps=steps,
+         evictions=m["evictions"], evicted=res["evictions"],
+         run_seconds=m["wall_seconds"], wall_seconds_with_oracle=wall,
+         peak_memory_bytes=peak, flash_decode_launches=
+         m["flash_decode_launches"], launches=counts, expected=want,
+         identical_requests=res["identical_requests"],
+         requests=len(reqs))
+    for r in reqs:
+        out = res["outputs"].get(r.rid)
+        if out is None or len(out) != r.max_new or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"request {r.rid} did not finish with {r.max_new} in-vocab "
+                 f"tokens: {out}")
+    if m["evictions"] < 1:
+        fail("the continuous trace evicted nothing")
+    pool.check_invariants([0] * CONT_SLOTS)
+    if pool.free_pages != CONT_PAGES:
+        fail(f"{CONT_PAGES - pool.free_pages} pages still owned at the end")
+    if m["flash_decode_launches"] != steps * L:
+        fail(f"flash_decode launches {m['flash_decode_launches']} != "
+             f"{steps} steps x {L} layers")
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if bad:
+        fail(f"continuous launch counts (got, want): {bad}")
+    if counts["gemm_fused"] + counts["gemm_region"] != \
+            counts["engine_gemm_launches"] or counts["flash_fwd_dense"]:
+        fail(f"GEMM / flash kernel launches disagree with the engine: "
+             f"{counts}")
+    _continuous_logits(torch, model, reqs)
+    return counts
+
+
+def _continuous_logits(torch, model, reqs):
+    """Prefill the first 8 requests into the slots of a paged pool, and
+    hold the first decode step's paged logits of every slot against the
+    static dense path's on the same context (``generate``'s prefill and
+    first dense-cache decode step).  Then profile two paged decode steps
+    over the 8 slots."""
+    from repro_torch.core import use
+    from repro_torch.models.attention import PageSpec
+    from repro_torch.runtime.pages import (PagePool, init_serving_cache,
+                                           refresh_tables, write_prefill)
+    from repro_torch.runtime.steps import (make_paged_serve_step,
+                                           make_prefill_step, make_serve_step)
+    spec = PageSpec(CONT_SLOTS * CONT_BLOCKS, CONT_PAGE, CONT_BLOCKS)
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        pool = PagePool(spec, CONT_SLOTS)
+        cache = init_serving_cache(model, CONT_SLOTS, spec)
+        toks, dense = [], []
+        for slot, r in enumerate(reqs[:CONT_SLOTS]):
+            L = len(r.prompt)
+            prompt = torch.from_numpy(r.prompt).long().cuda()[None]
+            logits, dcache = make_prefill_step(model, L + 1)(
+                {"tokens": prompt})
+            tok = torch.argmax(logits, -1)[:, None]
+            step, _, _ = make_serve_step(model)(
+                dcache, tok, torch.tensor(L, dtype=torch.int32,
+                                          device="cuda"))
+            dense.append(step[0].float())
+            ids = pool.grow(slot, L)
+            _, pcache = make_prefill_step(model, L)({"tokens": prompt})
+            write_prefill(cache, pcache, slot=slot, length=L, page_ids=ids,
+                          page_size=CONT_PAGE)
+            pool.grow(slot, L + 3)  # room for three decode steps
+            toks.append(tok[0])
+        refresh_tables(cache, pool.tables)
+        tokens = torch.stack(toks)
+        lengths = torch.tensor([len(r.prompt) for r in reqs[:CONT_SLOTS]],
+                               device="cuda")
+        active = torch.ones(CONT_SLOTS, dtype=torch.bool, device="cuda")
+        paged, _, _ = model.apply(tokens, positions=lengths.to(
+            torch.int32)[:, None], cache=cache)
+        gaps = [_logit_gap(torch, paged[slot, -1].float(), dense[slot])[2]
+                for slot in range(CONT_SLOTS)]
+        emit(phase="continuous_logits", slots=CONT_SLOTS, rel_gaps=gaps,
+             bound=LOGIT_BOUND)
+        if max(gaps) > LOGIT_BOUND:
+            fail(f"paged vs dense decode logits differ by {max(gaps):.4f} "
+                 f"of their range (bound {LOGIT_BOUND})")
+        step_fn = make_paged_serve_step(model)
+        state = {"tokens": torch.argmax(paged[:, -1], -1)[:, None],
+                 "lengths": lengths + 1}
+
+        def step():
+            state["tokens"], _, state["lengths"] = step_fn(
+                cache, state["tokens"], state["lengths"], active)
+
+        emit(phase="continuous_profile", decode_steps=2,
+             active_slots=CONT_SLOTS, **_device_profile(torch, step, 2))
+
+
 def phase_reduced(torch):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core import use
@@ -692,6 +919,26 @@ def phase_reduced(torch):
          tokens_identical=same, tokens=toks["engine"].tolist())
     if not same:
         fail("reduced fp32 engine and torch tokens differ")
+    # Continuous batching in fp32 with an eviction (tests/test_serving.py's
+    # evict/re-admit case): the paged fp32 decode kernel's tokens must be
+    # the static path's.
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import run_continuous
+    n0 = fk.LAUNCHES["flash_decode"]
+    with use(backend="engine", device="cuda"):
+        res = run_continuous(model, num_slots=3, num_pages=9, page_size=4,
+                             max_blocks=8, num_requests=4, rate=2.0,
+                             prompt_len=10, max_new=8, seed=1)
+    m = res["metrics"]
+    emit(phase="reduced_continuous", model=cfg.name, dtype=cfg.dtype,
+         evictions=m["evictions"], decode_steps=m["decode_steps"],
+         flash_decode_kernel_launches=fk.LAUNCHES["flash_decode"] - n0,
+         token_identical=res["token_identical"])
+    if not (res["token_identical"] and m["evictions"] > 0
+            and fk.LAUNCHES["flash_decode"] - n0
+            == m["decode_steps"] * cfg.num_layers):
+        fail("reduced fp32 continuous run: tokens differ from the static "
+             "path, no eviction, or the decode kernel did not run")
 
 
 # ---------------------------------------------------------------------------

@@ -10,13 +10,15 @@
   * ``matmul``     -- the GEMM front door every model layer calls
 """
 from repro_torch.core.descriptor import (  # noqa: F401
-    FlashBwdDescriptor, FlashDescriptor, GemmDescriptor, KernelDescriptor)
+    FlashBwdDescriptor, FlashDecodeDescriptor, FlashDescriptor,
+    GemmDescriptor, KernelDescriptor)
 from repro_torch.core.blocking import (  # noqa: F401
-    BlockingPlan, FlashPlan, Region, flash_bwd_fused_legal, flash_fused_legal,
-    fused_legal, palette, plan_flash, plan_flash_bwd, plan_gemm)
+    BlockingPlan, FlashDecodePlan, FlashPlan, Region, flash_bwd_fused_legal,
+    flash_decode_legal, flash_fused_legal, fused_legal, palette, plan_flash,
+    plan_flash_bwd, plan_flash_decode, plan_gemm)
 from repro_torch.core.schedule import (  # noqa: F401
-    FlashTileSchedule, TileSchedule, flash_tile_schedule, flatten_regions,
-    plan_launches)
+    DecodeTileSchedule, FlashTileSchedule, TileSchedule, flash_tile_schedule,
+    flatten_regions, plan_launches)
 from repro_torch.core.machine import (  # noqa: F401
     DEFAULT_MACHINE, H100_SXM, MachineModel, TPU_V5E, get_machine)
 from repro_torch.core.config import (  # noqa: F401

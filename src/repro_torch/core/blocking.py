@@ -16,10 +16,12 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
-from .descriptor import FlashBwdDescriptor, FlashDescriptor, GemmDescriptor
+from .descriptor import (FlashBwdDescriptor, FlashDecodeDescriptor,
+                         FlashDescriptor, GemmDescriptor)
 from .machine import DEFAULT_MACHINE, MachineModel, itemsize
-from .schedule import (FlashTileSchedule, TileSchedule, ceil_div,
-                       flash_tile_schedule, flatten_regions, round_up)
+from .schedule import (DecodeTileSchedule, FlashTileSchedule, TileSchedule,
+                       ceil_div, flash_tile_schedule, flatten_regions,
+                       round_up)
 
 
 def palette(budget: Optional[int] = None,
@@ -380,3 +382,59 @@ def plan_flash_bwd(desc: FlashBwdDescriptor,
                key=lambda s: _predict_flash_seconds(desc, *s, machine=machine,
                                                     fused=fused))
     return FlashPlan(desc, *best, fused=fused)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashDecodePlan:
+    """Plan of one paged decode-attention step.
+
+    The page size is the k-block (the pool fixed it when it was built), so
+    the only planning freedom is the schedule itself; the plan is always
+    ``fused``: the ragged page walk is ONE launch riding runtime tables."""
+
+    desc: FlashDecodeDescriptor
+    fused: bool = True
+
+    def tile_schedule(self) -> DecodeTileSchedule:
+        """The runtime-table schedule this step walks (one row per live KV
+        page, plus the per-slot dummy floor)."""
+        d = self.desc
+        return DecodeTileSchedule(num_seqs=d.num_seqs, pages=d.pages,
+                                  page_size=d.page_size,
+                                  max_blocks=d.max_blocks)
+
+    def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE
+                          ) -> float:
+        """Napkin-math step time: every walked tile issues a full
+        (h, page_size, hd) product pair; traffic streams each live page
+        once plus the q/out rows and the tables."""
+        d = self.desc
+        steps = self.tile_schedule().max_tiles
+        compute_s = d.flops / machine.peak(d.dtype)
+        memory_s = (d.in_bytes + d.out_bytes) / machine.hbm_bw
+        return (max(compute_s, memory_s) + steps * machine.step_overhead_s
+                + machine.launch_overhead_s)
+
+
+def flash_decode_legal(desc: FlashDecodeDescriptor,
+                       machine: MachineModel = DEFAULT_MACHINE) -> bool:
+    """Does the machine's decode kernel take this pool geometry?"""
+    limits = ((desc.page_size, machine.decode_max_page),
+              (desc.head_dim, machine.decode_max_head_dim),
+              (desc.num_heads // desc.num_kv_heads, machine.decode_max_group))
+    return all(lim is None or v <= lim for v, lim in limits)
+
+
+def plan_flash_decode(desc: FlashDecodeDescriptor,
+                      machine: MachineModel = DEFAULT_MACHINE
+                      ) -> FlashDecodePlan:
+    """Single-lowering planner: the pool geometry fixed every knob when it
+    was built, so the plan only packages the schedule.  A geometry the
+    machine's kernel does not take raises."""
+    if not flash_decode_legal(desc, machine):
+        raise NotImplementedError(
+            f"{machine.name} decode kernel limits: page size <= "
+            f"{machine.decode_max_page}, head dim <= "
+            f"{machine.decode_max_head_dim}, GQA group <= "
+            f"{machine.decode_max_group}; got {desc}")
+    return FlashDecodePlan(desc)

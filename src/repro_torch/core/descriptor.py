@@ -220,3 +220,65 @@ class FlashBwdDescriptor(FlashDescriptor):
         # dQ in the operand dtype, dK/dV accumulated in fp32.
         return self.batch_heads * (self.sq * self.d * itemsize(self.dtype)
                                    + 2 * self.sk * self.d * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashDecodeDescriptor(KernelDescriptor):
+    """Paged decode attention (continuous batching): one query row per slot
+    against that slot's live KV pages.
+
+    ``q: (S, h, hd)`` x ``k/v pool: (pages, page_size, hkv, hd)`` ->
+    ``(S, h, hd)``, mapped by runtime ``(block_tables, lengths)``
+    operands.  The ragged part is data: the descriptor carries only the
+    static pool geometry, so the kernel state is built once per pool and
+    the churning batch rides through as device tables.
+    """
+
+    family = "flash_decode"
+
+    num_seqs: int     # decode slots
+    pages: int        # pool size in pages
+    page_size: int    # KV slots per page
+    max_blocks: int   # block-table width
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        for v in (self.num_seqs, self.pages, self.page_size,
+                  self.max_blocks, self.num_heads, self.num_kv_heads,
+                  self.head_dim):
+            if v <= 0:
+                raise ValueError(f"decode dims must be positive, got {self}")
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(f"GQA group must divide heads, got {self}")
+
+    @classmethod
+    def from_operands(cls, q, k_pool, block_tables):
+        s, h, hd = q.shape
+        pages, page_size, hkv, _ = k_pool.shape
+        return cls(num_seqs=s, pages=pages, page_size=page_size,
+                   max_blocks=block_tables.shape[1], num_heads=h,
+                   num_kv_heads=hkv, head_dim=hd,
+                   dtype=canonical_dtype(q.dtype))
+
+    @property
+    def flops(self) -> int:
+        # QK^T and PV over every pool page (the worst case: all pages live).
+        return 4 * self.num_heads * self.head_dim * self.pages \
+            * self.page_size
+
+    @property
+    def in_bytes(self) -> int:
+        isz = itemsize(self.dtype)
+        q = self.num_seqs * self.num_heads * self.head_dim * isz
+        kv = 2 * self.pages * self.page_size * self.num_kv_heads \
+            * self.head_dim * isz
+        tables = self.num_seqs * (self.max_blocks + 1) * 4
+        return q + kv + tables
+
+    @property
+    def out_bytes(self) -> int:
+        return self.num_seqs * self.num_heads * self.head_dim \
+            * itemsize(self.dtype)

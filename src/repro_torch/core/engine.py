@@ -43,6 +43,7 @@ _FAMILY_MODULES = {
     "gemm": "repro_torch.kernels.gemm.ops",
     "flash_attention": "repro_torch.kernels.flash_attention.ops",
     "flash_attention_bwd": "repro_torch.kernels.flash_attention.ops",
+    "flash_decode": "repro_torch.kernels.flash_attention.ops",
 }
 
 PLAN_CACHE = LruCache(max_entries=65536)

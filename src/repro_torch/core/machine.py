@@ -12,7 +12,11 @@ kernels accept rather than from a scratchpad size:
   * their accumulator blockings are the shapes ``csrc/gemm.cu``
     instantiates (``bm_candidates`` x ``bn_candidates``), with a fixed
     K panel of ``k_panel`` elements;
-  * the flash kernels take ``(block_q, block_k)`` from ``flash_blocks``.
+  * the flash kernels take ``(block_q, block_k)`` from ``flash_blocks``;
+  * the paged decode kernel takes pages of up to ``decode_max_page``
+    slots, head dims up to ``decode_max_head_dim`` and GQA groups of up to
+    ``decode_max_group`` query heads per KV head (the constants of
+    ``csrc/flash_decode.cu``).
 
 The dispatch overheads are pinned assumptions, not measurements; a later
 calibration replaces them.
@@ -96,6 +100,10 @@ class MachineModel:
     # Flash (block_q, block_k) shapes the kernels take; None derives them
     # from VMEM fit.
     flash_blocks: Optional[Tuple[Tuple[int, int], ...]] = None
+    # Paged decode kernel limits; None: any pool geometry is legal.
+    decode_max_page: Optional[int] = None
+    decode_max_head_dim: Optional[int] = None
+    decode_max_group: Optional[int] = None
 
     @functools.cached_property
     def fingerprint(self) -> str:
@@ -147,6 +155,9 @@ H100_SXM = MachineModel(
     stages_whole_operands=False,
     k_panel=32,
     flash_blocks=((64, 64),),
+    decode_max_page=64,
+    decode_max_head_dim=128,
+    decode_max_group=64,
 )
 
 DEFAULT_MACHINE = H100_SXM

@@ -5,6 +5,11 @@ Every dense layer in ``repro_torch.models`` calls :func:`matmul`.  Under
 hand-written Hopper GEMM); under ``backend="torch"`` through
 ``torch.matmul`` (cuBLAS on the card), the vendor baseline.  Both
 accumulate in fp32 and apply the epilogue before the output cast.
+
+Both backends share the reference's backward (``_dot_bwd``): the
+cotangent is rounded to the operands' dtype and dA / dB come out in the
+operands' dtypes, accumulated in fp32 -- bf16 gradients from bf16
+operands, as the reference's XLA path gives them.
 """
 from __future__ import annotations
 
@@ -17,6 +22,9 @@ from repro_torch.kernels.epilogue import apply_epilogue
 
 from .config import get_config
 from .descriptor import GemmDescriptor, check_bias
+
+# Epilogues with an activation, whose derivative needs the pre-activation.
+ACTIVATIONS = ("gelu", "silu", "relu", "bias_gelu", "bias_silu")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
@@ -49,8 +57,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
 
 class _EngineGemm(torch.autograd.Function):
     """Engine GEMM with a differentiable front: the forward is the planned
-    kernel dispatch, the backward differentiates the plain torch oracle
-    (dense GEMM has no kernel of its own for the backward)."""
+    kernel dispatch, the backward is the reference's (``_engine_vjp_bwd``,
+    the VJP of its XLA oracle): the output cotangent in fp32 through the
+    epilogue, then :func:`_dot_bwd` for the operands."""
 
     @staticmethod
     def forward(ctx, a, b, c, bias, layout, epilogue, out_dtype):
@@ -59,38 +68,106 @@ class _EngineGemm(torch.autograd.Function):
             a, b, layout=layout, accumulate=c is not None, epilogue=epilogue,
             out_dtype=out_dtype)
         ctx.save_for_backward(a, b, c, bias)
-        ctx.opts = (layout, epilogue, out_dtype)
+        ctx.opts = (layout, epilogue)
         return engine.dispatch(desc, a, b, bias=bias, c=c)
 
     @staticmethod
     def backward(ctx, g):
-        layout, epilogue, out_dtype = ctx.opts
-        inputs = [None if t is None else t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors,
-                                     ctx.needs_input_grad[:4])]
-        wanted = [t for t, need in zip(inputs, ctx.needs_input_grad[:4])
-                  if t is not None and need]
-        grads = iter(())
-        if wanted:
+        a, b, c, bias = ctx.saved_tensors
+        layout, epilogue = ctx.opts
+        need_a, need_b, need_c, need_bias = ctx.needs_input_grad[:4]
+        g = g.float()  # the output cast's transpose
+        if epilogue in ACTIVATIONS:
+            # The activation's derivative needs the pre-activation: the only
+            # case that recomputes the forward product (fp32, as the oracle).
+            pre = _product32(a, b, layout)
+            if c is not None:
+                pre = pre + c.float()
+            pre.requires_grad_(True)
             with torch.enable_grad():
-                out = _torch_gemm(inputs[0], inputs[1], inputs[2], layout,
-                                  epilogue, inputs[3], out_dtype)
-                grads = iter(torch.autograd.grad(out, wanted, g))
-        result = [next(grads) if t is not None and need else None
-                  for t, need in zip(inputs, ctx.needs_input_grad[:4])]
-        return (*result, None, None, None)
+                g, = torch.autograd.grad(apply_epilogue(pre, epilogue, bias),
+                                         pre, g)
+        dc = g.to(c.dtype) if need_c else None
+        dbias = g.reshape(-1, g.shape[-1]).sum(0).to(bias.dtype) \
+            if need_bias else None
+        da, db = _dot_bwd(a, b, g, layout, need_a, need_b)
+        return da, db, dc, dbias, None, None, None
+
+
+def _product32(a, b, layout):
+    """fp32 product ``a @ op(b)``: bf16 operands are upcast first, so the
+    accumulator is never rounded to bf16; on the card TF32 is off."""
+    if a.is_cuda:
+        disable_tf32()
+    b32 = b.float()
+    return torch.matmul(a.float(), b32 if layout == "nn"
+                        else b32.transpose(-1, -2))
+
+
+def _mm(x, y, dtype):
+    """``x @ y`` rounded once to ``dtype`` after fp32 accumulation: cuBLAS
+    on the operands in ``dtype`` on the card, an fp32 product of the
+    upcast operands on the CPU."""
+    if x.is_cuda:
+        disable_tf32()
+        return torch.matmul(x.to(dtype), y.to(dtype))
+    return torch.matmul(x.float(), y.float()).to(dtype)
+
+
+def _dot_bwd(a, b, g, layout, need_a=True, need_b=True):
+    """The reference's ``_dot_bwd``: the cotangent ``g`` of ``a @ op(b)``
+    rounded to the operands' dtype, then dA in ``a.dtype`` and dB in
+    ``b.dtype``, each accumulated in fp32.  ``b`` is rank 2 (``a``'s
+    leading dims are contracted for dB) or batched like ``a``."""
+    g16 = g.to(a.dtype)
+    da = db = None
+    if b.ndim == 2:
+        a2, g2 = a.reshape(-1, a.shape[-1]), g16.reshape(-1, g16.shape[-1])
+        if layout == "nn":  # b: (K, N)
+            if need_a:
+                da = _mm(g16, b.t(), a.dtype)
+            if need_b:
+                db = _mm(a2.t(), g2, b.dtype)
+        else:               # b: (N, K)
+            if need_a:
+                da = _mm(g16, b, a.dtype)
+            if need_b:
+                db = _mm(g2.t(), a2, b.dtype)
+    elif layout == "nn":    # b: (nb, K, N), g: (nb, M, N)
+        if need_a:
+            da = _mm(g16, b.transpose(-1, -2), a.dtype)
+        if need_b:
+            db = _mm(a.transpose(-1, -2), g16, b.dtype)
+    else:                   # b: (nb, N, K)
+        if need_a:
+            da = _mm(g16, b, a.dtype)
+        if need_b:
+            db = _mm(g16.transpose(-1, -2), a, b.dtype)
+    return da, db
+
+
+class _Dot(torch.autograd.Function):
+    """fp32 product ``a @ op(b)`` whose backward is :func:`_dot_bwd` (the
+    reference's ``_dot_spmd``)."""
+
+    @staticmethod
+    def forward(ctx, a, b, layout):
+        ctx.save_for_backward(a, b)
+        ctx.layout = layout
+        return _product32(a, b, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da, db = _dot_bwd(a, b, g, ctx.layout, *ctx.needs_input_grad[:2])
+        return da, db, None
 
 
 def _torch_gemm(a, b, c, layout, epilogue, bias, out_dtype):
-    """Plain torch GEMM: fp32 products and accumulation (bf16 operands are
-    upcast first, so the accumulator is never rounded to bf16 before the
-    epilogue), then the epilogue and the output cast.  On the card TF32
-    is switched off, so fp32 products stay fp32."""
-    if a.is_cuda:
-        disable_tf32()
-    a32, b32 = a.float(), b.float()
-    acc = torch.matmul(a32, b32 if layout == "nn" else b32.transpose(-1, -2))
+    """Plain torch GEMM, the reference's ``_xla_gemm``: the fp32 product
+    (:class:`_Dot`), then ``c``, the epilogue and the output cast; autograd
+    takes the gradients through the same :func:`_dot_bwd`."""
+    acc = _Dot.apply(a, b, layout)
     if c is not None:
         acc = acc + c.float()
     return apply_epilogue(acc, epilogue, bias).to(out_dtype)
-

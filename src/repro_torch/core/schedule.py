@@ -5,14 +5,18 @@
   * :class:`FlashTileSchedule` -- the flattened (q-block, k-block) walk
     of one flash-attention problem, with causal k-blocks above the
     diagonal dropped at plan time;
+  * :class:`DecodeTileSchedule` -- one continuous-batching decode step
+    over a paged KV pool: its tables are runtime data, built on the
+    device from this step's block tables and lengths;
   * :func:`pack_table` -- int32 packing of tile rows (the CUDA kernels
     read one row per thread block);
   * :func:`plan_launches` -- kernel launches one plan's lowering emits.
 
 Two contracts carry over from the reference unchanged: every output
 element is owned by exactly one tile, and causal-masked tiles never
-reach a kernel.  Tables are computed on the host with plain Python and
-uploaded once per plan by the kernel executors.
+reach a kernel.  GEMM and flash tables are computed on the host with
+plain Python and uploaded once per plan by the kernel executors; decode
+tables are torch ops on the device, with no host sync.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -245,3 +250,131 @@ def plan_launches(plan, fused: bool) -> int:
         return 1
     regions = getattr(plan, "regions", None)
     return len(regions) if regions is not None else 1
+
+
+# ---------------------------------------------------------------------------
+# Paged decode tile schedules -- runtime tables over live KV pages
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecodeTileSchedule:
+    """Schedule of one continuous-batching decode step over a paged KV pool.
+
+    The geometry (slots, pool size, page size, block-table width and the
+    static ``max_tiles`` bound) is fixed when the pool is built; the
+    tables are data, computed each step from ``(block_tables, lengths)``
+    by device ops, so a churning batch never rebuilds anything.
+
+    Each table row is ``(seq, page, k_len, first, last)``: query row
+    ``seq`` against pool page ``page``, of which the first ``k_len`` slots
+    are live, with ``first``/``last`` bracketing the slot's contiguous page
+    walk for the online-softmax carry.  A slot always owns at least one
+    row: an empty (length-0 / inactive) slot gets one fully-masked row, so
+    its carry still initialises and drains (to zeros).  Slot ``s``'s rows
+    are ``[bstart[s], bstart[s + 1])``: one CUDA thread block per (slot,
+    KV head) walks them.
+    """
+
+    num_seqs: int    # decode slots (pool block-table rows)
+    pages: int       # pool size in pages
+    page_size: int   # KV slots per page
+    max_blocks: int  # block-table width: max pages one sequence may own
+
+    def __post_init__(self):
+        assert self.num_seqs > 0 and self.pages > 0
+        assert self.page_size > 0 and self.max_blocks > 0
+
+    @property
+    def max_tiles(self) -> int:
+        """Static tile bound: live pages are exclusively owned, so at most
+        ``pages`` compute rows exist pool-wide (never more than
+        ``num_seqs * max_blocks``), plus one dummy row per slot."""
+        return min(self.num_seqs * self.max_blocks, self.pages) \
+            + self.num_seqs
+
+    @property
+    def max_len(self) -> int:
+        """Longest sequence the block tables can map."""
+        return self.max_blocks * self.page_size
+
+    def tables_and_offsets(self, block_tables: torch.Tensor,
+                           lengths: torch.Tensor):
+        """``(table, bstart)``: the ``(max_tiles, 5)`` int32 tile table and
+        the ``(num_seqs + 1,)`` int32 row offsets of each slot's run, from
+        this step's ``block_tables`` ``(num_seqs, max_blocks)`` and
+        ``lengths`` ``(num_seqs,)``, on their device, without a host sync
+        (``torch.searchsorted(..., right=True)`` is the reference's
+        ``jnp.searchsorted(side="right")``)."""
+        P, S = self.page_size, self.num_seqs
+        dev = lengths.device
+        lengths = lengths.long()
+        # ceil(len / P) live pages per slot, floored at one (dummy) row.
+        nblocks = torch.clamp_min((lengths + P - 1) // P, 1)       # (S,)
+        bstart = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                            torch.cumsum(nblocks, 0)])             # (S+1,)
+        g = torch.arange(self.max_tiles, dtype=torch.long, device=dev)
+        seq = torch.clamp(torch.searchsorted(bstart, g, right=True) - 1,
+                          0, S - 1)
+        local = g - bstart[seq]
+        active = g < bstart[-1]
+        lcl = torch.clamp(local, 0, self.max_blocks - 1)
+        page = torch.clamp(block_tables.long()[seq, lcl], 0, self.pages - 1)
+        k_len = torch.clamp(lengths[seq] - local * P, 0, P)
+        first = active & (local == 0)
+        last = active & (local == nblocks[seq] - 1)
+        zero = torch.zeros_like(page)
+        table = torch.stack([seq, torch.where(active, page, zero),
+                             torch.where(active, k_len, zero),
+                             first.long(), last.long()], dim=1)
+        return table.to(torch.int32), bstart.to(torch.int32)
+
+    def tables(self, block_tables: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+        """The ``(max_tiles, 5)`` int32 tile table alone (the reference's
+        ``DecodeTileSchedule.tables``)."""
+        return self.tables_and_offsets(block_tables, lengths)[0]
+
+    def validate_tables(self, table, block_tables, lengths) -> bool:
+        """Property check on one concrete table (tests): every slot's live
+        pages visited exactly once, in block-table order, with correct
+        tail lengths and carry flags; inactive tail rows inert."""
+        table = np.asarray(table)
+        bt = np.asarray(block_tables)
+        lengths = np.asarray(lengths, dtype=np.int64)
+        P = self.page_size
+        assert table.shape == (self.max_tiles, 5), table.shape
+        assert table.dtype == np.int32, table.dtype
+        nblocks = np.maximum(-(-lengths // P), 1)
+        total = int(nblocks.sum())
+        assert total <= self.max_tiles, (total, self.max_tiles)
+        visited = {}  # seq -> list of (page, k_len)
+        open_seq = None
+        for i, (seq, page, k_len, first, last) in enumerate(table):
+            if i >= total:  # inactive tail: inert rows, legal indices only
+                assert first == 0 and last == 0 and k_len == 0, table[i]
+                assert 0 <= seq < self.num_seqs and 0 <= page < self.pages
+                continue
+            assert 0 <= seq < self.num_seqs and 0 <= page < self.pages
+            if first:
+                assert open_seq is None, "carry re-opened before drain"
+                open_seq = seq
+                visited.setdefault(int(seq), [])
+            assert open_seq == seq, "row outside the open carry"
+            visited[int(seq)].append((int(page), int(k_len)))
+            if last:
+                open_seq = None
+        assert open_seq is None, "carry never drained"
+        for s in range(self.num_seqs):
+            walk = visited.get(s, [])
+            n, length = int(nblocks[s]), int(lengths[s])
+            assert len(walk) == n, (s, walk, n)
+            pages_seen = [p for p, _ in walk]
+            if length > 0:
+                expect = [int(bt[s, j]) for j in range(n)]
+                assert pages_seen == expect, (s, pages_seen, expect)
+                assert len(set(pages_seen)) == n, "page visited twice"
+            assert sum(kl for _, kl in walk) == length, (s, walk, length)
+            for j, (_, kl) in enumerate(walk):
+                want = min(max(length - j * P, 0), P)
+                assert kl == want, (s, j, kl, want)
+        return True

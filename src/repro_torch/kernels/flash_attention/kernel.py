@@ -1,5 +1,6 @@
-"""Wrappers around the Hopper flash-attention kernels (``csrc/flash_fwd.cu``
-and ``csrc/flash_bwd.cu``), each beside its plain torch version.
+"""Wrappers around the Hopper flash-attention kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu`` and ``csrc/flash_decode.cu``), each beside its plain
+torch version.
 
   * :func:`flash_fwd_fused` -- one launch walking a plan's causal-aware
     tile table, one thread block per (q-block, batch-head), optionally
@@ -10,9 +11,14 @@ and ``csrc/flash_bwd.cu``), each beside its plain torch version.
     counterpart of ``build_flash_kernel``);
   * :func:`flash_bwd_fused` -- one launch producing fp32 dQ, dK and dV
     over the same table, one thread block per (k-block, batch-head) (the
-    counterpart of ``build_fused_flash_bwd_kernel``).
+    counterpart of ``build_fused_flash_bwd_kernel``);
+  * :func:`flash_decode` -- one paged decode step over a KV pool, one
+    thread block per (slot, KV head) walking that slot's rows of the
+    runtime :class:`~repro_torch.core.schedule.DecodeTileSchedule` table
+    (the counterpart of ``build_decode_flash_kernel``).
 
-Operands are ``(BH, s, d)``.  A wrapper runs its plain version only for
+Operands are ``(BH, s, d)``, or for decode ``q (S, h, hd)`` against
+``(pages, page_size, hkv, hd)`` pools.  A wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.  Each
 launch adds one to :data:`LAUNCHES`.
 """
@@ -21,7 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.schedule import FlashTileSchedule, ceil_div, pack_table
+from repro_torch.core.schedule import (DecodeTileSchedule, FlashTileSchedule,
+                                       ceil_div, pack_table)
 from repro_torch.kernels import _build, disable_tf32
 
 NEG_INF = -1e30
@@ -32,8 +39,15 @@ NEG_INF = -1e30
 # H100_SXM.flash_blocks to these.
 MAX_BLOCK = 64
 MAX_HEAD_DIM = 128
+# Limits of flash_decode.cu (PAGE_MAX, D_MAX and GROUP_MAX): pages of up to
+# 64 slots, head dim up to 128, up to 64 query heads per KV head; the same
+# as H100_SXM's decode_max_* (tests/test_torch_kernel_sources.py).
+MAX_PAGE = 64
+MAX_DECODE_HEAD_DIM = 128
+MAX_GROUP = 64
 
-LAUNCHES = {"flash_fwd_fused": 0, "flash_fwd_dense": 0, "flash_bwd_fused": 0}
+LAUNCHES = {"flash_fwd_fused": 0, "flash_fwd_dense": 0, "flash_bwd_fused": 0,
+            "flash_decode": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,6 +68,27 @@ class FusedFlash:
         self.k_rows = torch.from_numpy(rows).to(self.device)
 
 
+class FlashDecode:
+    """One pool geometry's decode state: the schedule, and on the device
+    the ``(max_tiles, 5)`` tile table and the ``(num_seqs + 1,)`` row
+    offsets, rewritten in place by :meth:`update` each step (device ops,
+    no host sync), so one cached state serves every batch composition."""
+
+    def __init__(self, schedule: DecodeTileSchedule, device):
+        self.schedule = schedule
+        self.device = torch.device(device)
+        self.table = torch.zeros((schedule.max_tiles, 5), dtype=torch.int32,
+                                 device=self.device)
+        self.bstart = torch.zeros((schedule.num_seqs + 1,), dtype=torch.int32,
+                                  device=self.device)
+
+    def update(self, block_tables, lengths) -> None:
+        table, bstart = self.schedule.tables_and_offsets(block_tables,
+                                                         lengths)
+        self.table.copy_(table)
+        self.bstart.copy_(bstart)
+
+
 _LIBS = {}
 
 
@@ -68,9 +103,12 @@ def _lib(name: str):
             lib.flash_fwd_fused.restype = I
             lib.flash_fwd_dense.argtypes = [P] * 4 + [I] * 7 + [Fl, I, P]
             lib.flash_fwd_dense.restype = I
-        else:
+        elif name == "flash_bwd":
             lib.flash_bwd_fused.argtypes = [P] * 12 + [I] * 8 + [Fl, I, P]
             lib.flash_bwd_fused.restype = I
+        else:
+            lib.flash_decode.argtypes = [P] * 6 + [I] * 5 + [Fl, I, P]
+            lib.flash_decode.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
 
@@ -191,9 +229,61 @@ def flash_fwd_dense(qf, kf, vf, *, block_q: int, block_k: int,
     return out
 
 
+def _check_decode(exe: FlashDecode, q, k_pool, v_pool):
+    sch = exe.schedule
+    if q.ndim != 3 or k_pool.ndim != 4 or k_pool.shape != v_pool.shape \
+            or q.shape[2] != k_pool.shape[3] \
+            or q.shape[1] % k_pool.shape[2]:
+        raise ValueError(f"expected q (S,h,hd), pools (pages,P,hkv,hd) with "
+                         f"hkv dividing h, got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    if (q.shape[0], k_pool.shape[0], k_pool.shape[1]) != \
+            (sch.num_seqs, sch.pages, sch.page_size):
+        raise ValueError(f"schedule is for {sch}, operands are q "
+                         f"{tuple(q.shape)}, pool {tuple(k_pool.shape)}")
+    if q.is_cuda:
+        for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                        ("table", exe.table)):
+            if t.device != q.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {q.device}")
+        if not (q.dtype == k_pool.dtype == v_pool.dtype) \
+                or q.dtype not in _DTYPE_CODE:
+            raise ValueError(f"the CUDA decode kernel takes float32 or "
+                             f"bfloat16 q and pools of one dtype, got "
+                             f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+        h, hkv, hd = q.shape[1], k_pool.shape[2], q.shape[2]
+        if sch.page_size > MAX_PAGE or hd > MAX_DECODE_HEAD_DIM \
+                or h // hkv > MAX_GROUP or hkv > 65535:
+            raise NotImplementedError(
+                f"decode kernel limits: page size <= {MAX_PAGE}, head dim <= "
+                f"{MAX_DECODE_HEAD_DIM}, GQA group <= {MAX_GROUP}; got page "
+                f"{sch.page_size}, head dim {hd}, group {h // hkv}")
+    elif q.device.type != "cpu":
+        raise RuntimeError(f"no decode kernel for device {q.device}")
+
+
+def flash_decode(exe: FlashDecode, q, k_pool, v_pool) -> torch.Tensor:
+    """One launch over the tile table ``exe`` holds (:meth:`FlashDecode.
+    update`) -> ``(S, h, hd)`` in q's dtype; an empty slot's row is 0."""
+    _check_decode(exe, q, k_pool, v_pool)
+    if not q.is_cuda:
+        return flash_decode_plain(exe, q, k_pool, v_pool)
+    S, h, hd = q.shape
+    out = torch.empty_like(q)
+    status = _lib("flash_decode").flash_decode(
+        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+        _build.ptr(out), _build.ptr(exe.table), _build.ptr(exe.bstart), S, h,
+        k_pool.shape[2], hd, k_pool.shape[1], hd ** -0.5,
+        _DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+    LAUNCHES["flash_decode"] += 1
+    _build.check(status, "flash_decode")
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Plain torch versions (the CPU path, and the card-side comparison).  Both
-# run every batch-head at once and walk tiles in the kernels' order.
+# Plain torch versions (the CPU path, and the card-side comparison).  The
+# prefill ones run every batch-head at once and walk tiles in the kernels'
+# order; the decode one walks the decode table row by row.
 # ---------------------------------------------------------------------------
 
 class _Carry:
@@ -321,6 +411,45 @@ def flash_fwd_dense_plain(qf, kf, vf, *, block_q: int, block_k: int,
                         k0, sk, causal)
             carry.update(s, vp[:, k0:k0 + bk])
         out[:, q0:min(q0 + bq, sq)] = carry.drain(qf.dtype)[:, :min(bq, sq - q0)]
+    return out
+
+
+def flash_decode_plain(exe: FlashDecode, q, k_pool, v_pool) -> torch.Tensor:
+    """Walk the decode table's live rows (``[0, bstart[-1])``) as the kernel
+    does, all heads of a row at once: K/V of dead page slots selected to
+    0, their scores to -1e30, a per-head m/l/acc carry reset at ``first``
+    and drained at ``last`` through ``acc / max(l, 1e-30)``, P rounded to
+    q's dtype before the PV product."""
+    if q.is_cuda:
+        disable_tf32()
+    S, h, hd = q.shape
+    P, hkv = k_pool.shape[1], k_pool.shape[2]
+    rep, scale = h // hkv, hd ** -0.5
+    qg = q.float().reshape(S, hkv, rep, hd)
+    out = torch.zeros_like(q)
+    cols = torch.arange(P, device=q.device)
+    rows = exe.table[:int(exe.bstart[-1])].tolist()
+    m = l = acc = None
+    for seq, page, k_len, first, last in rows:
+        if first:
+            m = torch.full((hkv, rep, 1), NEG_INF, device=q.device)
+            l = torch.zeros((hkv, rep, 1), device=q.device)
+            acc = torch.zeros((hkv, rep, hd), device=q.device)
+        live = (cols < k_len)[:, None, None]
+        k = torch.where(live, k_pool[page].float(), 0.0)  # (P, hkv, hd)
+        v = torch.where(live, v_pool[page].float(), 0.0)
+        s = torch.einsum("grd,pgd->grp", qg[seq], k) * scale
+        s = torch.where(cols < k_len, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("grp,pgd->grd",
+                                         p.to(q.dtype).float(), v)
+        m = m_new
+        if last:
+            out[seq] = (acc / torch.clamp_min(l, 1e-30)).reshape(h, hd) \
+                .to(q.dtype)
     return out
 
 

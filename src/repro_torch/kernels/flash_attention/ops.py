@@ -11,7 +11,10 @@ chosen by ``engine.resolve_fused``:
     (q-block, batch-head) grid, skipping blocks past the diagonal.
 
 Either counts one launch.  The backward family ``flash_attention_bwd``
-is ONE launch of ``flash_bwd_fused`` over the same table.  Gradients
+is ONE launch of ``flash_bwd_fused`` over the same table.  The paged
+decode family ``flash_decode`` is ONE launch of ``flash_decode`` per
+decode step, over the runtime table of the step's block tables and
+lengths (:func:`paged_decode_attention`).  Gradients
 flow through :class:`_FlashFn` (the reference's ``_flash_vjp``): when the
 scheduled backward is legal its forward runs ``flash_fwd_fused`` with the
 LSE rows and its backward dispatches the backward descriptor; otherwise
@@ -25,14 +28,19 @@ from typing import Optional
 import torch
 
 from repro_torch.core import engine
-from repro_torch.core.blocking import (FlashPlan, flash_bwd_fused_legal,
-                                       plan_flash, plan_flash_bwd)
+from repro_torch.core.blocking import (FlashDecodePlan, FlashPlan,
+                                       flash_bwd_fused_legal, plan_flash,
+                                       plan_flash_bwd, plan_flash_decode)
 from repro_torch.core.config import get_config, use
-from repro_torch.core.descriptor import FlashBwdDescriptor, FlashDescriptor
+from repro_torch.core.descriptor import (FlashBwdDescriptor,
+                                         FlashDecodeDescriptor,
+                                         FlashDescriptor)
 from repro_torch.core.machine import canonical_dtype
 from repro_torch.core.schedule import plan_launches
-from repro_torch.kernels.flash_attention.kernel import (FusedFlash,
+from repro_torch.kernels.flash_attention.kernel import (FlashDecode,
+                                                        FusedFlash,
                                                         flash_bwd_fused,
+                                                        flash_decode,
                                                         flash_fwd_dense,
                                                         flash_fwd_fused)
 from repro_torch.kernels.flash_attention.ref import ref_flat
@@ -76,6 +84,41 @@ def execute_bwd(desc: FlashBwdDescriptor, plan: FlashPlan, qf, kf, vf, o, do,
 
 engine.register_family("flash_attention_bwd", planner=plan_flash_bwd,
                        execute=execute_bwd)
+
+
+def execute_decode(desc: FlashDecodeDescriptor, plan: FlashDecodePlan, q,
+                   k_pool, v_pool, block_tables, lengths) -> torch.Tensor:
+    """Engine executor: one planned paged decode-attention step.
+
+    The kernel state is cached on the pool geometry alone; the batch
+    composition (block tables and lengths) is rewritten into its device
+    tile table each call, so a churning batch re-enters the same state."""
+    engine.count_launches("flash_decode", 1)
+    key = desc.cache_key() + ("decode", canonical_dtype(k_pool.dtype),
+                              str(q.device))
+    exe = engine.build_cached(key, lambda: FlashDecode(plan.tile_schedule(),
+                                                       q.device))
+    exe.update(block_tables, lengths)
+    return flash_decode(exe, q.contiguous(), k_pool, v_pool)
+
+
+engine.register_family("flash_decode", planner=plan_flash_decode,
+                       execute=execute_decode)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """One decode step against a paged KV pool.
+
+    q: (S, h, hd), one query row per decode slot; k_pool/v_pool: (pages,
+    page_size, hkv, hd); block_tables: (S, max_blocks) int32 page ids;
+    lengths: (S,) live KV length per slot (0 = inactive: the output row is
+    zeros).  Returns (S, h, hd).  KV-int8 pools (``k_scale``/``v_scale``)
+    are not ported."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("KV-int8 decode pools are not ported")
+    desc = FlashDecodeDescriptor.from_operands(q, k_pool, block_tables)
+    return engine.dispatch(desc, q, k_pool, v_pool, block_tables, lengths)
 
 
 def _flat_desc(causal: bool, qf, kf) -> FlashDescriptor:

@@ -1,9 +1,40 @@
-"""Oracles for the flash-attention family: plain softmax attention."""
+"""Oracles for the flash-attention family: plain softmax attention, and
+paged decode over a KV pool."""
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def ref_paged_decode_attention(q, k_pool, v_pool, block_tables,
+                               lengths) -> torch.Tensor:
+    """Oracle for the paged decode kernel.
+
+    q: (S, h, hd); k_pool/v_pool: (pages, P, hkv, hd); block_tables:
+    (S, max_blocks) int32; lengths: (S,) -> (S, h, hd).  Gathers each
+    slot's block-table pages into a contiguous KV view (gathered column
+    ``j`` holds absolute position ``j``), masks ``j >= length`` and runs
+    plain fp32 softmax attention.  A zero-length slot returns zeros."""
+    s, h, hd = q.shape
+    pages, p, hkv, _ = k_pool.shape
+    b = block_tables.shape[1]
+    idx = torch.clamp(block_tables.long(), 0, pages - 1)
+    gk = k_pool[idx].reshape(s, b * p, hkv, hd).to(q.dtype)
+    gv = v_pool[idx].reshape(s, b * p, hkv, hd).to(q.dtype)
+    if h != hkv:
+        gk = torch.repeat_interleave(gk, h // hkv, dim=2)
+        gv = torch.repeat_interleave(gv, h // hkv, dim=2)
+    scale = hd ** -0.5
+    scores = torch.einsum("shd,skhd->shk", q.float(), gk.float()) * scale
+    live = torch.arange(b * p, device=q.device)[None, :] \
+        < lengths.to(q.device)[:, None]                       # (S, B*P)
+    scores = torch.where(live[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(live[:, None, :], probs, 0.0)  # len-0 slots: exact 0
+    out = torch.einsum("shk,skhd->shd", probs.to(gv.dtype).float(),
+                       gv.float())
+    return out.to(q.dtype)
 
 
 def ref_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:

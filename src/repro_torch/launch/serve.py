@@ -1,18 +1,30 @@
-"""Serving driver: batched prefill, then greedy decode with a dense KV
-cache (the static path).
+"""Serving driver, two modes:
 
-    python -m repro_torch.launch.serve --arch qwen3-0.6b --batch 8 \\
-        --prompt-len 64 --gen 32 [--backend torch|engine] [--device cpu]
+  * static batch (default): batched prefill, then greedy decode of the
+    whole batch in lock-step with a dense KV cache::
+
+        python -m repro_torch.launch.serve --arch qwen3-0.6b --batch 8 \\
+            --prompt-len 64 --gen 32 [--backend torch|engine] [--device cpu]
+
+  * continuous batching (``--continuous``): a Poisson-style request trace
+    runs through the paged serving runtime (``repro_torch.runtime.
+    batching``), one ``flash_decode`` launch per layer per decode step
+    while the batch churns, with greedy outputs checked token for token
+    against the static path::
+
+        python -m repro_torch.launch.serve --arch qwen3-0.6b --continuous \\
+            [--prompt-len 64 --gen 32] [--device cpu]
 
 Runs ``reduced_config`` of the architecture, like the reference's CLI, on
-the card unless ``--device cpu`` is given.  Continuous batching is not
-ported yet.
+the card unless ``--device cpu`` is given.  AOT warm-start
+(``--warm-start``) is not ported.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
@@ -64,12 +76,50 @@ def generate(model, prompts, gen_steps: int, *, capacity=None):
     }
 
 
+def run_continuous(model, *, num_slots=4, num_pages=64, page_size=16,
+                   max_blocks=8, num_requests=6, rate=0.5, prompt_len=12,
+                   max_new=8, seed=0, warm_start=None):
+    """Drive the continuous-batching runtime on a Poisson trace and check
+    it against the static-batch path.  ``prompt_len``/``max_new`` are ints
+    or (lo, hi) ranges.  Returns the engine's run result with the
+    requests (``trace``), the allocator at the end (``pool``),
+    ``token_identical`` (every request's tokens equal its solo static
+    ``generate``'s) and ``identical_requests`` (how many do) added."""
+    from repro_torch.models.attention import PageSpec
+    from repro_torch.runtime.batching import (ContinuousBatchingEngine,
+                                              poisson_trace)
+    if warm_start is not None:
+        raise NotImplementedError("AOT warm-start manifests are not ported")
+    spec = PageSpec(num_pages, page_size, max_blocks)
+    reqs = poisson_trace(num_requests=num_requests, rate=rate,
+                         prompt_lens=prompt_len, max_new=max_new,
+                         vocab_size=model.cfg.vocab_size, seed=seed)
+    serving = ContinuousBatchingEngine(model, num_slots=num_slots, spec=spec)
+    result = serving.run(reqs)
+    result["trace"] = reqs
+    result["pool"] = serving.pool
+
+    # Oracle: each request decoded alone on the static path must emit the
+    # same greedy tokens the churning batch produced.
+    same = 0
+    for r in reqs:
+        static = generate(model, torch.from_numpy(r.prompt)[None, :],
+                          r.max_new)
+        same += bool(np.array_equal(static["tokens"][0].cpu().numpy(),
+                                    result["outputs"][r.rid]))
+    result["identical_requests"] = same
+    result["token_identical"] = same == len(reqs)
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous-batching mode over a Poisson trace")
     ap.add_argument("--backend", choices=["torch", "engine"], default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
@@ -80,6 +130,26 @@ def main(argv=None):
     configure(backend=args.backend, device=args.device)
     cfg = reduced_config(get_config(args.arch))
     model = model_for(cfg)(cfg, seed=args.seed)
+    if args.continuous:
+        res = run_continuous(model, prompt_len=args.prompt_len // 4 or 8,
+                             max_new=args.gen // 4 or 4, seed=args.seed)
+        m = res["metrics"]
+        print(f"arch={cfg.name} device={model.device} continuous: "
+              f"requests={m['requests']} tokens={m['total_tokens']} "
+              f"decode_steps={m['decode_steps']} evictions={m['evictions']} "
+              f"tok/s={m['tokens_per_s']:.0f} "
+              f"p50={m['p50_token_latency_s'] * 1e3:.1f}ms "
+              f"p99={m['p99_token_latency_s'] * 1e3:.1f}ms "
+              f"token_identical={res['token_identical']}")
+        if m["flash_decode_launches"]:
+            per_step = m["flash_decode_launches"] / max(m["decode_steps"], 1)
+            print(f"engine[flash_decode]: launches="
+                  f"{m['flash_decode_launches']} ({per_step:.2f}/decode "
+                  f"step)")
+        ph = m["phase_seconds"]
+        print("phases: " + " ".join(f"{k}={ph[k] * 1e3:.1f}ms"
+                                    for k in sorted(ph)))
+        return
     gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=model.device)

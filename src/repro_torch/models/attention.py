@@ -1,20 +1,22 @@
 """Multi-head self-attention: GQA, RoPE, qk-norm, optional QKV bias and
-logit softcap, with a dense ring-buffer KV cache for decode.
+logit softcap, with a dense ring-buffer KV cache for the static decode
+path and a paged KV pool for continuous batching.
 
 Heads stay flattened as (b, s, h, hd), with K/V repeated to the full head
 count for GQA before attention, as in the reference.  Under the
 ``engine`` backend the causal full-sequence case (prefill, sq == sk) runs
-the flash-attention kernel; everything else -- including the ``s == 1``
-decode step against the cache -- is plain torch math (:func:`_attend`),
-which the reference also computes outside any kernel.
+the flash-attention kernel and a decode step against a paged pool runs
+the paged decode kernel (``flash_decode``); the ``s == 1`` decode step
+against the dense cache is plain torch math (:func:`_attend`), which the
+reference also computes outside any kernel.
 
-Not ported (they raise): paged caches, cross-attention and sliding-window
-attention.
+Not ported (they raise): KV-int8 pools, cross-attention and
+sliding-window attention.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -47,6 +49,46 @@ def init_kv_cache(batch, capacity, n_kv, head_dim, dtype, device) -> KVCache:
                       device=device),
         pos=torch.full((batch, capacity), -1, dtype=torch.int32,
                        device=device))
+
+
+class PageSpec(NamedTuple):
+    """Static paged-cache geometry (the serving runtime's pool shape).
+    ``max_blocks * page_size`` caps the context one block table can map.
+    ``kv_quant="int8"`` (int8 pools with per-token scales) is not ported."""
+
+    num_pages: int
+    page_size: int
+    max_blocks: int
+    kv_quant: Optional[str] = None
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged KV pool plus per-slot block tables (continuous batching).
+
+    Pool pages are allocated to sequences by the host-side free list
+    (``repro_torch.runtime.pages.PagePool``) and mapped by ``tables``:
+    position ``p`` of slot ``i`` lives at ``(tables[i, p // P], p % P)``.
+    Decode steps write the new token's K/V into the pools in place, and
+    the runtime rewrites ``tables`` in place after the allocator moved
+    pages."""
+
+    k: torch.Tensor       # (num_pages, page_size, h_kv, hd)
+    v: torch.Tensor       # (num_pages, page_size, h_kv, hd)
+    tables: torch.Tensor  # (num_slots, max_blocks) int32 page ids
+
+
+def init_paged_kv_cache(num_slots, spec: PageSpec, n_kv, head_dim, dtype,
+                        device) -> PagedKVCache:
+    if spec.kv_quant is not None:
+        raise NotImplementedError(f"kv_quant={spec.kv_quant!r} pools are not "
+                                  f"ported")
+    shape = (spec.num_pages, spec.page_size, n_kv, head_dim)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        tables=torch.zeros((num_slots, spec.max_blocks), dtype=torch.int32,
+                           device=device))
 
 
 def _repeat_kv(x, n_rep: int):
@@ -88,6 +130,70 @@ def _attention_seq(q, k, v, positions, softcap):
     return torch.cat(outs, dim=1)
 
 
+def _ring_write(cache: KVCache, k, v, pos2d) -> None:
+    """Dense-cache write at slot = pos % capacity, in place."""
+    b, s = k.shape[:2]
+    slots = (pos2d % cache.k.shape[1]).long()
+    bidx = torch.arange(b, device=k.device)[:, None]
+    cache.k[bidx, slots] = k.to(cache.k.dtype)
+    cache.v[bidx, slots] = v.to(cache.v.dtype)
+    cache.pos[bidx, slots] = pos2d.expand(b, s).to(cache.pos.dtype)
+
+
+def _write_token(pool, new, pid, off, active, first):
+    """``pool[pid[i], off[i]] = new[i]`` for the active rows, in place and
+    without a host sync.  Torch has no dropped-write mode, so an inactive
+    row writes what leaves the pool as the active rows alone would: the
+    first active row's value at that row's target (``pid``/``off`` already
+    point there), or, when no row is active, the value already at its
+    target."""
+    new = new.to(pool.dtype)
+    cur = pool[pid, off]
+    sel = active.reshape(-1, *([1] * (new.ndim - 1)))
+    val = torch.where(sel, new, torch.where(active[first], new[first], cur))
+    pool[pid, off] = val
+
+
+def _paged_decode(cfg, cache: PagedKVCache, q, k, v, pos2d, dt, g):
+    """One decode step against the paged KV pool.
+
+    q/k/v: (S, 1, h|hkv, hd); ``pos2d``: (S, 1) per-slot positions (the
+    slot's current length; -1 = inactive).  The new token's K/V is written
+    in place at ``(tables[i, pos // P], pos % P)``; inactive rows leave the
+    pools unchanged (:func:`_write_token`) and their output rows are
+    garbage the scheduler ignores.  Attention runs through the engine's
+    ``flash_decode`` family (``engine`` backend: ONE launch over the
+    runtime decode table) or the gather formulation
+    (``ref_paged_decode_attention``'s math through :func:`_attend`)."""
+    S = q.shape[0]
+    pages, P, hkv, hd = cache.k.shape
+    B = cache.tables.shape[1]
+    pos = pos2d[:, 0] if pos2d.shape[0] == S else pos2d[:, 0].expand(S)
+    pos = pos.long()
+    active = pos >= 0
+    safe = torch.clamp_min(pos, 0)
+    blk = cache.tables.long().gather(1, (safe // P)[:, None])[:, 0]
+    off = safe % P
+    first = torch.argmax(active.int())  # the first active row (0 if none)
+    pid = torch.where(active, blk, blk[first])
+    off = torch.where(active, off, off[first])
+    _write_token(cache.k, k[:, 0], pid, off, active, first)
+    _write_token(cache.v, v[:, 0], pid, off, active, first)
+    lengths = torch.where(active, pos + 1, 0)
+
+    if get_config().backend == "engine" and not cfg.attn_logit_softcap:
+        from repro_torch.kernels.flash_attention import paged_decode_attention
+        return paged_decode_attention(q[:, 0], cache.k, cache.v, cache.tables,
+                                      lengths)[:, None]
+    # Gather the block-table pages into a contiguous view (gathered column
+    # j holds absolute position j) and mask j >= length.
+    gidx = torch.clamp(cache.tables.long(), 0, pages - 1)
+    gk = _repeat_kv(cache.k[gidx].reshape(S, B * P, hkv, hd).to(dt), g)
+    gv = _repeat_kv(cache.v[gidx].reshape(S, B * P, hkv, hd).to(dt), g)
+    live = torch.arange(B * P, device=q.device)[None, :] < lengths[:, None]
+    return _attend(q, gk, gv, live[:, None, None, :], cfg.attn_logit_softcap)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg, init: Init):
         super().__init__()
@@ -102,10 +208,12 @@ class Attention(nn.Module):
             self.q_norm = RMSNorm(hd, init)
             self.k_norm = RMSNorm(hd, init)
 
-    def forward(self, x, positions, *, cache: Optional[KVCache] = None,
+    def forward(self, x, positions, *, cache=None,
                 window: Optional[int] = None):
-        """Self-attention.  positions: (s,) or (b, s) absolute positions.
-        Returns (y, cache); with a cache and s == 1 this is a decode step."""
+        """Self-attention.  positions: (s,) or (b, s) absolute positions;
+        with a :class:`PagedKVCache`, (S, 1) per-slot positions (-1 marks
+        an inactive slot).  Returns (y, cache); with a cache and s == 1
+        this is a decode step."""
         if window is not None:
             raise NotImplementedError("sliding-window attention is not ported")
         cfg = self.cfg
@@ -125,15 +233,13 @@ class Attention(nn.Module):
             q = apply_rope(q, pos2d, cfg.rope_theta)
             k = apply_rope(k, pos2d, cfg.rope_theta)
 
-        if cache is not None:
-            # Ring-buffer write at slot = pos % capacity, in place.
-            cap = cache.k.shape[1]
-            slots = (pos2d % cap).long()
-            bidx = torch.arange(b, device=x.device)[:, None]
-            cache.k[bidx, slots] = k.to(cache.k.dtype)
-            cache.v[bidx, slots] = v.to(cache.v.dtype)
-            cache.pos[bidx, slots] = pos2d.expand(b, s).to(cache.pos.dtype)
-        if cache is not None and s == 1:
+        if isinstance(cache, PagedKVCache):
+            if s != 1:
+                raise ValueError("a paged cache takes one decode token per "
+                                 f"slot, got {s}")
+            out = _paged_decode(cfg, cache, q, k, v, pos2d, dt, g)
+        elif cache is not None and s == 1:
+            _ring_write(cache, k, v, pos2d)
             kf = _repeat_kv(cache.k.to(dt), g)
             vf = _repeat_kv(cache.v.to(dt), g)
             qpos = pos2d[:, -1].reshape(-1, 1, 1, 1)
@@ -141,9 +247,11 @@ class Attention(nn.Module):
             mask = (cpos <= qpos) & (cpos >= 0)
             out = _attend(q, kf, vf, mask, cfg.attn_logit_softcap)
         else:
+            if cache is not None:
+                _ring_write(cache, k, v, pos2d)
             if positions.ndim != 1:
-                raise NotImplementedError("per-row positions need the paged "
-                                          "serving runtime, not ported")
+                raise NotImplementedError("per-row positions need a paged "
+                                          "KV cache")
             out = _attention_seq(q, _repeat_kv(k, g), _repeat_kv(v, g),
                                  positions, cfg.attn_logit_softcap)
         y = self.wo(out.reshape(b, s, hq * hd), compute_dtype=dt)

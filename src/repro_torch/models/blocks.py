@@ -13,7 +13,8 @@ from typing import List, Optional
 from torch import nn
 
 from repro_torch.core.machine import torch_dtype
-from repro_torch.models.attention import Attention, KVCache, init_kv_cache
+from repro_torch.models.attention import (Attention, KVCache, init_kv_cache,
+                                          init_paged_kv_cache)
 from repro_torch.models.common import Init, make_norm
 from repro_torch.models.mlp import MLP
 
@@ -53,10 +54,17 @@ class Block(nn.Module):
         return x, cache
 
 
-def stack_cache(cfg, batch: int, capacity: int, device) -> List[KVCache]:
-    """One dense KV cache per layer."""
+def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
+    """One KV cache per layer: dense, or with ``paged`` (a
+    :class:`~repro_torch.models.attention.PageSpec`) a paged pool with
+    ``batch`` block-table rows, the continuous-batching serving cache."""
+    dt = torch_dtype(cfg.kv_cache_dtype)
+    if paged is not None:
+        return [init_paged_kv_cache(batch, paged, cfg.num_kv_heads,
+                                    cfg.head_dim, dt, device)
+                for _ in range(cfg.num_layers)]
     return [init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim,
-                          torch_dtype(cfg.kv_cache_dtype), device)
+                          dt, device)
             for _ in range(cfg.num_layers)]
 
 

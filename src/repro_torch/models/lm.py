@@ -4,7 +4,7 @@
     seeded fp32 master weights on ``device`` (the configured default,
     CUDA unless the caller says otherwise);
   * ``model.apply(tokens, ...) -> (logits, cache, aux)`` (also ``forward``);
-  * ``model.init_cache(batch, capacity) -> cache``.
+  * ``model.init_cache(batch, capacity, paged=None) -> cache``.
 
 Decode is ``apply`` with a one-token input and a cache.
 """
@@ -69,5 +69,8 @@ class LanguageModel(nn.Module):
     # nn.Module.apply(fn); the port never applies functions to submodules.)
     apply = forward
 
-    def init_cache(self, batch: int, capacity: int):
-        return stack_cache(self.cfg, batch, capacity, self.device)
+    def init_cache(self, batch: int, capacity: int, paged=None):
+        """Dense per-layer KV caches, or with ``paged`` (a ``PageSpec``)
+        the continuous-batching serving cache: paged pools and block
+        tables."""
+        return stack_cache(self.cfg, batch, capacity, self.device, paged)

@@ -1,4 +1,5 @@
-"""Step builders: train, prefill and decode.
+"""Step builders: train, prefill, decode and the paged continuous-batching
+decode step.
 
 The reference builds these for ``jax.jit``; the port runs them eagerly.
 The train step updates the model's parameters and the optimizer state in
@@ -133,3 +134,32 @@ def make_serve_step(model):
         return logits[:, -1], new_cache, pos + 1
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# continuous batching
+# ---------------------------------------------------------------------------
+
+def make_paged_serve_step(model):
+    """One continuous-batching decode step over the paged serving cache.
+
+    ``(cache, tokens (S, 1), lengths (S,), active (S,)) -> (next_tokens
+    (S, 1), cache, lengths')``: greedy argmax decode.  Inactive slots run
+    at position -1: they leave the pools unchanged and keep their length,
+    and their token rows are garbage the scheduler ignores.  Every ported
+    cache leaf is a shared paged pool, so there is no per-slot state to
+    merge back (the reference's ``_merge_inactive`` restores ring and
+    recurrent rows, which are not ported).  The batch composition reaches
+    the kernels only through the block tables' and lengths' values.
+    """
+
+    @torch.no_grad()
+    def paged_serve_step(cache, tokens, lengths, active):
+        positions = torch.where(active, lengths, -1).to(torch.int32)[:, None]
+        logits, new_cache, _ = forward(model, {"tokens": tokens}, cache=cache,
+                                       positions=positions)
+        tok = torch.argmax(logits[:, -1], -1)
+        new_lengths = torch.where(active, lengths + 1, lengths)
+        return tok[:, None], new_cache, new_lengths
+
+    return paged_serve_step

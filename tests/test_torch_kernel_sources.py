@@ -21,6 +21,8 @@ GEMM_CU = (KERNELS / "gemm" / "csrc" / "gemm.cu").read_text()
 FLASH_CU = (KERNELS / "flash_attention" / "csrc" / "flash_fwd.cu").read_text()
 FLASH_BWD_CU = (KERNELS / "flash_attention" / "csrc"
                 / "flash_bwd.cu").read_text()
+FLASH_DECODE_CU = (KERNELS / "flash_attention" / "csrc"
+                   / "flash_decode.cu").read_text()
 
 
 def _constexpr(src, name):
@@ -86,6 +88,34 @@ def test_flash_bwd_shared_memory_fits_h100_at_the_limits():
     b, d = flash_kernel.MAX_BLOCK, flash_kernel.MAX_HEAD_DIM
     floats = 4 * b * (d + pad) + 2 * b * d + b * (b + pad) + 2 * b
     assert 4 * floats <= H100_SXM.vmem_bytes
+
+
+def test_flash_decode_limits_match_kernel_py_and_machine():
+    assert _constexpr(FLASH_DECODE_CU, "PAGE_MAX") == flash_kernel.MAX_PAGE \
+        == H100_SXM.decode_max_page
+    assert _constexpr(FLASH_DECODE_CU, "D_MAX") \
+        == flash_kernel.MAX_DECODE_HEAD_DIM == H100_SXM.decode_max_head_dim
+    assert _constexpr(FLASH_DECODE_CU, "GROUP_MAX") == flash_kernel.MAX_GROUP \
+        == H100_SXM.decode_max_group
+    assert _constexpr(FLASH_DECODE_CU, "NEG_INF") == flash_kernel.NEG_INF
+
+
+def test_flash_decode_shared_memory_fits_h100_at_the_limits():
+    """The decode kernel stages the group's q rows and accumulator, one
+    page of k (rows padded by one) and v, the scores (rows padded by one)
+    and three per-head vectors, all fp32 (``smem_bytes`` in the .cu)."""
+    rep, page = flash_kernel.MAX_GROUP, flash_kernel.MAX_PAGE
+    d = flash_kernel.MAX_DECODE_HEAD_DIM
+    floats = 2 * rep * d + page * (d + 1) + page * d + rep * (page + 1) \
+        + 3 * rep
+    assert re.search(r"2 \* \(size_t\)rep \* d \+ \(size_t\)page \* \(d \+ 1\)",
+                     FLASH_DECODE_CU)
+    assert 4 * floats <= H100_SXM.vmem_bytes
+
+
+def test_every_kernel_source_is_built():
+    assert sorted(_build.sources()) == ["flash_bwd", "flash_decode",
+                                        "flash_fwd", "gemm"]
 
 
 def test_h100_flash_blocks_within_kernel_limits():

@@ -438,15 +438,13 @@ def test_supervisor_survives_fault_injection(tmp_path, fail_at):
         torch.testing.assert_close(p, ref[name], atol=1e-5, rtol=1e-5)
 
 
-def test_train_cli_on_cpu(tmp_path, capsys):
-    from repro_torch.core import configure, get_config as engine_config
-    before = engine_config()
-    try:
-        train_main(["--arch", "qwen3-0.6b", "--device", "cpu", "--steps", "3",
-                    "--ckpt-dir", str(tmp_path)])
-    finally:
-        configure(device=before.device, backend=before.backend,
-                  fused=before.fused)
+def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
+    # The CLI configures the process-wide default; put that default (not
+    # this test's thread-local override) back afterwards.
+    from repro_torch.core import config as engine_config
+    monkeypatch.setattr(engine_config, "_DEFAULT", engine_config._DEFAULT)
+    train_main(["--arch", "qwen3-0.6b", "--device", "cpu", "--steps", "3",
+                "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "device=cpu" in out and "step     2" in out
     assert "engine[flash_attention]: launches=6 launches_bwd=6" in out
