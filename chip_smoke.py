@@ -30,8 +30,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 which forces evictions; every request finishes, the pool's
                 invariants hold, one flash_decode launch per layer per
                 decode step, GEMM and flash launches as the prefills and
-                steps imply; one decode step's logits against the static
-                dense path's; a profile of two decode steps;
+                steps imply (the engine's run counted alone); then, outside
+                the count, the static-path oracle, one decode step's
+                logits against the static dense path's, and a profile of
+                two decode steps;
      reduced -- reduced_config(qwen3-0.6b) in fp32: engine and torch give
                 identical greedy tokens, and a continuous run with an
                 eviction gives the static path's tokens;
@@ -550,9 +552,12 @@ def run_decode_case(torch, case, gen):
     def library():
         return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
 
+    # Bytes: the live K/V rows (the kernel never reads rows past a slot's
+    # length), q and out, plus the block-table entries and lengths.
     isz = 2 if dname == "bfloat16" else 4
     live_pages = sum(-(-L // P) for L in lengths)
-    nbytes = isz * (2 * live_pages * P * hkv * hd + 2 * S * h * hd)
+    nbytes = isz * (2 * sum(lengths) * hkv * hd + 2 * S * h * hd) \
+        + 4 * (live_pages + S)
     op_ms = 4 * h * hd * sum(lengths) / PEAK[dname] * 1e3
     byte_ms = nbytes / HBM_BPS * 1e3
     row = dict(phase="kernel", kernel="flash_decode", case=label,
@@ -771,11 +776,12 @@ def phase_profile(torch, model, prompts, steps: int = 2):
 
 
 def phase_continuous(torch, model):
-    """Full-width continuous batching through ``run_continuous`` (the
-    static-path oracle included), with its gates; then one decode step's
-    logits against the static dense path, and a profile."""
+    """Full-width continuous batching through ``run_continuous``, counted
+    alone, with its gates; then the static-path oracle outside the
+    counted window, one decode step's logits against the static dense
+    path, and a profile."""
     from repro_torch.core import use
-    from repro_torch.launch.serve import run_continuous
+    from repro_torch.launch.serve import run_continuous, static_oracle
     cfg = model.cfg
     L = cfg.num_layers
     with use(backend="engine", fused="auto", device="cuda"):
@@ -785,21 +791,27 @@ def phase_continuous(torch, model):
         t0 = time.perf_counter()
         res = run_continuous(model, num_slots=CONT_SLOTS,
                              num_pages=CONT_PAGES, page_size=CONT_PAGE,
-                             max_blocks=CONT_BLOCKS, **CONT_TRACE)
+                             max_blocks=CONT_BLOCKS, check=False,
+                             **CONT_TRACE)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _read_counts()
         peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        oracle = static_oracle(model, res["trace"], res["outputs"])
+        oracle_s = time.perf_counter() - t0
     m, reqs, pool = res["metrics"], res["trace"], res["pool"]
     steps = m["decode_steps"]
+    # One prefill per admission (re-admissions replay their context), one
+    # forward per decode step: 7 projections per layer and the LM head
+    # each, flash forward once per layer per prefill, flash_decode once
+    # per layer per step.
     admissions = len(reqs) + m["evictions"]
-    oracle_forwards = sum(r.max_new for r in reqs)
     want = {
         "flash_decode": steps * L, "engine_decode_launches": steps * L,
-        "engine_gemm_calls": (admissions + steps + oracle_forwards)
-        * (7 * L + 1),
-        "flash_fwd_fused": (admissions + len(reqs)) * L,
-        "engine_flash_launches": (admissions + len(reqs)) * L,
+        "engine_gemm_calls": (admissions + steps) * (7 * L + 1),
+        "flash_fwd_fused": admissions * L,
+        "engine_flash_launches": admissions * L,
     }
     emit(phase="continuous", model=cfg.name, slots=CONT_SLOTS,
          num_pages=CONT_PAGES, page_size=CONT_PAGE, max_blocks=CONT_BLOCKS,
@@ -811,10 +823,11 @@ def phase_continuous(torch, model):
          p99_token_latency_s=m["p99_token_latency_s"],
          phase_seconds=m["phase_seconds"], decode_steps=steps,
          evictions=m["evictions"], evicted=res["evictions"],
-         run_seconds=m["wall_seconds"], wall_seconds_with_oracle=wall,
+         run_seconds=m["wall_seconds"], wall_seconds=wall,
+         oracle_seconds=oracle_s,
          peak_memory_bytes=peak, flash_decode_launches=
          m["flash_decode_launches"], launches=counts, expected=want,
-         identical_requests=res["identical_requests"],
+         identical_requests=oracle["identical_requests"],
          requests=len(reqs))
     for r in reqs:
         out = res["outputs"].get(r.rid)
@@ -837,6 +850,9 @@ def phase_continuous(torch, model):
             counts["engine_gemm_launches"] or counts["flash_fwd_dense"]:
         fail(f"GEMM / flash kernel launches disagree with the engine: "
              f"{counts}")
+    if counts["gemm_fused"] + counts["gemm_region"] < \
+            want["engine_gemm_calls"]:
+        fail(f"projections did not all run the GEMM kernels: {counts}")
     _continuous_logits(torch, model, reqs)
     return counts
 

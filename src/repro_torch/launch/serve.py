@@ -78,13 +78,13 @@ def generate(model, prompts, gen_steps: int, *, capacity=None):
 
 def run_continuous(model, *, num_slots=4, num_pages=64, page_size=16,
                    max_blocks=8, num_requests=6, rate=0.5, prompt_len=12,
-                   max_new=8, seed=0, warm_start=None):
-    """Drive the continuous-batching runtime on a Poisson trace and check
-    it against the static-batch path.  ``prompt_len``/``max_new`` are ints
-    or (lo, hi) ranges.  Returns the engine's run result with the
-    requests (``trace``), the allocator at the end (``pool``),
-    ``token_identical`` (every request's tokens equal its solo static
-    ``generate``'s) and ``identical_requests`` (how many do) added."""
+                   max_new=8, seed=0, check=True, warm_start=None):
+    """Drive the continuous-batching runtime on a Poisson trace and, with
+    ``check``, hold it against the static-batch path.  ``prompt_len``/
+    ``max_new`` are ints or (lo, hi) ranges.  Returns the engine's run
+    result with the requests (``trace``) and the allocator at the end
+    (``pool``) added, and with ``check`` :func:`static_oracle`'s
+    ``identical_requests`` and ``token_identical``."""
     from repro_torch.models.attention import PageSpec
     from repro_torch.runtime.batching import (ContinuousBatchingEngine,
                                               poisson_trace)
@@ -98,18 +98,23 @@ def run_continuous(model, *, num_slots=4, num_pages=64, page_size=16,
     result = serving.run(reqs)
     result["trace"] = reqs
     result["pool"] = serving.pool
+    if check:
+        result.update(static_oracle(model, reqs, result["outputs"]))
+    return result
 
-    # Oracle: each request decoded alone on the static path must emit the
-    # same greedy tokens the churning batch produced.
+
+def static_oracle(model, reqs, outputs):
+    """Each request decoded alone on the static path must emit the same
+    greedy tokens the churning batch produced (``outputs``: rid -> tokens).
+    Returns ``identical_requests`` (how many do) and ``token_identical``
+    (all of them)."""
     same = 0
     for r in reqs:
         static = generate(model, torch.from_numpy(r.prompt)[None, :],
                           r.max_new)
         same += bool(np.array_equal(static["tokens"][0].cpu().numpy(),
-                                    result["outputs"][r.rid]))
-    result["identical_requests"] = same
-    result["token_identical"] = same == len(reqs)
-    return result
+                                    outputs[r.rid]))
+    return {"identical_requests": same, "token_identical": same == len(reqs)}
 
 
 def main(argv=None):

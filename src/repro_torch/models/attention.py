@@ -140,46 +140,68 @@ def _ring_write(cache: KVCache, k, v, pos2d) -> None:
     cache.pos[bidx, slots] = pos2d.expand(b, s).to(cache.pos.dtype)
 
 
-def _write_token(pool, new, pid, off, active, first):
+class PagedStep(NamedTuple):
+    """One decode step's per-slot state, the same for every layer (the
+    layers share one block-table tensor): built once per step by
+    :func:`paged_step`."""
+
+    active: torch.Tensor   # (S,) bool
+    pid: torch.Tensor      # (S,) page the slot's new K/V goes to
+    off: torch.Tensor      # (S,) row in that page
+    first: torch.Tensor    # () the first active row (0 if none)
+    lengths: torch.Tensor  # (S,) live KV length after the write, 0 inactive
+
+
+def paged_step(cache: PagedKVCache, positions) -> PagedStep:
+    """The step's write targets and lengths from a layer's block tables
+    and the ``(S, 1)`` per-slot positions (the slot's current length; -1 =
+    inactive; one shared position broadcasts).  An inactive row targets
+    the first active row's slot (:func:`_write_token`)."""
+    S, P = cache.tables.shape[0], cache.k.shape[1]
+    pos = positions.reshape(-1)
+    pos = (pos if pos.shape[0] == S else pos.expand(S)).long()
+    active = pos >= 0
+    safe = torch.clamp_min(pos, 0)
+    blk = cache.tables.long().gather(1, (safe // P)[:, None])[:, 0]
+    off = safe % P
+    first = torch.argmax(active.int())
+    return PagedStep(active=active,
+                     pid=torch.where(active, blk, blk[first]),
+                     off=torch.where(active, off, off[first]), first=first,
+                     lengths=torch.where(active, pos + 1, 0))
+
+
+def _write_token(pool, new, step: PagedStep):
     """``pool[pid[i], off[i]] = new[i]`` for the active rows, in place and
     without a host sync.  Torch has no dropped-write mode, so an inactive
     row writes what leaves the pool as the active rows alone would: the
     first active row's value at that row's target (``pid``/``off`` already
     point there), or, when no row is active, the value already at its
     target."""
+    active, first = step.active, step.first
     new = new.to(pool.dtype)
-    cur = pool[pid, off]
+    cur = pool[step.pid, step.off]
     sel = active.reshape(-1, *([1] * (new.ndim - 1)))
     val = torch.where(sel, new, torch.where(active[first], new[first], cur))
-    pool[pid, off] = val
+    pool[step.pid, step.off] = val
 
 
-def _paged_decode(cfg, cache: PagedKVCache, q, k, v, pos2d, dt, g):
+def _paged_decode(cfg, cache: PagedKVCache, q, k, v, step: PagedStep, dt, g):
     """One decode step against the paged KV pool.
 
-    q/k/v: (S, 1, h|hkv, hd); ``pos2d``: (S, 1) per-slot positions (the
-    slot's current length; -1 = inactive).  The new token's K/V is written
-    in place at ``(tables[i, pos // P], pos % P)``; inactive rows leave the
-    pools unchanged (:func:`_write_token`) and their output rows are
-    garbage the scheduler ignores.  Attention runs through the engine's
+    q/k/v: (S, 1, h|hkv, hd).  The new token's K/V is written in place at
+    ``(tables[i, pos // P], pos % P)``; inactive rows leave the pools
+    unchanged (:func:`_write_token`) and their output rows are garbage the
+    scheduler ignores.  Attention runs through the engine's
     ``flash_decode`` family (``engine`` backend: ONE launch over the
-    runtime decode table) or the gather formulation
+    runtime decode table, built once per step) or the gather formulation
     (``ref_paged_decode_attention``'s math through :func:`_attend`)."""
     S = q.shape[0]
     pages, P, hkv, hd = cache.k.shape
     B = cache.tables.shape[1]
-    pos = pos2d[:, 0] if pos2d.shape[0] == S else pos2d[:, 0].expand(S)
-    pos = pos.long()
-    active = pos >= 0
-    safe = torch.clamp_min(pos, 0)
-    blk = cache.tables.long().gather(1, (safe // P)[:, None])[:, 0]
-    off = safe % P
-    first = torch.argmax(active.int())  # the first active row (0 if none)
-    pid = torch.where(active, blk, blk[first])
-    off = torch.where(active, off, off[first])
-    _write_token(cache.k, k[:, 0], pid, off, active, first)
-    _write_token(cache.v, v[:, 0], pid, off, active, first)
-    lengths = torch.where(active, pos + 1, 0)
+    _write_token(cache.k, k[:, 0], step)
+    _write_token(cache.v, v[:, 0], step)
+    lengths = step.lengths
 
     if get_config().backend == "engine" and not cfg.attn_logit_softcap:
         from repro_torch.kernels.flash_attention import paged_decode_attention
@@ -209,11 +231,13 @@ class Attention(nn.Module):
             self.k_norm = RMSNorm(hd, init)
 
     def forward(self, x, positions, *, cache=None,
-                window: Optional[int] = None):
+                window: Optional[int] = None,
+                step: Optional[PagedStep] = None):
         """Self-attention.  positions: (s,) or (b, s) absolute positions;
         with a :class:`PagedKVCache`, (S, 1) per-slot positions (-1 marks
-        an inactive slot).  Returns (y, cache); with a cache and s == 1
-        this is a decode step."""
+        an inactive slot) and the step's :class:`PagedStep` (built here
+        when not given).  Returns (y, cache); with a cache and s == 1 this
+        is a decode step."""
         if window is not None:
             raise NotImplementedError("sliding-window attention is not ported")
         cfg = self.cfg
@@ -237,7 +261,9 @@ class Attention(nn.Module):
             if s != 1:
                 raise ValueError("a paged cache takes one decode token per "
                                  f"slot, got {s}")
-            out = _paged_decode(cfg, cache, q, k, v, pos2d, dt, g)
+            out = _paged_decode(cfg, cache, q, k, v,
+                                paged_step(cache, pos2d) if step is None
+                                else step, dt, g)
         elif cache is not None and s == 1:
             _ring_write(cache, k, v, pos2d)
             kf = _repeat_kv(cache.k.to(dt), g)

@@ -13,8 +13,9 @@ from typing import List, Optional
 from torch import nn
 
 from repro_torch.core.machine import torch_dtype
-from repro_torch.models.attention import (Attention, KVCache, init_kv_cache,
-                                          init_paged_kv_cache)
+from repro_torch.models.attention import (Attention, KVCache, PagedKVCache,
+                                          init_kv_cache, init_paged_kv_cache,
+                                          paged_step)
 from repro_torch.models.common import Init, make_norm
 from repro_torch.models.mlp import MLP
 
@@ -43,11 +44,13 @@ class Block(nn.Module):
             self.norm_ff = make_norm(cfg.norm_type, cfg.d_model, init)
             self.ff = MLP(cfg, init)
 
-    def forward(self, x, positions, *, cache: Optional[KVCache] = None):
-        """Returns (x, cache)."""
+    def forward(self, x, positions, *, cache: Optional[KVCache] = None,
+                step=None):
+        """Returns (x, cache); ``step`` is a paged decode step's
+        :class:`~repro_torch.models.attention.PagedStep`."""
         cfg = self.cfg
         y, cache = self.mixer(self.norm_mix(x, cfg.norm_eps), positions,
-                              cache=cache)
+                              cache=cache, step=step)
         x = x + y
         if cfg.block_has_mlp:
             x = x + self.ff(self.norm_ff(x, cfg.norm_eps))
@@ -57,22 +60,31 @@ class Block(nn.Module):
 def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
     """One KV cache per layer: dense, or with ``paged`` (a
     :class:`~repro_torch.models.attention.PageSpec`) a paged pool with
-    ``batch`` block-table rows, the continuous-batching serving cache."""
+    ``batch`` block-table rows, the continuous-batching serving cache.
+    Every layer maps its pool through the same slots' pages, so the
+    layers share one block-table tensor."""
     dt = torch_dtype(cfg.kv_cache_dtype)
     if paged is not None:
-        return [init_paged_kv_cache(batch, paged, cfg.num_kv_heads,
-                                    cfg.head_dim, dt, device)
-                for _ in range(cfg.num_layers)]
+        leaves = [init_paged_kv_cache(batch, paged, cfg.num_kv_heads,
+                                      cfg.head_dim, dt, device)
+                  for _ in range(cfg.num_layers)]
+        for leaf in leaves[1:]:
+            leaf.tables = leaves[0].tables
+        return leaves
     return [init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim,
                           dt, device)
             for _ in range(cfg.num_layers)]
 
 
 def stack_apply(blocks: nn.ModuleList, x, positions, *, cache=None):
-    """Run every block in order; returns (x, caches or None)."""
+    """Run every block in order; returns (x, caches or None).  A paged
+    decode step's per-slot state is built once, for every layer."""
     new_cache = [] if cache is not None else None
+    step = paged_step(cache[0], positions) \
+        if cache and isinstance(cache[0], PagedKVCache) else None
     for i, block in enumerate(blocks):
-        x, c = block(x, positions, cache=None if cache is None else cache[i])
+        x, c = block(x, positions, cache=None if cache is None else cache[i],
+                     step=step)
         if new_cache is not None:
             new_cache.append(c)
     return x, new_cache

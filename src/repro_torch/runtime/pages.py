@@ -193,12 +193,15 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
 def refresh_tables(cache, tables):
     """Rewrite every layer's block tables in place with ``tables``
     ((num_slots, max_blocks) int32, host or device); called after the
-    allocator moved pages.  Returns the cache."""
-    t = None
+    allocator moved pages.  Layers that share one table tensor
+    (``stack_cache``) are written once.  Returns the cache."""
+    t = done = None
     for leaf in cache:
         _check_leaf(leaf)
         if t is None:
             t = tables if isinstance(tables, torch.Tensor) \
                 else to_device(np.asarray(tables, np.int32), leaf.tables.device)
-        leaf.tables.copy_(t)
+        if leaf.tables is not done:
+            leaf.tables.copy_(t)
+            done = leaf.tables
     return cache

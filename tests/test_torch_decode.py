@@ -235,6 +235,30 @@ def test_decode_state_is_rewritten_in_place():
                                           for L in lengths)
 
 
+def test_decode_state_rebuilds_only_on_changed_inputs(monkeypatch):
+    """The same block tables and lengths, unchanged, keep the table; an
+    in-place rewrite of the block tables (refresh_tables) rebuilds it."""
+    sched = DecodeTileSchedule(num_seqs=2, pages=6, page_size=4,
+                               max_blocks=3)
+    builds = []
+    real = DecodeTileSchedule.tables_and_offsets
+    monkeypatch.setattr(DecodeTileSchedule, "tables_and_offsets",
+                        lambda self, *a: builds.append(1) or real(self, *a))
+    exe = FlashDecode(sched, "cpu")
+    bt = torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32)
+    lengths = torch.tensor([5, 2], dtype=torch.int32)
+    exe.update(bt, lengths)
+    exe.update(bt, lengths)
+    assert len(builds) == 1
+    bt.copy_(torch.tensor([[5, 4, 3], [2, 1, 0]], dtype=torch.int32))
+    exe.update(bt, lengths)
+    assert len(builds) == 2
+    np.testing.assert_array_equal(
+        exe.table.numpy(), real(sched, bt, lengths)[0].numpy())
+    exe.update(bt, lengths.clone())
+    assert len(builds) == 3
+
+
 def test_decode_wrapper_checks_shapes():
     sched = DecodeTileSchedule(num_seqs=2, pages=6, page_size=4,
                                max_blocks=3)

@@ -91,12 +91,11 @@ def test_flash_bwd_shared_memory_fits_h100_at_the_limits():
 
 
 def test_flash_decode_limits_match_kernel_py_and_machine():
-    assert _constexpr(FLASH_DECODE_CU, "PAGE_MAX") == flash_kernel.MAX_PAGE \
-        == H100_SXM.decode_max_page
-    assert _constexpr(FLASH_DECODE_CU, "D_MAX") \
-        == flash_kernel.MAX_DECODE_HEAD_DIM == H100_SXM.decode_max_head_dim
-    assert _constexpr(FLASH_DECODE_CU, "GROUP_MAX") == flash_kernel.MAX_GROUP \
-        == H100_SXM.decode_max_group
+    """The decode kernel's limits live in the .cu and in H100_SXM, which
+    ``plan_flash_decode`` checks; kernel.py restates none of them."""
+    assert _constexpr(FLASH_DECODE_CU, "PAGE_MAX") == H100_SXM.decode_max_page
+    assert _constexpr(FLASH_DECODE_CU, "D_MAX") == H100_SXM.decode_max_head_dim
+    assert _constexpr(FLASH_DECODE_CU, "GROUP_MAX") == H100_SXM.decode_max_group
     assert _constexpr(FLASH_DECODE_CU, "NEG_INF") == flash_kernel.NEG_INF
 
 
@@ -104,8 +103,8 @@ def test_flash_decode_shared_memory_fits_h100_at_the_limits():
     """The decode kernel stages the group's q rows and accumulator, one
     page of k (rows padded by one) and v, the scores (rows padded by one)
     and three per-head vectors, all fp32 (``smem_bytes`` in the .cu)."""
-    rep, page = flash_kernel.MAX_GROUP, flash_kernel.MAX_PAGE
-    d = flash_kernel.MAX_DECODE_HEAD_DIM
+    rep, page = H100_SXM.decode_max_group, H100_SXM.decode_max_page
+    d = H100_SXM.decode_max_head_dim
     floats = 2 * rep * d + page * (d + 1) + page * d + rep * (page + 1) \
         + 3 * rep
     assert re.search(r"2 \* \(size_t\)rep \* d \+ \(size_t\)page \* \(d \+ 1\)",

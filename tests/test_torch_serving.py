@@ -42,7 +42,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import params_from_jax_numpy
 from repro_torch.core import engine, use
 from repro_torch.launch.serve import generate, main as serve_main, \
-    run_continuous
+    run_continuous, static_oracle
 from repro_torch.models import LanguageModel
 from repro_torch.models.attention import KVCache, PageSpec
 from repro_torch.runtime.batching import (ContinuousBatchingEngine, Request,
@@ -419,6 +419,57 @@ def test_launches_flat_under_churn(setup):
             == m["decode_steps"] * cfg.num_layers
         assert st["kernel_misses"] == 1 and st["plan_misses"] == 1
         _assert_identical(model, reqs, result)
+
+
+def test_decode_table_built_once_per_step(setup, monkeypatch):
+    """Every layer shares one block-table tensor and the step's lengths,
+    so a decode step builds the runtime decode table once, not once per
+    layer, and still launches flash_decode once per layer."""
+    from repro_torch.core.schedule import DecodeTileSchedule
+    _, cfg, _, model = setup
+    builds = []
+    real = DecodeTileSchedule.tables_and_offsets
+    monkeypatch.setattr(DecodeTileSchedule, "tables_and_offsets",
+                        lambda self, *a: builds.append(1) or real(self, *a))
+    with use(backend="engine", device="cpu"):
+        cache, pool, toks = _port_state(model)
+        assert all(c.tables is cache[0].tables for c in cache)
+        lengths = torch.tensor([L or 0 for L in PROMPT_LENS])
+        active = torch.tensor([L is not None for L in PROMPT_LENS])
+        engine.reset_stats(entries=False)
+        step = make_paged_serve_step(model)
+        tokens = torch.tensor(toks)[:, None]
+        for n in (1, 2):
+            tokens, _, lengths = step(cache, tokens, lengths, active)
+            assert len(builds) == n
+        assert engine.stats()["flash_decode"]["launches"] \
+            == 2 * cfg.num_layers
+
+
+def test_continuous_launches_without_the_oracle(setup):
+    """``run_continuous(check=False)`` runs the engine alone: one prefill
+    per admission and one forward per decode step, each 7 projections per
+    layer and the LM head, flash forward once per layer per prefill.  The
+    oracle, run after, gives the static path's tokens."""
+    _, cfg, _, model = setup
+    L = cfg.num_layers
+    with use(backend="engine", device="cpu"):
+        engine.reset_stats(entries=False)
+        res = run_continuous(model, num_slots=3, num_pages=9, page_size=4,
+                             max_blocks=8, num_requests=4, rate=2.0,
+                             prompt_len=10, max_new=8, seed=1, check=False)
+        st = engine.stats()
+        assert "token_identical" not in res
+        assert static_oracle(model, res["trace"], res["outputs"]) == {
+            "identical_requests": 4, "token_identical": True}
+    m = res["metrics"]
+    admissions = len(res["trace"]) + m["evictions"]
+    assert m["evictions"] > 0
+    gemm = st["gemm"]
+    assert gemm["plan_hits"] + gemm["plan_misses"] \
+        == (admissions + m["decode_steps"]) * (7 * L + 1)
+    assert st["flash_attention"]["launches"] == admissions * L
+    assert st["flash_decode"]["launches"] == m["decode_steps"] * L
 
 
 def test_lone_sequence_pool_exhaustion_raises(setup):
