@@ -8,13 +8,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device  -- the card's name, the device count and nvidia-smi's name and
                 power limit; no CUDA device is a failure;
   2. build   -- nvcc builds every kernel source in the checkout;
-  3. kernels -- each of the six kernels against its plain torch version on
-                the card, at full-width Qwen3-0.6B main-path shapes (serving:
+  3. kernels -- each of the nine kernels against its plain torch version on
+                the card, at the full-width main-path shapes of Qwen3-0.6B (serving:
                 batch 4, prompt 256; training: batch 8, sequence 128;
-                continuous decode: 8 slots over a paged pool) and ragged
-                cases, with errors, kernel / plain / library times (CUDA
-                events) and the bound; the flash forward also in its LSE
-                form, the flash backward, and the paged decode;
+                continuous decode: 8 slots over a paged pool) and of
+                mamba2-130m (its projections and read-out; the SSD scan at
+                serving, 96 groups x 4 chunks of 256, and training, 192
+                groups with the entering states; the diag form flattened)
+                and ragged cases, with errors, kernel / plain /
+                library times (CUDA events) and the bound; the flash forward
+                also in its LSE form, the flash backward, the paged decode,
+                the SSD scan, its backward and the intra-chunk ladder;
   4. serve   -- full-width Qwen3-0.6B (seeded random weights) through
                 ``generate`` on the engine backend, fused="auto": batch 4,
                 prompt 256, 16 new tokens; launch counts must equal what
@@ -36,7 +40,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 two decode steps;
      reduced -- reduced_config(qwen3-0.6b) in fp32: engine and torch give
                 identical greedy tokens, and a continuous run with an
-                eviction gives the static path's tokens;
+                eviction gives the static path's tokens; reduced_config(
+                mamba2-130m) in fp32: engine and torch greedy tokens equal;
   7. train   -- full-width Qwen3-0.6B training (seeded random fp32 masters,
                 bf16 compute; batch 8, sequence 128, AdamW with warmup_cosine,
                 the synthetic bigram stream): loss and gradients of one batch
@@ -46,8 +51,21 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 exact launch counts per step; the step-2 checkpoint restored and stepped again, equal
                 to the run's steps 3 and 4 within stated tolerances; a
                 profile of one more step;
-  8. the ``kernels`` line, then the card's nvidia-smi line, then
-  9. the last line: {"ok": true, "device": {...}}.
+  8. serve_ssm -- full-width mamba2-130m (seeded random weights, bf16) through
+                ``generate``: batch 4, prompt 1000 (padded to 4 chunks of
+                256, so the carried state crosses 3 seams), 16 new tokens;
+                one ssd_scan_fused launch per layer in the prefill and none
+                in decode, 49 GEMM calls a forward; prefill logits against
+                the torch backend; prefill-then-one-decode-step logits
+                against the full forward's last position;
+     serve_ssm_off -- the same prefill under fused="off": one ssd_chunk_diag
+                launch per layer, logits against fused="auto";
+     train_ssm -- full-width mamba2-130m training as phase 7 at batch 8 x
+                1024 (four chunks a row, so the reverse walk crosses seams):
+                one ssd_scan_fused (with states) and one ssd_scan_bwd launch
+                per layer a step;
+  9. the ``kernels`` line, then the card's nvidia-smi line, then
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
 """
@@ -99,6 +117,14 @@ CONT_SLOTS, CONT_PAGES, CONT_PAGE, CONT_BLOCKS = 8, 96, 16, 24
 CONT_TRACE = dict(num_requests=12, rate=1.0, prompt_len=(96, 256),
                   max_new=(16, 48), seed=0)
 
+# mamba2-130m: static serving at batch 4 with a 1000-token prompt (not a
+# multiple of the 256-token chunk: it pads to 4 chunks, so the carried
+# state crosses 3 seams), 16 new tokens; training at batch 8 x 1024 (the
+# reference CLI's 8 x 128 is one padded chunk, whose reverse walk crosses
+# no seam).
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 1000, 16
+SSM_TRAIN_SEQ = 1024
+
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
@@ -143,9 +169,18 @@ def main():
     phase_reduced(torch)
     torch.cuda.empty_cache()
     counts_train = phase_train(torch)
+    torch.cuda.empty_cache()
+    counts_ssm, model, prompts, logits = phase_serve_ssm(torch)
+    counts_ssm_off = phase_serve_ssm_off(torch, model, prompts, logits)
+    del model, logits
+    torch.cuda.empty_cache()
+    counts_train_ssm = phase_train(torch, "mamba2-130m", SSM_TRAIN_SEQ,
+                                   "train_ssm")
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
-               "continuous": counts_cont, "train": counts_train}
+               "continuous": counts_cont, "train": counts_train,
+               "serve_ssm": counts_ssm, "serve_ssm_off": counts_ssm_off,
+               "train_ssm": counts_train_ssm}
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -168,6 +203,7 @@ def main():
             "bound_ms": by_bytes + by_ops,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None if None in lib else sum(lib),
+            **({"library": meta[2]} if len(meta) > 2 else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -190,6 +226,19 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:500"),
     "flash_decode": ("src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/kernel.py:358"),
+    # No single PyTorch call computes the SSD scan: their library times are
+    # the torch backend's composition (cuBLAS einsums and the chunk loop,
+    # autograd through it for the backward), named in the line.
+    "ssd_scan_fused": ("src/repro_torch/kernels/ssd_chunk/csrc/ssd_scan.cu",
+                       "src/repro/kernels/ssd_chunk/kernel.py:128",
+                       "composition: torch-backend einsums + chunk loop"),
+    "ssd_chunk_diag": ("src/repro_torch/kernels/ssd_chunk/csrc/ssd_scan.cu",
+                       "src/repro/kernels/ssd_chunk/kernel.py:51",
+                       "composition: torch-backend einsums"),
+    "ssd_scan_bwd": ("src/repro_torch/kernels/ssd_chunk/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_chunk/kernel.py:264",
+                     "composition: autograd through the torch-backend "
+                     "einsums + chunk loop"),
 }
 
 
@@ -240,6 +289,19 @@ def gemm_cases():
     # read-out over every position.
     cases.append(("train_readout_nt", TRAIN_BATCH * TRAIN_SEQ, vocab, d,
                   "nt", None))
+    # mamba2-130m: in_proj (d 768 -> 2 x 1536 + 2 x 128 + 24) and out_proj
+    # (1536 -> 768) at the serving prefill, decode and training rows, and
+    # the tied read-out (vocab 50,280) at decode and over every training
+    # position.
+    sd, sproj, sin, svocab = 768, 3352, 1536, 50280
+    for stage, m in (("ssm_prefill", SSM_BATCH * SSM_PROMPT),
+                     ("ssm_decode", SSM_BATCH),
+                     ("ssm_train", TRAIN_BATCH * SSM_TRAIN_SEQ)):
+        cases += [(f"{stage}_in", m, sproj, sd, "nn", None),
+                  (f"{stage}_out", m, sd, sin, "nn", None)]
+    cases += [("ssm_readout_nt", SSM_BATCH, svocab, sd, "nt", None),
+              ("ssm_train_readout_nt", TRAIN_BATCH * SSM_TRAIN_SEQ, svocab,
+               sd, "nt", None)]
     cases = [c + ("bfloat16", False, 0, True) for c in cases]
     cases += [
         ("ragged_bias_gelu_acc_nt", 997, 1003, 1001, "nt", "bias_gelu",
@@ -576,6 +638,182 @@ def run_decode_case(torch, case, gen):
     return [row]
 
 
+def ssd_cases():
+    """(label, (G, NC, Q, n, p), (C/B, L, xdt) dtypes, main): full-width
+    mamba2-130m at serving batch 4 (96 groups; the diag form flattened to
+    384) and training batch 8 x 1024 (192 groups, with the entering
+    states and the backward) in the model's dtypes, the serving shape in
+    bf16 throughout and in fp32, and the odd little case of
+    tests/test_kernels_other.py."""
+    bf, f32 = "bfloat16", "float32"
+    return [("serve_model_dtypes", (96, 4, 256, 128, 64), (bf, f32, f32),
+             True),
+            ("train_model_dtypes", (192, 4, 256, 128, 64), (bf, f32, f32),
+             True),
+            ("serve_bf16", (96, 4, 256, 128, 64), (bf, bf, bf), False),
+            ("serve_f32", (96, 4, 256, 128, 64), (f32, f32, f32), False),
+            ("odd_little_f32", (2, 3, 16, 8, 12), (f32, f32, f32), False)]
+
+
+def _ssd_operands(torch, shape, dtypes, gen):
+    """Physical inputs: decays in (0, 1] from a negative cumulative
+    log-decay, L lower-triangular, as the model builds them."""
+    g, nc, q, n, p = shape
+    cdt, ldt, xdt = (getattr(torch, d) for d in dtypes)
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device="cuda") * scale
+
+    c, b = rnd(g, nc, q, n, scale=0.5).to(cdt), rnd(g, nc, q, n,
+                                                     scale=0.5).to(cdt)
+    da = -(rnd(g, nc, q).abs() * 0.02).cumsum(-1)
+    seg = da[..., :, None] - da[..., None, :]
+    tril = torch.ones((q, q), dtype=torch.bool, device="cuda").tril()
+    l = torch.where(tril, torch.exp(seg), 0.0).to(ldt)
+    x = rnd(g, nc, q, p, scale=0.5).to(xdt)
+    di, do = torch.exp(da), torch.exp(da[..., -1:] - da)
+    s0 = rnd(g, p, n, scale=0.3)
+    return c, b, l, x, di, do, s0
+
+
+def _ssd_composition(torch, c, b, l, x, di, do, s0):
+    """The torch backend's composition (models/ssd.py ``_ssd_chunked``) on
+    the kernel's operands: cuBLAS einsums in the operands' dtypes (promoted
+    as jnp.einsum would), the inter-chunk recurrence a chunk loop."""
+    def es(eq, *ops):
+        dt = ops[0].dtype
+        for t in ops[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        return torch.einsum(eq, *(t.to(dt) for t in ops))
+    y_diag = es("gcqk,gckp->gcqp", (es("gcqn,gckn->gcqk", c, b) * l)
+                .to(x.dtype), x)
+    bx = es("gcqn,gcqp->gcpn", b, (x * do[..., None]).to(x.dtype)).float()
+    state, s_prev = s0, []
+    for ci in range(c.shape[1]):
+        s_prev.append(state)
+        state = state * di[:, ci, -1, None, None] + bx[:, ci]
+    y_off = es("gcqn,gcpn->gcqp", c, torch.stack(s_prev, 1).to(x.dtype)) \
+        * di[..., None].to(x.dtype)
+    return (y_diag + y_off).to(x.dtype), state
+
+
+def _ssd_bound(kind, shape, dtypes, states=False):
+    """(byte_ms, op_ms) of one call: each input read once and each output
+    written once at its dtype; each product's flops at the peak of its
+    operands' type (bf16 when both are bf16, else fp32)."""
+    g, nc, q, n, p = shape
+    cells = g * nc
+    isz = {"bfloat16": 2, "float32": 4}
+    ci, li, xi = (isz[d] for d in dtypes)
+    cb, xb = dtypes[0] == "bfloat16", dtypes[2] == "bfloat16"
+
+    def ops_ms(*terms):  # (flops, both operands bf16)
+        return sum(f / PEAK["bfloat16" if bf else "float32"]
+                   for f, bf in terms) * 1e3
+
+    cell_in = 2 * q * n * ci + q * q * li + q * p * xi
+    if kind == "diag":
+        nbytes = cells * (cell_in + q * p * xi)
+        op = ops_ms((cells * 2 * q * q * n, cb), (cells * 2 * q * q * p, xb))
+    elif kind == "scan":
+        nbytes = cells * (cell_in + 2 * q * 4 + q * p * xi) \
+            + 2 * g * p * n * 4 + (cells * p * n * 4 if states else 0)
+        op = ops_ms((cells * 2 * q * q * n, cb), (cells * 2 * q * q * p, xb),
+                    (cells * 2 * q * n * p, False),       # C · Sᵀ
+                    (cells * 2 * q * n * p, cb and xb))   # xwᵀ · B
+    else:  # bwd: operands, states, fp32 dY / dSf in; fp32 cotangents out
+        nbytes = cells * (cell_in + 2 * q * 4 + p * n * 4 + q * p * 4) \
+            + g * p * n * 4 \
+            + cells * (2 * q * n + q * q + q * p + 2 * q) * 4 + g * p * n * 4
+        op = ops_ms((cells * (2 * q * q * (3 * n + 2 * p) + 10 * q * n * p),
+                     False))
+    return nbytes / HBM_BPS * 1e3, op
+
+
+def run_ssd_case(torch, case, gen):
+    """ssd_scan_fused (with the entering states at the training shape),
+    ssd_chunk_diag on the flattened cells and ssd_scan_bwd against their
+    plain versions; the library is the torch backend's composition."""
+    from repro_torch.kernels.ssd_chunk.kernel import (
+        ssd_chunk_diag, ssd_chunk_diag_plain, ssd_scan_bwd, ssd_scan_bwd_plain,
+        ssd_scan_fused, ssd_scan_fused_plain)
+    label, shape, dtypes, main_path = case
+    g, nc, q, n, p = shape
+    c, b, l, x, di, do, s0 = ops = _ssd_operands(torch, shape, dtypes, gen)
+    train = label.startswith("train")
+    rows = []
+
+    def row(kname, kind, errs, tol, kern, plain, library, states=False):
+        byte_ms, op_ms = _ssd_bound(kind, shape, dtypes, states)
+        r = dict(phase="kernel", kernel=kname, case=label, main_path=main_path,
+                 shape=list(shape), dtypes=list(dtypes),
+                 max_abs_err=max(e[0] for e in errs.values()),
+                 errors={k: e[0] for k, e in errs.items()},
+                 max_rel_err=max(e[1] for e in errs.values()), tolerance=tol,
+                 mismatches=sum(e[2] for e in errs.values()),
+                 ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2),
+                 library_ms=time_ms(torch, library, 5), op_ms=op_ms,
+                 byte_ms=byte_ms, bound_ms=max(op_ms, byte_ms),
+                 bound_by="bytes" if byte_ms >= op_ms else "operations")
+        emit(**r)
+        if r["mismatches"]:
+            fail(f"{kname} {label}: {r['mismatches']} elements outside "
+                 f"atol=rtol={tol}")
+        rows.append(r)
+
+    def errors(got, want, tol):
+        diff = (got.float() - want.float()).abs()
+        if not torch.isfinite(got.float()).all():
+            fail(f"{label}: kernel output is not finite")
+        bad = int((diff > tol + tol * want.float().abs()).sum().item())
+        return (diff.max().item(),
+                diff.max().item() / max(want.float().abs().max().item(), 1e-30),
+                bad)
+
+    ytol, stol = TOL[dtypes[2]], TOL["float32"]
+    y, sf, st = ssd_scan_fused(*ops, return_states=True)
+    yp, sfp, stp = ssd_scan_fused_plain(*ops, return_states=True)
+    torch.cuda.synchronize()
+    row("ssd_scan_fused", "scan",
+        {"y": errors(y, yp, ytol), "s_final": errors(sf, sfp, stol),
+         "states": errors(st, stp, stol)},
+        {"y": ytol, "states": stol},
+        lambda: ssd_scan_fused(*ops, return_states=train),
+        lambda: ssd_scan_fused_plain(*ops, return_states=train),
+        lambda: _ssd_composition(torch, *ops), states=train)
+    if not train:
+        flat = [t.reshape(g * nc, *t.shape[2:]) for t in (c, b, l, x)]
+        yd, ydp = ssd_chunk_diag(*flat), ssd_chunk_diag_plain(*flat)
+        torch.cuda.synchronize()
+        row("ssd_chunk_diag", "diag", {"y": errors(yd, ydp, ytol)}, ytol,
+            lambda: ssd_chunk_diag(*flat), lambda: ssd_chunk_diag_plain(*flat),
+            lambda: _ssd_diag_composition(torch, *flat))
+    if train or not main_path:
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        dsf = torch.randn(s0.shape, generator=gen, device="cuda")
+        got = ssd_scan_bwd(*ops[:6], st, dy, dsf)
+        want = ssd_scan_bwd_plain(*ops[:6], st, dy, dsf)
+        torch.cuda.synchronize()
+        names = ("dc", "db", "dl", "dx", "ddi", "ddo", "ds0")
+        leaves = [t.detach().requires_grad_(True) for t in ops]
+        outs = _ssd_composition(torch, *leaves)
+        row("ssd_scan_bwd", "bwd",
+            {k: errors(a, w, BWD_TOL) for k, a, w in zip(names, got, want)},
+            BWD_TOL, lambda: ssd_scan_bwd(*ops[:6], st, dy, dsf),
+            lambda: ssd_scan_bwd_plain(*ops[:6], st, dy, dsf),
+            lambda: torch.autograd.grad(outs, leaves, (dy.to(x.dtype), dsf),
+                                        retain_graph=True))
+    return rows
+
+
+def _ssd_diag_composition(torch, c, b, l, x):
+    """The torch backend's intra-chunk einsums on the flat operands."""
+    scores = torch.einsum("gqn,gkn->gqk", c, b)
+    w = (scores.to(torch.promote_types(scores.dtype, l.dtype)) * l) \
+        .to(x.dtype)
+    return torch.einsum("gqk,gkp->gqp", w, x)
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -587,6 +825,8 @@ def phase_kernels(torch):
         rows += run_flash_bwd_case(torch, case, gen)
     for case in decode_cases():
         rows += run_decode_case(torch, case, gen)
+    for case in ssd_cases():
+        rows += run_ssd_case(torch, case, gen)
     return rows
 
 
@@ -598,17 +838,23 @@ def _reset_counts():
     from repro_torch.core import engine
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.gemm import kernel as gk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
     engine.reset_stats(entries=False)
     gk.reset_launches()
     fk.reset_launches()
+    sk.reset_launches()
 
 
 def _read_counts():
     from repro_torch.core import engine
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.gemm import kernel as gk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
     st = engine.stats()
-    return {**gk.LAUNCHES, **fk.LAUNCHES,
+    return {**gk.LAUNCHES, **fk.LAUNCHES, **sk.LAUNCHES,
+            "engine_ssd_launches": st.get("ssd_chunk", {}).get("launches", 0),
+            "engine_ssd_launches_bwd": st.get("ssd_chunk", {})
+            .get("launches_bwd", 0),
             "engine_gemm_launches": st.get("gemm", {}).get("launches", 0),
             "engine_gemm_calls": st.get("gemm", {}).get("plan_hits", 0)
             + st.get("gemm", {}).get("plan_misses", 0),
@@ -955,6 +1201,25 @@ def phase_reduced(torch):
             == m["decode_steps"] * cfg.num_layers):
         fail("reduced fp32 continuous run: tokens differ from the static "
              "path, no eviction, or the decode kernel did not run")
+    # mamba2-130m in fp32 at reduced width: a 20-token prompt pads to 3
+    # chunks of 8, then 8 greedy tokens, engine against torch.
+    cfg = reduced_config(get_config("mamba2-130m"))
+    model = LanguageModel(cfg, device="cuda", seed=0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen,
+                            device="cuda")
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    n0 = sk.LAUNCHES["ssd_scan_fused"]
+    toks = {}
+    for be in ("engine", "torch"):
+        with use(backend=be, device="cuda"):
+            toks[be] = generate(model, prompts, 8)["tokens"]
+    same = bool(torch.equal(toks["engine"], toks["torch"]))
+    emit(phase="reduced_ssm", model=cfg.name, dtype=cfg.dtype,
+         tokens_identical=same, tokens=toks["engine"].tolist(),
+         ssd_scan_fused_launches=sk.LAUNCHES["ssd_scan_fused"] - n0)
+    if not same or sk.LAUNCHES["ssd_scan_fused"] - n0 != cfg.num_layers:
+        fail("reduced fp32 mamba2: engine and torch tokens differ, or the "
+             "scan kernel did not run once per layer")
 
 
 # ---------------------------------------------------------------------------
@@ -965,12 +1230,12 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _train_parts(torch, cfg):
+def _train_parts(torch, cfg, seq):
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import LanguageModel
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.runtime.steps import make_train_step
-    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH)
+    ds = SyntheticLMDataset(cfg.vocab_size, seq, TRAIN_BATCH)
     opt = adamw(warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
 
     def make_state():
@@ -984,7 +1249,7 @@ def _train_parts(torch, cfg):
     return make_state, batch_fn, make_train_step(cfg, opt)
 
 
-def _backend_gap(torch, cfg, make_state, batch_fn):
+def _backend_gap(torch, cfg, make_state, batch_fn, name):
     """Loss and gradients of one batch under both backends, same weights."""
     from repro_torch.core import use
     from repro_torch.runtime.steps import make_loss_fn
@@ -1002,7 +1267,7 @@ def _backend_gap(torch, cfg, make_state, batch_fn):
     norm = sum(b.float().square().sum() for b in grads["torch"])
     grad_gap = (diff / norm).sqrt().item()
     loss_gap = _rel(loss["engine"], loss["torch"])
-    emit(phase="train_backends", loss_engine=loss["engine"],
+    emit(phase=f"{name}_backends", loss_engine=loss["engine"],
          loss_torch=loss["torch"], loss_rel_gap=loss_gap,
          loss_bound=LOSS_BOUND, grad_rel_l2_gap=grad_gap,
          grad_bound=GRAD_BOUND, grad_norm_torch=norm.sqrt().item())
@@ -1011,17 +1276,33 @@ def _backend_gap(torch, cfg, make_state, batch_fn):
              f" gradient gap {grad_gap:.4g} (bound {GRAD_BOUND})")
 
 
-def phase_train(torch):
+def _train_want(cfg):
+    """Launches per training step that the model's structure implies."""
+    L = cfg.num_layers
+    if cfg.block_pattern == ("ssm",):
+        # two projections a layer and the tied read-out; the scan with its
+        # entering states forward, the reverse walk backward
+        return {"engine_gemm_calls": 2 * L + 1, "ssd_scan_fused": L,
+                "ssd_chunk_diag": 0, "ssd_scan_bwd": L,
+                "engine_ssd_launches": L, "engine_ssd_launches_bwd": L,
+                "flash_fwd_fused": 0, "flash_bwd_fused": 0}
+    return {"gemm_fused": 7 * L + 1, "gemm_region": 0,
+            "flash_fwd_fused": L, "flash_fwd_dense": 0,
+            "flash_bwd_fused": L, "engine_flash_launches": L,
+            "engine_flash_launches_bwd": L}
+
+
+def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train"):
     import shutil
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.core import use
     from repro_torch.runtime.train_loop import (TrainLoopConfig,
                                                 run_with_restarts)
-    cfg = get_config("qwen3-0.6b")
-    make_state, batch_fn, step_fn = _train_parts(torch, cfg)
+    cfg = get_config(arch)
+    make_state, batch_fn, step_fn = _train_parts(torch, cfg, seq)
     with use(backend="engine", fused="auto", device="cuda"):
-        _backend_gap(torch, cfg, make_state, batch_fn)
+        _backend_gap(torch, cfg, make_state, batch_fn, name)
     torch.cuda.empty_cache()
 
     per_step = []
@@ -1048,14 +1329,10 @@ def phase_train(torch):
         hist = out["metrics"]
         losses = [m["loss"] for m in hist]
         step_s = [m["step_seconds"] for m in hist]
-        want = {"gemm_fused": 7 * cfg.num_layers + 1, "gemm_region": 0,
-                "flash_fwd_fused": cfg.num_layers, "flash_fwd_dense": 0,
-                "flash_bwd_fused": cfg.num_layers,
-                "engine_flash_launches": cfg.num_layers,
-                "engine_flash_launches_bwd": cfg.num_layers}
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        emit(phase="train", model=cfg.name, params=cfg.param_count(),
-             batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=len(hist),
+        want = _train_want(cfg)
+        tokens = TRAIN_BATCH * seq
+        emit(phase=name, model=cfg.name, params=cfg.param_count(),
+             batch=TRAIN_BATCH, seq=seq, steps=len(hist),
              losses=losses, nll=[m["nll"] for m in hist],
              grad_norm=[m["grad_norm"] for m in hist],
              step_seconds=step_s,
@@ -1064,19 +1341,24 @@ def phase_train(torch):
              launches_per_step=per_step,
              expected_per_step=want)
         if len(hist) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-            fail(f"training losses not finite over {TRAIN_STEPS} steps: "
+            fail(f"{name} losses not finite over {TRAIN_STEPS} steps: "
                  f"{losses}")
         for i, counts in enumerate(per_step):
             bad = {k: (counts[k], n) for k, n in want.items()
                    if counts[k] != n}
+            if counts["gemm_fused"] + counts["gemm_region"] != \
+                    counts["engine_gemm_launches"]:
+                bad["gemm kernels vs engine"] = (
+                    counts["gemm_fused"] + counts["gemm_region"],
+                    counts["engine_gemm_launches"])
             if bad:
-                fail(f"step {i}: launch counts (got, want) {bad}")
+                fail(f"{name} step {i}: launch counts (got, want) {bad}")
         model, opt_state = _resume(torch, cfg, make_state, batch_fn, step_fn,
-                                   ckpt, out)
+                                   ckpt, out, name)
         del out
         with use(backend="engine", fused="auto", device="cuda"):
             batch = batch_fn(TRAIN_STEPS)
-            emit(phase="train_profile", steps=1, **_device_profile(
+            emit(phase=f"{name}_profile", steps=1, **_device_profile(
                 torch, lambda: step_fn(model, opt_state, batch, TRAIN_STEPS),
                 1))
     finally:
@@ -1088,7 +1370,7 @@ def phase_train(torch):
     return total
 
 
-def _resume(torch, cfg, make_state, batch_fn, step_fn, ckpt, out):
+def _resume(torch, cfg, make_state, batch_fn, step_fn, ckpt, out, name):
     """Restore the step-2 checkpoint into fresh state and take steps 3 and
     4 again; compare with the uninterrupted run."""
     from repro_torch.checkpoint import restore_checkpoint
@@ -1118,12 +1400,130 @@ def _resume(torch, cfg, make_state, batch_fn, step_fn, ckpt, out):
             "final_params_rel_l2": param_gap}
     bounds = {"loss[2]": RESUME_EXACT, "grad_norm[2]": RESUME_TOL,
               "loss[3]": RESUME_TOL, "final_params_rel_l2": RESUME_TOL}
-    emit(phase="train_resume", from_step=meta["data_step"],
+    emit(phase=f"{name}_resume", from_step=meta["data_step"],
          losses=[a["loss"] for a in again], gaps=gaps, bounds=bounds)
     bad = {k: g for k, g in gaps.items() if not g <= bounds[k]}
     if bad:
-        fail(f"resume from step {meta['data_step']} differs: {bad}")
+        fail(f"{name}: resume from step {meta['data_step']} differs: {bad}")
     return model, opt_state
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: mamba2-130m serving at full width
+# ---------------------------------------------------------------------------
+
+def _ssm_prefill_logits(torch, model, prompts):
+    from repro_torch.runtime.steps import make_prefill_step
+    logits, _ = make_prefill_step(model, prompts.shape[1])(
+        {"tokens": prompts})
+    torch.cuda.synchronize()
+    return logits.float()
+
+
+def phase_serve_ssm(torch):
+    """Full-width mamba2-130m through ``generate`` (engine, fused="auto"),
+    counted alone, with its gates; then the torch backend's prefill and the
+    decode-consistency check outside the count."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import use
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LanguageModel
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    cfg = get_config("mamba2-130m")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
+                            generator=gen, device="cuda")
+    with use(backend="engine", fused="auto", device="cuda"):
+        generate(model, prompts, 2)  # warm: plans, first launches
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = generate(model, prompts, SSM_GEN)
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        logits = _ssm_prefill_logits(torch, model, prompts)
+        # decode consistency: prefill all but the last prompt token, then
+        # one decode step on it, against the full forward's last position
+        with torch.no_grad():
+            full, _, _ = model.apply(prompts, logits_mode="last")
+            _, cache = make_prefill_step(model, SSM_PROMPT)(
+                {"tokens": prompts[:, :-1]})
+            step, _, _ = make_serve_step(model)(
+                cache, prompts[:, -1:],
+                torch.tensor(SSM_PROMPT - 1, dtype=torch.int32,
+                             device="cuda"))
+    toks = res["tokens"]
+    if tuple(toks.shape) != (SSM_BATCH, SSM_GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"serve_ssm: bad tokens {tuple(toks.shape)}")
+    # One prefill and SSM_GEN - 1 decode steps: the scan once per layer in
+    # the prefill and never in decode; two projections a layer and the
+    # tied read-out a forward.
+    want = {"ssd_scan_fused": L, "ssd_chunk_diag": 0, "ssd_scan_bwd": 0,
+            "engine_ssd_launches": L,
+            "engine_gemm_calls": SSM_GEN * (2 * L + 1),
+            "flash_fwd_fused": 0, "flash_decode": 0}
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if counts["gemm_fused"] + counts["gemm_region"] != \
+            counts["engine_gemm_launches"]:
+        bad["gemm kernels vs engine"] = (
+            counts["gemm_fused"] + counts["gemm_region"],
+            counts["engine_gemm_launches"])
+    with use(backend="torch", device="cuda"):
+        ref = _ssm_prefill_logits(torch, model, prompts)
+    gap, spread, rel = _logit_gap(torch, logits, ref)
+    dgap, _, drel = _logit_gap(torch, step.float(), full[:, -1].float())
+    emit(phase="serve_ssm", model=cfg.name, params=cfg.param_count(),
+         batch=SSM_BATCH, prompt=SSM_PROMPT, chunks=-(-SSM_PROMPT //
+                                                      cfg.ssm_chunk),
+         new_tokens=SSM_GEN, fused="auto", init_seconds=init_s,
+         prefill_seconds=res["prefill_seconds"],
+         prefill_tokens_per_s=SSM_BATCH * SSM_PROMPT / res["prefill_seconds"],
+         decode_seconds=res["decode_seconds"],
+         decode_tokens_per_s=SSM_BATCH * (SSM_GEN - 1) / res["decode_seconds"],
+         peak_memory_bytes=peak, launches=counts, expected=want,
+         logits_vs_torch_max_abs=gap, logits_spread=spread, logits_rel=rel,
+         decode_vs_full_max_abs=dgap, decode_vs_full_rel=drel,
+         logits_bound=LOGIT_BOUND)
+    if bad:
+        fail(f"serve_ssm launch counts (got, want): {bad}")
+    if rel > LOGIT_BOUND:
+        fail(f"serve_ssm: engine vs torch prefill logits differ by {rel:.4f} "
+             f"of their range (bound {LOGIT_BOUND})")
+    if drel > LOGIT_BOUND:
+        fail(f"serve_ssm: prefill + decode step vs full forward logits "
+             f"differ by {drel:.4f} of their range (bound {LOGIT_BOUND})")
+    return counts, model, prompts, logits
+
+
+def phase_serve_ssm_off(torch, model, prompts, logits_auto):
+    """The same prefill under fused="off": the intra-chunk kernel once per
+    layer and the inter-chunk recurrence in torch ops."""
+    from repro_torch.core import use
+    L = model.cfg.num_layers
+    with use(backend="engine", fused="off", device="cuda"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits = _ssm_prefill_logits(torch, model, prompts)
+        prefill_s = time.perf_counter() - t0
+        counts = _read_counts()
+    want = {"ssd_chunk_diag": L, "ssd_scan_fused": 0,
+            "engine_ssd_launches": L}
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    gap, _, rel = _logit_gap(torch, logits, logits_auto)
+    emit(phase="serve_ssm_off", fused="off", prefill_seconds=prefill_s,
+         launches=counts, expected=want, logits_vs_auto_max_abs=gap,
+         logits_rel=rel, logits_bound=LOGIT_BOUND)
+    if bad:
+        fail(f"serve_ssm_off launch counts (got, want): {bad}")
+    if rel > LOGIT_BOUND:
+        fail(f"serve_ssm fused='off' logits differ from fused='auto' by "
+             f"{rel:.4f}")
+    return counts
 
 
 if __name__ == "__main__":

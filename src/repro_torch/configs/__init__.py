@@ -2,4 +2,4 @@
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, get_config, register, reduced_config)
 # Imported for registration.
-from repro_torch.configs import qwen3_0p6b  # noqa: F401
+from repro_torch.configs import mamba2_130m, qwen3_0p6b  # noqa: F401

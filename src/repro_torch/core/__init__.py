@@ -11,11 +11,13 @@
 """
 from repro_torch.core.descriptor import (  # noqa: F401
     FlashBwdDescriptor, FlashDecodeDescriptor, FlashDescriptor,
-    GemmDescriptor, KernelDescriptor)
+    GemmDescriptor, KernelDescriptor, SsdChunkBwdDescriptor,
+    SsdChunkDescriptor)
 from repro_torch.core.blocking import (  # noqa: F401
     BlockingPlan, FlashDecodePlan, FlashPlan, Region, flash_bwd_fused_legal,
     flash_decode_legal, flash_fused_legal, fused_legal, palette, plan_flash,
-    plan_flash_bwd, plan_flash_decode, plan_gemm)
+    plan_flash_bwd, plan_flash_decode, plan_gemm, plan_ssd, plan_ssd_bwd,
+    ssd_bwd_fused_legal, ssd_fused_legal, SsdChunkPlan)
 from repro_torch.core.schedule import (  # noqa: F401
     DecodeTileSchedule, FlashTileSchedule, TileSchedule, flash_tile_schedule,
     flatten_regions, plan_launches)

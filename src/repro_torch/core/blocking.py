@@ -1,4 +1,5 @@
-"""Blocking planners: GEMM region covers and flash tilings (paper §IV-B).
+"""Blocking planners: GEMM region covers, flash tilings and the SSD scan
+plans (paper §IV-B).
 
 The paper's generator owns a *palette* of accumulator blockings and
 covers a ragged C with a heterogeneous mix of them, minimising kernel
@@ -17,7 +18,8 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 from .descriptor import (FlashBwdDescriptor, FlashDecodeDescriptor,
-                         FlashDescriptor, GemmDescriptor)
+                         FlashDescriptor, GemmDescriptor,
+                         SsdChunkBwdDescriptor, SsdChunkDescriptor)
 from .machine import DEFAULT_MACHINE, MachineModel, itemsize
 from .schedule import (DecodeTileSchedule, FlashTileSchedule, TileSchedule,
                        ceil_div, flash_tile_schedule, flatten_regions,
@@ -438,3 +440,126 @@ def plan_flash_decode(desc: FlashDecodeDescriptor,
             f"{machine.decode_max_head_dim}, GQA group <= "
             f"{machine.decode_max_group}; got {desc}")
     return FlashDecodePlan(desc)
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SsdChunkPlan:
+    """The SSD ladder has no free tiling knobs; the plan carries the
+    fit verdict, the ``fused`` lowering bit (scan form only: the whole
+    scan in one carried-state launch instead of the intra-chunk kernel
+    plus the inter-chunk recurrence in torch ops) and the cost estimate."""
+
+    desc: SsdChunkDescriptor
+    fits_vmem: bool
+    fused: bool = False
+
+    def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE
+                          ) -> float:
+        """Napkin-math time; the non-fused scan pays the inter-chunk stitch
+        (per-chunk states written and read back between ops) that the
+        carried state never materialises."""
+        d = self.desc
+        compute_s = d.flops / machine.peak(d.dtype)
+        memory_s = (d.in_bytes + d.out_bytes) / machine.hbm_bw
+        stitch_s = 0.0
+        if d.chunks and not self.fused:
+            stitch_bytes = 3 * d.groups * d.chunks * d.p * d.n * 4
+            stitch_s = stitch_bytes / machine.hbm_bw
+        return (max(compute_s, memory_s) + d.cells * machine.step_overhead_s
+                + machine.launch_overhead_s + stitch_s)
+
+
+def ssd_kernel_legal(desc: SsdChunkDescriptor,
+                     machine: MachineModel = DEFAULT_MACHINE) -> bool:
+    """Does the machine's SSD kernel take this cell geometry?  Only a
+    machine whose kernels stream the cell (not one that stages it whole)
+    states limits; there every limit must hold."""
+    limits = ((desc.q, machine.ssd_max_q), (desc.n, machine.ssd_max_state),
+              (desc.p, machine.ssd_max_head_dim))
+    return all(lim is None or v <= lim for v, lim in limits)
+
+
+def _ssd_refuse(desc: SsdChunkDescriptor, machine: MachineModel) -> None:
+    if not machine.stages_whole_operands and not ssd_kernel_legal(desc,
+                                                                  machine):
+        raise NotImplementedError(
+            f"{machine.name} SSD kernel limits: chunk <= {machine.ssd_max_q}, "
+            f"state <= {machine.ssd_max_state}, head dim <= "
+            f"{machine.ssd_max_head_dim}; got {desc}")
+
+
+def ssd_fused_legal(desc: SsdChunkDescriptor,
+                    machine: MachineModel = DEFAULT_MACHINE) -> bool:
+    """Can this SSD scan run as one carried-state launch?  Only the scan
+    form has one.  A machine that stages whole cells needs one chunk's
+    operands (double-buffered), the fp32 state and the score tile to fit
+    half its fast memory; a streaming kernel needs its limits."""
+    if not desc.chunks:
+        return False
+    if not machine.stages_whole_operands:
+        return ssd_kernel_legal(desc, machine)
+    isz = itemsize(desc.dtype)
+    per_step = (2 * desc.q * desc.n + desc.q * desc.q
+                + 2 * desc.q * desc.p + 2 * desc.q) * isz
+    need = 2 * per_step                                  # double-buffered
+    need += (desc.q * desc.q + 2 * desc.p * desc.n) * 4  # score + state
+    return need <= machine.vmem_bytes // 2
+
+
+def plan_ssd(desc: SsdChunkDescriptor,
+             machine: MachineModel = DEFAULT_MACHINE) -> SsdChunkPlan:
+    """Plan one SSD dispatch: the fit verdict and, for the scan form, the
+    one-launch lowering whenever it is legal.  A geometry outside a
+    streaming machine's kernel limits raises: no lowering takes it."""
+    _ssd_refuse(desc, machine)
+    if machine.stages_whole_operands:
+        isz = itemsize(desc.dtype)
+        per_step = (2 * desc.q * desc.n + desc.q * desc.q
+                    + 2 * desc.q * desc.p) * isz
+        per_step += desc.q * desc.q * 4  # fp32 score scratch
+        fits = per_step <= machine.vmem_bytes // 2
+    else:
+        fits = True
+    return SsdChunkPlan(desc, fits_vmem=fits,
+                        fused=ssd_fused_legal(desc, machine))
+
+
+def ssd_bwd_fused_legal(desc: SsdChunkBwdDescriptor,
+                        machine: MachineModel = DEFAULT_MACHINE) -> bool:
+    """Can this SSD-scan backward run as one reverse-walk launch?  Staged
+    whole: a chunk's forward cell, its dY and saved state
+    (double-buffered), the cotangent cell and the fp32 dS carry and score
+    scratch must fit half of fast memory.  Streamed: the kernel's limits."""
+    if not desc.chunks:
+        return False
+    if not machine.stages_whole_operands:
+        return ssd_kernel_legal(desc, machine)
+    isz = itemsize(desc.dtype)
+    q, n, p = desc.q, desc.n, desc.p
+    per_step = (2 * q * n + q * q + 2 * q * p + 2 * q) * isz  # fwd cell
+    per_step += q * p * isz                                   # dY cell
+    per_step += p * n * 4                                     # saved state
+    per_step += (2 * q * n + q * q + q * p) * isz + 2 * q * 4  # cotangents
+    need = 2 * per_step + (q * q + 2 * p * n) * 4 + p * n * 4
+    return need <= machine.vmem_bytes // 2
+
+
+def plan_ssd_bwd(desc: SsdChunkBwdDescriptor,
+                 machine: MachineModel = DEFAULT_MACHINE) -> SsdChunkPlan:
+    """Plan the SSD backward: one reverse-walk launch, gated by
+    :func:`ssd_bwd_fused_legal` (an illegal backward falls back to
+    differentiating the reference before it reaches the engine)."""
+    if machine.stages_whole_operands:
+        isz = itemsize(desc.dtype)
+        per_step = (2 * desc.q * desc.n + desc.q * desc.q
+                    + 2 * desc.q * desc.p) * isz
+        per_step += desc.q * desc.q * 4
+        fits = per_step <= machine.vmem_bytes // 2
+    else:
+        fits = ssd_kernel_legal(desc, machine)
+    return SsdChunkPlan(desc, fits_vmem=fits,
+                        fused=ssd_bwd_fused_legal(desc, machine))

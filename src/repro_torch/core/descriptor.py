@@ -282,3 +282,122 @@ class FlashDecodeDescriptor(KernelDescriptor):
     def out_bytes(self) -> int:
         return self.num_seqs * self.num_heads * self.head_dim \
             * itemsize(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdChunkDescriptor(KernelDescriptor):
+    """SSD (Mamba-2) chunked-scan family, two forms.
+
+    ``chunks == 0`` -- the intra-chunk ladder only: ``(G,Q,n) x2, (G,Q,Q),
+    (G,Q,p) -> (G,Q,p)`` where ``G`` flattens batch x chunk x head.
+
+    ``chunks >= 1`` -- the whole chunked scan: per group (batch x head)
+    the kernel walks ``chunks`` in order with the inter-chunk state
+    ``(p, n)`` carried, consuming ``(G, C, Q, n) x2, (G, C, Q, Q),
+    (G, C, Q, p), (G, C, Q) x2`` decay vectors and an initial state
+    ``(G, p, n)``, and producing ``y: (G, C, Q, p)`` plus the final state
+    ``(G, p, n)``.  ``dtype`` is xdt's, which is also y's.
+    """
+
+    family = "ssd_chunk"
+
+    groups: int
+    q: int
+    n: int
+    p: int
+    dtype: str = "float32"
+    # chunks walked per group with carried state; 0 selects the intra-chunk
+    # (diagonal-block) form with no inter-chunk recurrence
+    chunks: int = 0
+
+    def __post_init__(self):
+        for v in (self.groups, self.q, self.n, self.p):
+            if v <= 0:
+                raise ValueError(f"SSD dims must be positive, got {self}")
+        if self.chunks < 0:
+            raise ValueError(f"SSD chunks must be >= 0, got {self}")
+
+    @classmethod
+    def from_operands(cls, c_mat, xdt):
+        """The intra-chunk form from ``(G,Q,n)``/``(G,Q,p)`` operands."""
+        g, q, n = c_mat.shape
+        return cls(groups=g, q=q, n=n, p=xdt.shape[-1],
+                   dtype=canonical_dtype(xdt.dtype))
+
+    @classmethod
+    def from_scan_operands(cls, c_mat, xdt):
+        """The carried-state scan form from ``(G,C,Q,n)``/``(G,C,Q,p)``
+        operands."""
+        g, chunks, q, n = c_mat.shape
+        return cls(groups=g, q=q, n=n, p=xdt.shape[-1],
+                   dtype=canonical_dtype(xdt.dtype), chunks=chunks)
+
+    @property
+    def cells(self) -> int:
+        """(group, chunk) cells walked: ``G`` for the intra-chunk form,
+        ``G * chunks`` for the scan form."""
+        return self.groups * max(1, self.chunks)
+
+    @property
+    def flops(self) -> int:
+        # Intra-chunk ladder per cell: (Q,n)x(n,Q) then (Q,Q)x(Q,p); the scan
+        # form adds y_off (Q,n)x(n,p) and the state product (p,Q)x(Q,n).
+        intra = 2 * self.q * self.q * (self.n + self.p)
+        inter = 4 * self.q * self.n * self.p if self.chunks else 0
+        return self.cells * (intra + inter)
+
+    @property
+    def in_bytes(self) -> int:
+        # Every operand counted at xdt's width, as the reference counts.
+        isz = itemsize(self.dtype)
+        per_cell = 2 * self.q * self.n + self.q * self.q + self.q * self.p
+        if self.chunks:
+            per_cell += 2 * self.q  # decay_in / decay_out vectors
+        total = self.cells * per_cell * isz
+        if self.chunks:
+            total += self.groups * self.p * self.n * 4  # initial state, fp32
+        return total
+
+    @property
+    def out_bytes(self) -> int:
+        total = self.cells * self.q * self.p * itemsize(self.dtype)
+        if self.chunks:
+            total += self.groups * self.p * self.n * 4  # final state, fp32
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdChunkBwdDescriptor(SsdChunkDescriptor):
+    """SSD chunked-scan backward: the reverse walk with the ``(p, n)``
+    state cotangent carried.  The forward's geometry (scan form) under its
+    own ``family``, so backward plans cache and count apart."""
+
+    family = "ssd_chunk_bwd"
+
+    @classmethod
+    def from_forward(cls, desc: SsdChunkDescriptor) -> "SsdChunkBwdDescriptor":
+        """Backward descriptor sharing a forward descriptor's geometry."""
+        return cls(**dataclasses.asdict(desc))
+
+    @property
+    def flops(self) -> int:
+        # Each forward product spawns two cotangent products.
+        return 2 * super().flops
+
+    @property
+    def in_bytes(self) -> int:
+        # Forward operands + the dY / dSf cotangents + the saved fp32
+        # per-chunk entering states the reverse walk reads.
+        extra = (self.cells * self.q * self.p * itemsize(self.dtype)  # dY
+                 + 2 * self.groups * self.p * self.n * 4             # dSf, s0
+                 + self.cells * self.p * self.n * 4)                 # states
+        return super().in_bytes + extra
+
+    @property
+    def out_bytes(self) -> int:
+        isz = itemsize(self.dtype)
+        per_cell = (2 * self.q * self.n + self.q * self.q  # dc, db, dl
+                    + self.q * self.p)                     # dx
+        return (self.cells * per_cell * isz
+                + self.cells * 2 * self.q * 4              # ddi / ddo, fp32
+                + self.groups * self.p * self.n * 4)       # ds0

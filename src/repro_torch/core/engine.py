@@ -44,6 +44,8 @@ _FAMILY_MODULES = {
     "flash_attention": "repro_torch.kernels.flash_attention.ops",
     "flash_attention_bwd": "repro_torch.kernels.flash_attention.ops",
     "flash_decode": "repro_torch.kernels.flash_attention.ops",
+    "ssd_chunk": "repro_torch.kernels.ssd_chunk.ops",
+    "ssd_chunk_bwd": "repro_torch.kernels.ssd_chunk.ops",
 }
 
 PLAN_CACHE = LruCache(max_entries=65536)

@@ -16,7 +16,11 @@ kernels accept rather than from a scratchpad size:
   * the paged decode kernel takes pages of up to ``decode_max_page``
     slots, head dims up to ``decode_max_head_dim`` and GQA groups of up to
     ``decode_max_group`` query heads per KV head (the constants of
-    ``csrc/flash_decode.cu``).
+    ``csrc/flash_decode.cu``);
+  * the SSD chunked-scan kernels take chunks of up to ``ssd_max_q`` rows,
+    states of up to ``ssd_max_state`` and head dims of up to
+    ``ssd_max_head_dim`` (the constants of ``csrc/ssd_scan.cu`` and
+    ``csrc/ssd_scan_bwd.cu``).
 
 The dispatch overheads are pinned assumptions, not measurements; a later
 calibration replaces them.
@@ -104,6 +108,11 @@ class MachineModel:
     decode_max_page: Optional[int] = None
     decode_max_head_dim: Optional[int] = None
     decode_max_group: Optional[int] = None
+    # SSD chunked-scan kernel limits (chunk, state, head dim); None: legality
+    # is the VMEM fit of a kernel that stages whole chunk cells.
+    ssd_max_q: Optional[int] = None
+    ssd_max_state: Optional[int] = None
+    ssd_max_head_dim: Optional[int] = None
 
     @functools.cached_property
     def fingerprint(self) -> str:
@@ -158,6 +167,9 @@ H100_SXM = MachineModel(
     decode_max_page=64,
     decode_max_head_dim=128,
     decode_max_group=64,
+    ssd_max_q=256,
+    ssd_max_state=128,
+    ssd_max_head_dim=64,
 )
 
 DEFAULT_MACHINE = H100_SXM

@@ -8,8 +8,9 @@ interface:
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <name>.cu
 
 All sources are compiled in parallel, one nvcc each.  The output name
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  A missing nvcc, a failed build or a
+carries a hash of the source, the ``*.cuh`` headers beside it and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  A missing nvcc, a failed build or a
 kernel that reports a launch error raises; nothing falls back.
 
 The libraries go to ``$REPRO_TORCH_BUILD_DIR`` if it is set, else to
@@ -67,8 +68,11 @@ def build_dir() -> Path:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of the source, the headers
+    beside it and the flags."""
+    blob = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{src.stem}-{digest[:16]}.so"
 
 

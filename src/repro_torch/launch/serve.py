@@ -15,6 +15,10 @@
         python -m repro_torch.launch.serve --arch qwen3-0.6b --continuous \\
             [--prompt-len 64 --gen 32] [--device cpu]
 
+``--arch mamba2-130m`` serves the Mamba-2 SSD model by the static path (its
+decode state is O(1) per slot); continuous batching of SSM models is not
+ported and raises.
+
 Runs ``reduced_config`` of the architecture, like the reference's CLI, on
 the card unless ``--device cpu`` is given.  AOT warm-start
 (``--warm-start``) is not ported.

@@ -1,10 +1,12 @@
 """Residual blocks and the layer stack.
 
-A block is norm -> attention -> residual, then norm -> MLP -> residual.
-The stack is an ``nn.ModuleList`` run in a Python loop (the reference
-scans stacked parameters; the port runs eagerly).  Only the "attn" block
-kind and dense MLPs are ported: other kinds, MoE and cross-attention
-raise.
+A block is norm -> mixer -> residual, then (where the model has one)
+norm -> MLP -> residual.  Mixer kinds ported: "attn" (global attention)
+and "ssm" (Mamba-2 SSD); the layer at depth ``i`` has kind
+``block_pattern[i % len(block_pattern)]``.  The stack is an
+``nn.ModuleList`` run in a Python loop (the reference scans stacked
+parameters; the port runs eagerly).  Other kinds ("rec", "local"), MoE
+and cross-attention raise.
 """
 from __future__ import annotations
 
@@ -18,12 +20,14 @@ from repro_torch.models.attention import (Attention, KVCache, PagedKVCache,
                                           paged_step)
 from repro_torch.models.common import Init, make_norm
 from repro_torch.models.mlp import MLP
+from repro_torch.models.ssd import SSD, init_ssm_state
 
 
 def check_ported(cfg) -> None:
     """Raise for any configuration axis this port does not cover yet."""
     unported = {
-        "block kinds other than 'attn'": set(cfg.block_pattern) != {"attn"},
+        "block kinds other than 'attn' and 'ssm'":
+            not set(cfg.block_pattern) <= {"attn", "ssm"},
         "mixture of experts": cfg.num_experts > 0,
         "encoder-decoder": cfg.encoder_decoder,
         "modality frontends": cfg.modality is not None,
@@ -34,12 +38,19 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: not ported: {', '.join(missing)}")
 
 
+def layer_kinds(cfg) -> List[str]:
+    """The mixer kind of every layer, in depth order."""
+    pat = cfg.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
 class Block(nn.Module):
-    def __init__(self, cfg, init: Init):
+    def __init__(self, cfg, init: Init, kind: str):
         super().__init__()
         self.cfg = cfg
+        self.kind = kind
         self.norm_mix = make_norm(cfg.norm_type, cfg.d_model, init)
-        self.mixer = Attention(cfg, init)
+        self.mixer = SSD(cfg, init) if kind == "ssm" else Attention(cfg, init)
         if cfg.block_has_mlp:
             self.norm_ff = make_norm(cfg.norm_type, cfg.d_model, init)
             self.ff = MLP(cfg, init)
@@ -47,10 +58,14 @@ class Block(nn.Module):
     def forward(self, x, positions, *, cache: Optional[KVCache] = None,
                 step=None):
         """Returns (x, cache); ``step`` is a paged decode step's
-        :class:`~repro_torch.models.attention.PagedStep`."""
+        :class:`~repro_torch.models.attention.PagedStep`.  An "ssm" block's
+        cache is its :class:`~repro_torch.models.ssd.SSMState`."""
         cfg = self.cfg
-        y, cache = self.mixer(self.norm_mix(x, cfg.norm_eps), positions,
-                              cache=cache, step=step)
+        h = self.norm_mix(x, cfg.norm_eps)
+        if self.kind == "ssm":
+            y, cache = self.mixer(h, state=cache)
+        else:
+            y, cache = self.mixer(h, positions, cache=cache, step=step)
         x = x + y
         if cfg.block_has_mlp:
             x = x + self.ff(self.norm_ff(x, cfg.norm_eps))
@@ -58,12 +73,21 @@ class Block(nn.Module):
 
 
 def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
-    """One KV cache per layer: dense, or with ``paged`` (a
-    :class:`~repro_torch.models.attention.PageSpec`) a paged pool with
-    ``batch`` block-table rows, the continuous-batching serving cache.
-    Every layer maps its pool through the same slots' pages, so the
-    layers share one block-table tensor."""
+    """One decode cache per layer: for "attn" layers a dense KV cache, or
+    with ``paged`` (a :class:`~repro_torch.models.attention.PageSpec`) a
+    paged pool with ``batch`` block-table rows, the continuous-batching
+    serving cache (every layer maps its pool through the same slots'
+    pages, so the layers share one block-table tensor); for "ssm" layers
+    a dense slot-major :class:`~repro_torch.models.ssd.SSMState`, O(1) in
+    the sequence length.  Paged pools are refused for a model with any
+    "ssm" layer: the continuous runtime does not carry plain state leaves
+    yet."""
     dt = torch_dtype(cfg.kv_cache_dtype)
+    kinds = layer_kinds(cfg)
+    if paged is not None and set(kinds) != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: paged serving caches hold attention KV only; "
+            f"continuous batching of SSM state leaves is not ported")
     if paged is not None:
         leaves = [init_paged_kv_cache(batch, paged, cfg.num_kv_heads,
                                       cfg.head_dim, dt, device)
@@ -71,9 +95,10 @@ def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
         for leaf in leaves[1:]:
             leaf.tables = leaves[0].tables
         return leaves
-    return [init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim,
+    return [init_ssm_state(batch, cfg, device) if kind == "ssm" else
+            init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim,
                           dt, device)
-            for _ in range(cfg.num_layers)]
+            for kind in kinds]
 
 
 def stack_apply(blocks: nn.ModuleList, x, positions, *, cache=None):

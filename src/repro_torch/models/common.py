@@ -35,6 +35,10 @@ class Init:
         return torch.randn(shape, generator=self.gen,
                            device=self.device) / fan_in ** 0.5
 
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        return lo + (hi - lo) * torch.rand(shape, generator=self.gen,
+                                           device=self.device)
+
 
 def cast_param(p: torch.Tensor, dtype) -> torch.Tensor:
     return p if p.dtype == dtype else p.to(dtype)

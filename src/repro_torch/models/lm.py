@@ -16,8 +16,8 @@ from torch import nn
 from repro_torch.core import matmul
 from repro_torch.core.config import resolve_device
 from repro_torch.core.machine import torch_dtype
-from repro_torch.models.blocks import Block, check_ported, stack_apply, \
-    stack_cache
+from repro_torch.models.blocks import Block, check_ported, layer_kinds, \
+    stack_apply, stack_cache
 from repro_torch.models.common import Embedding, Init, Linear, cast_param, \
     make_norm
 
@@ -29,8 +29,8 @@ class LanguageModel(nn.Module):
         self.cfg = cfg
         init = Init(seed, resolve_device(device))
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, init)
-        self.blocks = nn.ModuleList(Block(cfg, init)
-                                    for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, init, kind)
+                                    for kind in layer_kinds(cfg))
         self.final_norm = make_norm(cfg.norm_type, cfg.d_model, init)
         if not cfg.tie_embeddings:
             self.lm_head = Linear(cfg.d_model, cfg.vocab_size, init)
@@ -70,7 +70,8 @@ class LanguageModel(nn.Module):
     apply = forward
 
     def init_cache(self, batch: int, capacity: int, paged=None):
-        """Dense per-layer KV caches, or with ``paged`` (a ``PageSpec``)
-        the continuous-batching serving cache: paged pools and block
+        """Dense per-layer decode caches (KV caches, SSM states), or with
+        ``paged`` (a ``PageSpec``, attention-only models) the
+        continuous-batching serving cache: paged pools and block
         tables."""
         return stack_cache(self.cfg, batch, capacity, self.device, paged)

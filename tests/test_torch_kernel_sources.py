@@ -15,6 +15,7 @@ from repro_torch.core import H100_SXM
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
 
 KERNELS = Path(gemm_kernel.__file__).resolve().parents[1]
 GEMM_CU = (KERNELS / "gemm" / "csrc" / "gemm.cu").read_text()
@@ -23,6 +24,10 @@ FLASH_BWD_CU = (KERNELS / "flash_attention" / "csrc"
                 / "flash_bwd.cu").read_text()
 FLASH_DECODE_CU = (KERNELS / "flash_attention" / "csrc"
                    / "flash_decode.cu").read_text()
+SSD_CSRC = KERNELS / "ssd_chunk" / "csrc"
+SSD_COMMON = (SSD_CSRC / "ssd_common.cuh").read_text()
+SSD_SCAN_CU = (SSD_CSRC / "ssd_scan.cu").read_text()
+SSD_BWD_CU = (SSD_CSRC / "ssd_scan_bwd.cu").read_text()
 
 
 def _constexpr(src, name):
@@ -112,9 +117,54 @@ def test_flash_decode_shared_memory_fits_h100_at_the_limits():
     assert 4 * floats <= H100_SXM.vmem_bytes
 
 
+def test_ssd_limits_match_kernel_py_and_machine():
+    """The SSD kernels' limits live in their shared header, in kernel.py
+    (the wrappers) and in H100_SXM (the planner)."""
+    assert _constexpr(SSD_COMMON, "Q_MAX") == ssd_kernel.MAX_Q \
+        == H100_SXM.ssd_max_q
+    assert _constexpr(SSD_COMMON, "N_MAX") == ssd_kernel.MAX_STATE \
+        == H100_SXM.ssd_max_state
+    assert _constexpr(SSD_COMMON, "P_MAX") == ssd_kernel.MAX_HEAD_DIM \
+        == H100_SXM.ssd_max_head_dim
+    for src in (SSD_SCAN_CU, SSD_BWD_CU):
+        assert '#include "ssd_common.cuh"' in src
+        assert "geometry_ok(" in src
+
+
+@pytest.mark.parametrize("q,n,p", [(256, 128, 64), (256, 127, 63),
+                                   (1, 1, 1)])
+def test_ssd_shared_memory_fits_h100_at_the_limits(q, n, p):
+    """Each SSD kernel's dynamic shared memory (``smem_floats`` in its
+    source) fits one block's 227 KB at the limits.  The forward stages the
+    carried (p, n) state, C and B tiles and an xdt tile (rows padded to odd
+    strides), the W tile, the y accumulator and the two decay vectors; the
+    backward the dS carry and the entering state, C, B, xdt and dY tiles,
+    two score tiles, the dB/dC and dxdt accumulators, the decays and a
+    reduction row."""
+    nt = _constexpr(SSD_COMMON, "NT")
+    ldn, ldp = n | 1, p | 1
+    rb = _constexpr(SSD_SCAN_CU, "RB")
+    assert re.search(r"\(scan \? p \* ldn \+ 2 \* \(size_t\)q : 0\) \+ "
+                     r"2 \* RB \* ldn \+ RB \* ldp \+\s+RB \* ldw \+ "
+                     r"\(size_t\)RB \* p;", SSD_SCAN_CU)
+    fwd = p * ldn + 2 * q + 2 * rb * ldn + rb * ldp + rb * (rb + 1) + rb * p
+    rb = _constexpr(SSD_BWD_CU, "RB")
+    assert re.search(r"2 \* p \* ldn \+ 2 \* RB \* ldn \+ 2 \* RB \* ldp "
+                     r"\+ 2 \* RB \* ldt \+\s+\(size_t\)RB \* n \+ "
+                     r"\(size_t\)RB \* p \+ 2 \* \(size_t\)q \+ NT;",
+                     SSD_BWD_CU)
+    bwd = (2 * p * ldn + 2 * rb * ldn + 2 * rb * ldp + 2 * rb * (rb + 1)
+           + rb * n + rb * p + 2 * q + nt)
+    assert 4 * fwd <= H100_SXM.vmem_bytes
+    assert 4 * bwd <= H100_SXM.vmem_bytes
+    if (q, n, p) == (256, 128, 64):
+        assert (4 * fwd, 4 * bwd) == (150784, 151808)
+
+
 def test_every_kernel_source_is_built():
     assert sorted(_build.sources()) == ["flash_bwd", "flash_decode",
-                                        "flash_fwd", "gemm"]
+                                        "flash_fwd", "gemm", "ssd_scan",
+                                        "ssd_scan_bwd"]
 
 
 def test_h100_flash_blocks_within_kernel_limits():
