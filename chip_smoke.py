@@ -59,7 +59,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the torch backend; prefill-then-one-decode-step logits
                 against the full forward's last position;
      serve_ssm_off -- the same prefill under fused="off": one ssd_chunk_diag
-                launch per layer, logits against fused="auto";
+                launch per layer, logits against fused="auto", and
+                layer 0's scan operands through both lowerings;
      train_ssm -- full-width mamba2-130m training as phase 7 at batch 8 x
                 1024 (four chunks a row, so the reverse walk crosses seams):
                 one ssd_scan_fused (with states) and one ssd_scan_bwd launch
@@ -725,7 +726,10 @@ def _ssd_bound(kind, shape, dtypes, states=False):
         nbytes = cells * (cell_in + 2 * q * 4 + p * n * 4 + q * p * 4) \
             + g * p * n * 4 \
             + cells * (2 * q * n + q * q + q * p + 2 * q) * 4 + g * p * n * 4
-        op = ops_ms((cells * (2 * q * q * (3 * n + 2 * p) + 10 * q * n * p),
+        # the recomputed scores C·Bᵀ at C/B's type; dscores·B, dscoresᵀ·C,
+        # dW, Wᵀ·dY and the state terms each have an fp32 operand
+        op = ops_ms((cells * 2 * q * q * n, cb),
+                    (cells * (2 * q * q * (2 * n + 2 * p) + 10 * q * n * p),
                      False))
     return nbytes / HBM_BPS * 1e3, op
 
@@ -1500,6 +1504,42 @@ def phase_serve_ssm(torch):
     return counts, model, prompts, logits
 
 
+def _ssm_scan_lowerings(torch, model, prompts):
+    """Layer 0's scan operands at the serving prompt (caught on their way
+    into ``ssd_chunk_scan``), through the fused kernel and through the
+    fallback (the diag kernel plus the torch recurrence): how far the two
+    lowerings' outputs lie apart."""
+    import repro_torch.kernels.ssd_chunk as ssd_pkg
+    from repro_torch.core import use
+    scan, caught = ssd_pkg.ssd_chunk_scan, []
+
+    def catch(*ops):
+        if not caught:
+            caught.extend(t.clone() for t in ops)
+        return scan(*ops)
+
+    ssd_pkg.ssd_chunk_scan = catch  # models/ssd.py imports it per call
+    try:
+        with use(backend="engine", fused="auto", device="cuda"), \
+                torch.no_grad():
+            model.apply(prompts, logits_mode="last")
+    finally:
+        ssd_pkg.ssd_chunk_scan = scan
+    out = {}
+    for fused in ("auto", "off"):
+        with use(backend="engine", fused=fused, device="cuda"), \
+                torch.no_grad():
+            out[fused] = scan(*caught)
+    torch.cuda.synchronize()
+    (ya, sa), (yo, so) = out["auto"], out["off"]
+    return {"dtypes": [str(t.dtype).split(".")[-1] for t in caught[:4]],
+            "y_max_abs_diff": (ya.float() - yo.float()).abs().max().item(),
+            "y_max_abs": ya.float().abs().max().item(),
+            "y_differing": int((ya != yo).sum()), "y_count": ya.numel(),
+            "s_final_max_abs_diff": (sa - so).abs().max().item(),
+            "s_final_max_abs": sa.abs().max().item()}
+
+
 def phase_serve_ssm_off(torch, model, prompts, logits_auto):
     """The same prefill under fused="off": the intra-chunk kernel once per
     layer and the inter-chunk recurrence in torch ops."""
@@ -1517,7 +1557,9 @@ def phase_serve_ssm_off(torch, model, prompts, logits_auto):
     gap, _, rel = _logit_gap(torch, logits, logits_auto)
     emit(phase="serve_ssm_off", fused="off", prefill_seconds=prefill_s,
          launches=counts, expected=want, logits_vs_auto_max_abs=gap,
-         logits_rel=rel, logits_bound=LOGIT_BOUND)
+         logits_rel=rel, logits_differing=int((logits != logits_auto).sum()),
+         logits_count=logits.numel(), logits_bound=LOGIT_BOUND,
+         scan_layer0=_ssm_scan_lowerings(torch, model, prompts))
     if bad:
         fail(f"serve_ssm_off launch counts (got, want): {bad}")
     if rel > LOGIT_BOUND:

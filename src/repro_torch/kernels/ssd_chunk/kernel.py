@@ -24,14 +24,6 @@ from repro_torch.kernels import _build, disable_tf32
 from repro_torch.kernels.ssd_chunk.ref import (ref_ssd_chunk_diag,
                                                ref_ssd_chunk_scan_bwd)
 
-# Limits of ssd_scan.cu and ssd_scan_bwd.cu (Q_MAX, N_MAX and P_MAX in
-# csrc/ssd_common.cuh): chunks up to 256 rows, states up to 128, head dims
-# up to 64.  tests/test_torch_kernel_sources.py holds the sources and
-# H100_SXM.ssd_max_* to these.
-MAX_Q = 256
-MAX_STATE = 128
-MAX_HEAD_DIM = 64
-
 LAUNCHES = {"ssd_scan_fused": 0, "ssd_chunk_diag": 0, "ssd_scan_bwd": 0}
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,10 +50,12 @@ def _lib(name: str):
 
 
 def _check(c, b, l, x, extra=()):
-    """Shapes, dtypes and, on the card, placement and the kernels' limits.
-    ``extra``: (name, tensor, shape, fp32-only) of the other operands."""
+    """Shapes, dtypes and, on the card, placement.  The kernels' limits
+    are ``H100_SXM.ssd_max_*``, which the planner checks; the .cu entries
+    refuse geometry outside them.  ``extra``: (name, tensor, shape) of the
+    fp32 operands."""
     lead = c.shape[:-2]
-    q, n, p = c.shape[-2], c.shape[-1], x.shape[-1]
+    q, p = c.shape[-2], x.shape[-1]
     want = {"b": (b, c.shape), "l": (l, (*lead, q, q)),
             "x": (x, (*lead, q, p))}
     for name, (t, shape) in want.items():
@@ -83,10 +77,6 @@ def _check(c, b, l, x, extra=()):
             if t.dtype not in _BF16:
                 raise ValueError(f"the CUDA SSD kernels take float32 or "
                                  f"bfloat16 {name}, got {t.dtype}")
-        if q > MAX_Q or n > MAX_STATE or p > MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"SSD kernel limits: chunk <= {MAX_Q}, state <= {MAX_STATE}, "
-                f"head dim <= {MAX_HEAD_DIM}; got q={q}, n={n}, p={p}")
         if c.shape[0] > 2 ** 31 - 1:
             raise NotImplementedError("more than 2^31 - 1 groups")
     elif c.device.type != "cpu":

@@ -15,7 +15,6 @@ from repro_torch.core import H100_SXM
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
-from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
 
 KERNELS = Path(gemm_kernel.__file__).resolve().parents[1]
 GEMM_CU = (KERNELS / "gemm" / "csrc" / "gemm.cu").read_text()
@@ -118,14 +117,11 @@ def test_flash_decode_shared_memory_fits_h100_at_the_limits():
 
 
 def test_ssd_limits_match_kernel_py_and_machine():
-    """The SSD kernels' limits live in their shared header, in kernel.py
-    (the wrappers) and in H100_SXM (the planner)."""
-    assert _constexpr(SSD_COMMON, "Q_MAX") == ssd_kernel.MAX_Q \
-        == H100_SXM.ssd_max_q
-    assert _constexpr(SSD_COMMON, "N_MAX") == ssd_kernel.MAX_STATE \
-        == H100_SXM.ssd_max_state
-    assert _constexpr(SSD_COMMON, "P_MAX") == ssd_kernel.MAX_HEAD_DIM \
-        == H100_SXM.ssd_max_head_dim
+    """The SSD kernels' limits live in their shared header and in H100_SXM,
+    which ``plan_ssd`` checks; kernel.py restates none of them."""
+    assert _constexpr(SSD_COMMON, "Q_MAX") == H100_SXM.ssd_max_q
+    assert _constexpr(SSD_COMMON, "N_MAX") == H100_SXM.ssd_max_state
+    assert _constexpr(SSD_COMMON, "P_MAX") == H100_SXM.ssd_max_head_dim
     for src in (SSD_SCAN_CU, SSD_BWD_CU):
         assert '#include "ssd_common.cuh"' in src
         assert "geometry_ok(" in src
