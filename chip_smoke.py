@@ -8,17 +8,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device  -- the card's name, the device count and nvidia-smi's name and
                 power limit; no CUDA device is a failure;
   2. build   -- nvcc builds every kernel source in the checkout;
-  3. kernels -- each of the nine kernels against its plain torch version on
+  3. kernels -- each of the twelve kernels against its plain torch version on
                 the card, at the full-width main-path shapes of Qwen3-0.6B (serving:
                 batch 4, prompt 256; training: batch 8, sequence 128;
-                continuous decode: 8 slots over a paged pool) and of
-                mamba2-130m (its projections and read-out; the SSD scan at
-                serving, 96 groups x 4 chunks of 256, and training, 192
-                groups with the entering states; the diag form flattened)
+                continuous decode: 8 slots over a paged pool), of
+                phi3.5-moe-42b (its projections, read-out and attention)
+                and of mamba2-130m (its projections and read-out; the SSD
+                scan at serving, 96 groups x 4 chunks of 256, and training,
+                192 groups with the entering states; the diag form
+                flattened)
                 and ragged cases, with errors, kernel / plain /
                 library times (CUDA events) and the bound; the flash forward
                 also in its LSE form, the flash backward, the paged decode,
-                the SSD scan, its backward and the intra-chunk ladder;
+                the SSD scan, its backward and the intra-chunk ladder, and
+                the three grouped-GEMM kernels at phi3.5-moe-42b's expert
+                shapes (4096 capacity rows at prefill and training, 512 at
+                decode) and on ragged cases with an empty expert, whose dW
+                must be exactly zero;
   4. serve   -- full-width Qwen3-0.6B (seeded random weights) through
                 ``generate`` on the engine backend, fused="auto": batch 4,
                 prompt 256, 16 new tokens; launch counts must equal what
@@ -65,13 +71,24 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 1024 (four chunks a row, so the reverse walk crosses seams):
                 one ssd_scan_fused (with states) and one ssd_scan_bwd launch
                 per layer a step;
-  9. the ``kernels`` line, then the card's nvidia-smi line, then
- 10. the last line: {"ok": true, "device": {...}}.
+  9. serve_moe -- phi3.5-moe-42b at full width (d 4096, 16 experts of d_ff
+                6400, top-2) cut to 4 of its 32 layers (fp32 masters), as
+                serve: three grouped_fused launches a layer a forward, the
+                routings that differ between the backends counted, and
+                layer 0's MoE input through both backends' moe_apply;
+     serve_moe_off -- the same under fused="off": grouped_padded only;
+     train_moe -- the same widths at 2 layers, 4 steps of 8 x 128 through
+                run_with_restarts, no checkpoint: four grouped_fused (the
+                gate's pre-activation recomputed) and three grouped_bwd
+                launches a layer a step;
+ 10. the ``kernels`` line, then the card's nvidia-smi line, then
+ 11. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -126,6 +143,12 @@ CONT_TRACE = dict(num_requests=12, rate=1.0, prompt_len=(96, 256),
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 4, 1000, 16
 SSM_TRAIN_SEQ = 1024
 
+# phi3.5-moe-42b at its published widths, cut in depth: the port keeps fp32
+# master weights (167 GB at 32 layers), so serving runs 4 layers (21.9 GB)
+# and training 2 (45.8 GB with gradients and AdamW's m and v).  Serving and
+# training use the batches above.
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "phi3.5-moe-42b", 4, 2
+
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
@@ -177,11 +200,23 @@ def main():
     torch.cuda.empty_cache()
     counts_train_ssm = phase_train(torch, "mamba2-130m", SSM_TRAIN_SEQ,
                                    "train_ssm")
+    torch.cuda.empty_cache()
+    counts_moe, model, prompts, logits = phase_serve_moe(torch)
+    counts_moe_off = phase_serve_moe_off(torch, model, prompts, logits)
+    del model, logits
+    torch.cuda.empty_cache()
+    # Training: 2 layers, no checkpoint (parameters, m and v would be a 34
+    # GB write) and no resume (the train phase covers it).
+    counts_train_moe = phase_train(
+        torch, name="train_moe", cfg=_moe_cfg(MOE_TRAIN_LAYERS), resume=False,
+        extra={"reduced": _moe_reduced(MOE_TRAIN_LAYERS)})
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
                "continuous": counts_cont, "train": counts_train,
                "serve_ssm": counts_ssm, "serve_ssm_off": counts_ssm_off,
-               "train_ssm": counts_train_ssm}
+               "train_ssm": counts_train_ssm, "serve_moe": counts_moe,
+               "serve_moe_off": counts_moe_off,
+               "train_moe": counts_train_moe}
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -194,6 +229,7 @@ def main():
         by_ops = sum(r["bound_ms"] for r in rows
                      if r["bound_by"] == "operations")
         lib = [r["library_ms"] for r in rows]
+        libs = sorted({r["library"] for r in rows if "library" in r})
         kernels.append({
             "name": kname, "route": "cuda", "source": meta[0],
             "replaces": meta[1], "launches": sum(paths.values()),
@@ -204,7 +240,8 @@ def main():
             "bound_ms": by_bytes + by_ops,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None if None in lib else sum(lib),
-            **({"library": meta[2]} if len(meta) > 2 else {}),
+            **({"library": meta[2]} if len(meta) > 2 else
+               {"library": "; ".join(libs)} if libs else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -240,6 +277,15 @@ KERNELS = {
                      "src/repro/kernels/ssd_chunk/kernel.py:264",
                      "composition: autograd through the torch-backend "
                      "einsums + chunk loop"),
+    # The grouped rows name their library per case: torch.bmm over the
+    # model's uniform (E, rows, K) layout, torch._grouped_mm on a ragged
+    # case where the card's torch takes it, else a per-expert matmul loop.
+    "grouped_fused": ("src/repro_torch/kernels/grouped_gemm/csrc/grouped.cu",
+                      "src/repro/kernels/grouped_gemm/kernel.py:138"),
+    "grouped_padded": ("src/repro_torch/kernels/grouped_gemm/csrc/grouped.cu",
+                       "src/repro/kernels/grouped_gemm/kernel.py:417"),
+    "grouped_bwd": ("src/repro_torch/kernels/grouped_gemm/csrc/grouped.cu",
+                    "src/repro/kernels/grouped_gemm/kernel.py:313"),
 }
 
 
@@ -303,6 +349,17 @@ def gemm_cases():
     cases += [("ssm_readout_nt", SSM_BATCH, svocab, sd, "nt", None),
               ("ssm_train_readout_nt", TRAIN_BATCH * SSM_TRAIN_SEQ, svocab,
                sd, "nt", None)]
+    # phi3.5-moe-42b: the attention projections (d 4096 -> 32 x 128 for q
+    # and o, 8 x 128 for k and v) at the serving prefill (= training) rows
+    # and decode rows, and its untied read-out (vocab 32,064, nn) at decode
+    # and over every training position.
+    md, mkv, mvocab = 4096, 1024, 32064
+    for stage, m in (("moe_prefill", BATCH * PROMPT), ("moe_decode", BATCH)):
+        cases += [(f"{stage}_q_o", m, md, md, "nn", None),
+                  (f"{stage}_kv", m, mkv, md, "nn", None)]
+    cases += [("moe_readout", BATCH, mvocab, md, "nn", None),
+              ("moe_train_readout", TRAIN_BATCH * TRAIN_SEQ, mvocab, md,
+               "nn", None)]
     cases = [c + ("bfloat16", False, 0, True) for c in cases]
     cases += [
         ("ragged_bias_gelu_acc_nt", 997, 1003, 1001, "nt", "bias_gelu",
@@ -412,6 +469,8 @@ def flash_cases():
     """(label, bh, sq, sk, d, causal, dtype, main)."""
     return [("prefill_causal", BATCH * 16, PROMPT, PROMPT, 128, True,
              "bfloat16", True),
+            ("moe_prefill_causal", BATCH * 32, PROMPT, PROMPT, 128, True,
+             "bfloat16", True),
             ("ragged_causal_100", 8, 100, 100, 128, True, "bfloat16", False),
             ("ragged_noncausal_130x70", 6, 130, 70, 64, False, "float32",
              False),
@@ -470,10 +529,13 @@ def run_flash_case(torch, case, gen):
 
 
 def flash_bwd_cases():
-    """(label, bh, sq, sk, d, causal, dtype, main): the training shape
-    (batch 8 x 16 heads, sequence 128) and ragged fp32 cases."""
+    """(label, bh, sq, sk, d, causal, dtype, main): the training shapes
+    (batch 8 x 16 heads of Qwen3, 8 x 32 of phi3.5-moe, sequence 128) and
+    ragged fp32 cases."""
     return [("train_causal", TRAIN_BATCH * 16, TRAIN_SEQ, TRAIN_SEQ, 128,
              True, "bfloat16", True),
+            ("moe_train_causal", TRAIN_BATCH * 32, TRAIN_SEQ, TRAIN_SEQ,
+             128, True, "bfloat16", True),
             ("ragged_f32_causal_100x130", 6, 100, 130, 64, True, "float32",
              False),
             ("ragged_f32_noncausal_130x70", 6, 130, 70, 96, False, "float32",
@@ -818,6 +880,228 @@ def _ssd_diag_composition(torch, c, b, l, x):
     return torch.einsum("gqk,gkp->gqp", w, x)
 
 
+def grouped_cases():
+    """(label, group sizes, rows past their sum, K, N, epilogue, dtype,
+    pinned (bm, bn) or None for the planner's, main, backward too).
+    phi3.5-moe-42b's expert GEMMs route uniform capacity slots: 16 groups
+    of 256 rows at prefill (batch 4 x 256) and training (8 x 128), of 32
+    at decode; up and gate (silu) are d 4096 -> d_ff 6400, down the
+    reverse, all bf16, and training runs the backward at the prefill
+    shapes.  Then ragged cases: sums below T, empty experts, groups
+    smaller than bm, K and N tails, every epilogue."""
+    bf, f32 = "bfloat16", "float32"
+    d, ff = 4096, 6400
+    return [
+        ("prefill_gate_silu", [256] * 16, 0, d, ff, "silu", bf, None, True,
+         True),
+        ("prefill_down", [256] * 16, 0, ff, d, None, bf, None, True, True),
+        ("decode_gate_silu", [32] * 16, 0, d, ff, "silu", bf, None, True,
+         False),
+        ("decode_down", [32] * 16, 0, ff, d, None, bf, None, True, False),
+        ("ragged_f32_bias_silu", [37, 0, 201, 70], 4, 100, 70, "bias_silu",
+         f32, (16, 64), False, True),
+        ("ragged_f32_gelu_small_groups", [5, 3, 2, 1, 0], 7, 129, 200, "gelu",
+         f32, (64, 128), False, True),
+        ("ragged_bf16_relu", [300, 0, 17], 33, 96, 160, "relu", bf,
+         (128, 128), False, True),
+        ("ragged_f32_bias", [60, 60, 60], 33, 100, 70, "bias", f32, (16, 128),
+         False, True),
+        ("ragged_f32_bias_gelu", [13, 0, 40, 7], 5, 100, 70, "bias_gelu", f32,
+         (128, 64), False, True),
+        ("ragged_bf16_bias_silu_planned", [100, 0, 0, 250], 20, 1000, 300,
+         "bias_silu", bf, None, False, True),
+    ]
+
+
+def _grouped_library(torch, x, w, bias, epi, sizes):
+    """(name, forward, name, backward) of the yardsticks: torch.bmm over the
+    uniform (E, rows, K) layout the model uses; on a ragged case
+    torch._grouped_mm where the card's torch takes these operands, else a
+    per-expert torch.matmul loop; the epilogue after it in plain torch.
+    The backward takes the fp32 pre-activation cotangent, as the kernel
+    does: fp32 products."""
+    from repro_torch.kernels.epilogue import apply_epilogue
+    e, k, n = w.shape
+    total = sum(sizes)
+    offs = [0]
+    for sz in sizes:
+        offs.append(offs[-1] + sz)
+    if len(set(sizes)) == 1 and x.shape[0] == total:
+        r = sizes[0]
+        x3 = x.view(e, r, k)
+
+        def fwd():
+            return apply_epilogue(torch.bmm(x3, w), epi,
+                                  None if bias is None else bias[:, None])
+
+        def bwd(dy):
+            dy3 = dy.view(e, r, n)
+            return (torch.bmm(dy3, w.float().transpose(1, 2)),
+                    torch.bmm(x3.float().transpose(1, 2), dy3),
+                    dy3.sum(1) if bias is not None else None)
+
+        return ("torch.bmm (uniform groups)", fwd,
+                "composition: fp32 torch.bmm for dX and dW", bwd)
+
+    def loop_bwd(dy):
+        dx = torch.zeros((x.shape[0], k), device=x.device)
+        dw = torch.zeros((e, k, n), device=x.device)
+        for i in range(e):
+            if sizes[i]:
+                rows = slice(offs[i], offs[i + 1])
+                dx[rows] = dy[rows] @ w[i].float().T
+                dw[i] = x[rows].float().T @ dy[rows]
+        return dx, dw
+
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is not None:
+        ends = torch.tensor(offs[1:], dtype=torch.int32, device=x.device)
+        rows = torch.repeat_interleave(
+            torch.arange(e, device=x.device),
+            torch.tensor(sizes, device=x.device))
+
+        def fwd():
+            y = grouped_mm(x[:total], w, offs=ends, out_dtype=x.dtype)
+            return apply_epilogue(y, epi, None if bias is None else bias[rows])
+        try:
+            fwd()
+            torch.cuda.synchronize()
+            return ("torch._grouped_mm", fwd, "composition: per-expert fp32 "
+                    "torch.matmul loop", loop_bwd)
+        except (RuntimeError, TypeError, ValueError, NotImplementedError):
+            pass  # these operands are not ones it takes: the loop below
+
+    def loop_fwd():
+        out = torch.zeros((x.shape[0], n), dtype=x.dtype, device=x.device)
+        for i in range(e):
+            if sizes[i]:
+                rows = slice(offs[i], offs[i + 1])
+                out[rows] = apply_epilogue(x[rows] @ w[i], epi,
+                                           None if bias is None else bias[i])
+        return out
+
+    return ("composition: per-expert torch.matmul loop", loop_fwd,
+            "composition: per-expert fp32 torch.matmul loop", loop_bwd)
+
+
+def run_grouped_case(torch, case, gen):
+    """grouped_fused over the runtime table, grouped_padded over the padded
+    layout and grouped_bwd against their plain versions; an empty expert's
+    dW and db must come back exactly zero."""
+    from repro_torch.core import (GroupedGemmDescriptor, GroupedGemmPlan,
+                                  plan_grouped)
+    from repro_torch.kernels.grouped_gemm.kernel import (
+        grouped_bwd, grouped_bwd_plain, grouped_fused, grouped_fused_plain,
+        grouped_padded, grouped_padded_plain)
+    from repro_torch.kernels.grouped_gemm.ops import plan_groups, scatter_rows
+    label, sizes, extra, k, n, epi, dname, tiles, main_path, bwd = case
+    dt = getattr(torch, dname)
+    e, total = len(sizes), sum(sizes)
+    t = total + extra
+    biased = epi is not None and epi.startswith("bias")
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    x, w = rnd(t, k), rnd(e, k, n, scale=k ** -0.5)
+    bias = rnd(e, n) if biased else None
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    desc = GroupedGemmDescriptor(t=t, k=k, n=n, num_experts=e, dtype=dname,
+                                 epilogue=epi)
+    plan = plan_grouped(desc) if tiles is None else \
+        GroupedGemmPlan(desc, tiles[0], 32, tiles[1], fused=True)
+    table = plan.tile_schedule().tables(gs)
+    offsets, block_expert, nrows = plan_groups(gs, e, plan.bm, plan.t_padded)
+    xp, _ = scatter_rows(x, gs, offsets, plan.bm, plan.t_padded)
+    kw = dict(bm=plan.bm, bn=plan.bn, epilogue=epi)
+    lib_name, lib_fwd, lib_bwd_name, lib_bwd = _grouped_library(
+        torch, x, w, bias, epi, sizes)
+    # Bound: the rows in groups read once, the touched expert panels read
+    # once, every output row written once; 2 x rows x K x N products.
+    isz = 2 if dname == "bfloat16" else 4
+    panels = sum(1 for sz in sizes if sz) * k * n
+    nbytes = isz * (total * k + panels + t * n
+                    + (sum(1 for sz in sizes if sz) * n if biased else 0))
+    flops = 2 * total * k * n
+    op_ms, byte_ms = flops / PEAK[dname] * 1e3, nbytes / HBM_BPS * 1e3
+    lib_ms = time_ms(torch, lib_fwd, 5)
+    base = dict(phase="kernel", case=label, main_path=main_path,
+                group_sizes=sizes, rows=t, k=k, n=n, epilogue=epi,
+                dtype=dname, blocks=[plan.bm, plan.bk, plan.bn],
+                library=lib_name)
+    rows = []
+    for kname, kern, plain in (
+            ("grouped_fused", lambda: grouped_fused(table, x, w, bias, **kw),
+             lambda: grouped_fused_plain(table, x, w, bias, epilogue=epi)),
+            ("grouped_padded",
+             lambda: grouped_padded(xp, w, block_expert, nrows, bias, **kw),
+             lambda: grouped_padded_plain(xp, w, block_expert, nrows, bias,
+                                          bm=plan.bm, epilogue=epi))):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        max_abs, rel, nbad, tol = compare(torch, got, want, dname)
+        row = dict(base, kernel=kname, max_abs_err=max_abs, max_rel_err=rel,
+                   tolerance=tol, mismatches=nbad,
+                   ms=time_ms(torch, kern, 5),
+                   plain_ms=time_ms(torch, plain, 2),
+                   library_ms=lib_ms, op_ms=op_ms, byte_ms=byte_ms,
+                   bound_ms=max(op_ms, byte_ms),
+                   bound_by="bytes" if byte_ms >= op_ms else "operations")
+        emit(**row)
+        if nbad:
+            fail(f"{kname} {label}: {nbad} elements outside atol=rtol={tol}")
+        rows.append(row)
+    if not bwd:
+        return rows
+    dy = torch.randn((t, n), generator=gen, device="cuda")
+    got = grouped_bwd(table, x, dy, w, gs, bm=plan.bm, with_db=biased)
+    want = grouped_bwd_plain(table, x, dy, w, gs, with_db=biased)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("dx", "dw", "db"), got, want):
+        if a is None:
+            continue
+        if not torch.isfinite(a).all():
+            fail(f"grouped_bwd {label}: {name} is not finite")
+        diff = (a - b).abs()
+        errs[name] = (diff.max().item(),
+                      int((diff > BWD_TOL + BWD_TOL * b.abs()).sum().item()))
+    empty = [i for i, sz in enumerate(sizes) if sz == 0]
+    empty_zero = all(int(torch.count_nonzero(got[1][i])) == 0 and (
+        got[2] is None or int(torch.count_nonzero(got[2][i])) == 0)
+        for i in empty)
+    # dx and dw: 4 x rows x K x N products, each with the fp32 cotangent
+    # as an operand; bytes: x, dy, the touched panels in, dx, every dW
+    # (empty experts' zeros too) and db out.
+    b_op_ms = 2 * flops / PEAK["float32"] * 1e3
+    b_bytes = isz * (total * k + panels) + 4 * (
+        total * n + t * k + e * k * n + (e * n if biased else 0))
+    b_byte_ms = b_bytes / HBM_BPS * 1e3
+    row = dict(base, kernel="grouped_bwd", library=lib_bwd_name,
+               max_abs_err=max(v[0] for v in errs.values()),
+               errors={k_: v[0] for k_, v in errs.items()},
+               tolerance=BWD_TOL, mismatches=sum(v[1] for v in errs.values()),
+               empty_experts=empty, empty_expert_dw_db_zero=empty_zero,
+               ms=time_ms(torch, lambda: grouped_bwd(
+                   table, x, dy, w, gs, bm=plan.bm, with_db=biased), 5),
+               plain_ms=time_ms(torch, lambda: grouped_bwd_plain(
+                   table, x, dy, w, gs, with_db=biased), 2),
+               library_ms=time_ms(torch, lambda: lib_bwd(dy), 5),
+               op_ms=b_op_ms, byte_ms=b_byte_ms,
+               bound_ms=max(b_op_ms, b_byte_ms),
+               bound_by="bytes" if b_byte_ms >= b_op_ms else "operations")
+    emit(**row)
+    if row["mismatches"]:
+        fail(f"grouped_bwd {label}: {row['mismatches']} elements outside "
+             f"atol=rtol={BWD_TOL}")
+    if not empty_zero:
+        fail(f"grouped_bwd {label}: an empty expert's dW or db is not "
+             f"exactly zero")
+    rows.append(row)
+    return rows
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -831,6 +1115,8 @@ def phase_kernels(torch):
         rows += run_decode_case(torch, case, gen)
     for case in ssd_cases():
         rows += run_ssd_case(torch, case, gen)
+    for case in grouped_cases():
+        rows += run_grouped_case(torch, case, gen)
     return rows
 
 
@@ -842,20 +1128,27 @@ def _reset_counts():
     from repro_torch.core import engine
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.gemm import kernel as gk
+    from repro_torch.kernels.grouped_gemm import kernel as grk
     from repro_torch.kernels.ssd_chunk import kernel as sk
     engine.reset_stats(entries=False)
     gk.reset_launches()
     fk.reset_launches()
     sk.reset_launches()
+    grk.reset_launches()
 
 
 def _read_counts():
     from repro_torch.core import engine
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.gemm import kernel as gk
+    from repro_torch.kernels.grouped_gemm import kernel as grk
     from repro_torch.kernels.ssd_chunk import kernel as sk
     st = engine.stats()
-    return {**gk.LAUNCHES, **fk.LAUNCHES, **sk.LAUNCHES,
+    return {**gk.LAUNCHES, **fk.LAUNCHES, **sk.LAUNCHES, **grk.LAUNCHES,
+            "engine_grouped_launches": st.get("grouped_gemm", {})
+            .get("launches", 0),
+            "engine_grouped_launches_bwd": st.get("grouped_gemm", {})
+            .get("launches_bwd", 0),
             "engine_ssd_launches": st.get("ssd_chunk", {}).get("launches", 0),
             "engine_ssd_launches_bwd": st.get("ssd_chunk", {})
             .get("launches_bwd", 0),
@@ -1004,7 +1297,7 @@ def _device_profile(torch, fn, steps: int):
                      for us, name, n in rows[:12]])
 
 
-def phase_profile(torch, model, prompts, steps: int = 2):
+def phase_profile(torch, model, prompts, steps: int = 2, name="profile"):
     from repro_torch.core import use
     from repro_torch.runtime.steps import make_prefill_step, make_serve_step
     with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
@@ -1021,7 +1314,7 @@ def phase_profile(torch, model, prompts, steps: int = 2):
                                                     state["pos"])
 
         step()  # warm
-        emit(phase="profile", decode_steps=steps,
+        emit(phase=name, decode_steps=steps,
              **_device_profile(torch, step, steps))
 
 
@@ -1254,27 +1547,51 @@ def _train_parts(torch, cfg, seq):
 
 
 def _backend_gap(torch, cfg, make_state, batch_fn, name):
-    """Loss and gradients of one batch under both backends, same weights."""
+    """Loss and gradients of one batch under both backends, same weights.
+    For a mixture of experts the torch backend replays the engine's
+    routing: bf16 rounding upstream flips near-tied top-k choices, and a
+    flipped token's output and gradient are another expert's, which says
+    nothing of the kernels.  The free-routing gaps and the number of
+    flipped routings are reported beside the gated ones."""
     from repro_torch.core import use
     from repro_torch.runtime.steps import make_loss_fn
-    model, _ = make_state()
+    model = make_state()[0]  # the optimizer state is not needed: free it
     params = [p for _, p in model.named_parameters()]
     batch = batch_fn(0)
-    loss, grads = {}, {}
-    for be in ("torch", "engine"):
-        with use(backend=be, device="cuda"):
+    moe = bool(cfg.num_experts)
+    routes = {"engine": [], "torch": []}
+
+    def run(backend, mode, calls):
+        with use(backend=backend, device="cuda"), _routing(mode, calls):
             total, _ = make_loss_fn(cfg)(model, batch)
-            grads[be] = torch.autograd.grad(total, params)
-            loss[be] = total.item()
-    diff = sum((a.float() - b.float()).square().sum()
-               for a, b in zip(grads["engine"], grads["torch"]))
-    norm = sum(b.float().square().sum() for b in grads["torch"])
-    grad_gap = (diff / norm).sqrt().item()
-    loss_gap = _rel(loss["engine"], loss["torch"])
-    emit(phase=f"{name}_backends", loss_engine=loss["engine"],
-         loss_torch=loss["torch"], loss_rel_gap=loss_gap,
+            return total.item(), torch.autograd.grad(total, params)
+
+    def gaps(loss, grads):
+        diff = sum((a.float() - b.float()).square().sum()
+                   for a, b in zip(grads_e, grads))
+        norm = sum(b.float().square().sum() for b in grads)
+        return _rel(loss_e, loss), (diff / norm).sqrt().item(), \
+            norm.sqrt().item()
+
+    loss_e, grads_e = run("engine", "record" if moe else None,
+                          routes["engine"])
+    loss_t, grads = run("torch", "replay" if moe else None, routes["engine"])
+    loss_gap, grad_gap, grad_norm = gaps(loss_t, grads)
+    del grads
+    extra = {}
+    if moe:
+        loss_f, grads = run("torch", "record", routes["torch"])
+        free_loss_gap, free_grad_gap, _ = gaps(loss_f, grads)
+        del grads
+        extra = dict(routing="the torch backend replays the engine's",
+                     loss_torch_free_routing=loss_f,
+                     loss_rel_gap_free_routing=free_loss_gap,
+                     grad_rel_l2_gap_free_routing=free_grad_gap,
+                     **_flips(routes["engine"], routes["torch"]))
+    emit(phase=f"{name}_backends", loss_engine=loss_e,
+         loss_torch=loss_t, loss_rel_gap=loss_gap,
          loss_bound=LOSS_BOUND, grad_rel_l2_gap=grad_gap,
-         grad_bound=GRAD_BOUND, grad_norm_torch=norm.sqrt().item())
+         grad_bound=GRAD_BOUND, grad_norm_torch=grad_norm, **extra)
     if not (loss_gap <= LOSS_BOUND and grad_gap <= GRAD_BOUND):
         fail(f"engine vs torch: loss gap {loss_gap:.4g} (bound {LOSS_BOUND}),"
              f" gradient gap {grad_gap:.4g} (bound {GRAD_BOUND})")
@@ -1283,6 +1600,18 @@ def _backend_gap(torch, cfg, make_state, batch_fn, name):
 def _train_want(cfg):
     """Launches per training step that the model's structure implies."""
     L = cfg.num_layers
+    if cfg.num_experts:
+        # the attention projections and the read-out; per layer the three
+        # expert GEMMs forward (up, gate with its silu, down) and, in the
+        # backward, the gate's pre-activation recomputed to peel the silu
+        # off, then one backward walk per expert GEMM
+        return {"engine_gemm_calls": 4 * L + 1,
+                "flash_fwd_fused": L, "flash_fwd_dense": 0,
+                "flash_bwd_fused": L, "engine_flash_launches": L,
+                "engine_flash_launches_bwd": L,
+                "grouped_fused": 4 * L, "grouped_padded": 0,
+                "grouped_bwd": 3 * L, "engine_grouped_launches": 4 * L,
+                "engine_grouped_launches_bwd": 3 * L}
     if cfg.block_pattern == ("ssm",):
         # two projections a layer and the tied read-out; the scan with its
         # entering states forward, the reverse walk backward
@@ -1296,14 +1625,19 @@ def _train_want(cfg):
             "engine_flash_launches_bwd": L}
 
 
-def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train"):
+def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
+                cfg=None, resume=True, extra=None):
+    """Training at full width through ``run_with_restarts``.  ``cfg``
+    overrides ``get_config(arch)``; ``resume=False`` writes no checkpoint
+    and skips the resume check; ``extra`` joins the phase's line."""
+    import os
     import shutil
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.core import use
     from repro_torch.runtime.train_loop import (TrainLoopConfig,
                                                 run_with_restarts)
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     make_state, batch_fn, step_fn = _train_parts(torch, cfg, seq)
     with use(backend="engine", fused="auto", device="cuda"):
         _backend_gap(torch, cfg, make_state, batch_fn, name)
@@ -1322,8 +1656,8 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train"):
         # No fault is injected, so a restart could only hide a kernel
         # error: the first exception ends the run.
         loop = TrainLoopConfig(total_steps=TRAIN_STEPS, ckpt_dir=ckpt,
-                               save_every=SAVE_EVERY, log_every=1,
-                               max_restarts=0)
+                               save_every=SAVE_EVERY if resume else 0,
+                               log_every=1, max_restarts=0)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with use(backend="engine", fused="auto", device="cuda"):
@@ -1343,7 +1677,7 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train"):
              tokens_per_s=[tokens / t for t in step_s],
              run_seconds=run_s, peak_memory_bytes=peak,
              launches_per_step=per_step,
-             expected_per_step=want)
+             expected_per_step=want, **(extra or {}))
         if len(hist) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             fail(f"{name} losses not finite over {TRAIN_STEPS} steps: "
                  f"{losses}")
@@ -1357,8 +1691,13 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train"):
                     counts["engine_gemm_launches"])
             if bad:
                 fail(f"{name} step {i}: launch counts (got, want) {bad}")
-        model, opt_state = _resume(torch, cfg, make_state, batch_fn, step_fn,
-                                   ckpt, out, name)
+        if resume:
+            model, opt_state = _resume(torch, cfg, make_state, batch_fn,
+                                       step_fn, ckpt, out, name)
+        elif os.listdir(ckpt):
+            fail(f"{name} wrote a checkpoint: {os.listdir(ckpt)}")
+        else:
+            model, opt_state = out["model"], out["opt_state"]
         del out
         with use(backend="engine", fused="auto", device="cuda"):
             batch = batch_fn(TRAIN_STEPS)
@@ -1564,6 +1903,203 @@ def phase_serve_ssm_off(torch, model, prompts, logits_auto):
         fail(f"serve_ssm_off launch counts (got, want): {bad}")
     if rel > LOGIT_BOUND:
         fail(f"serve_ssm fused='off' logits differ from fused='auto' by "
+             f"{rel:.4f}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: phi3.5-moe-42b at full width, cut in depth
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(layers: int):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=layers)
+
+
+def _moe_reduced(layers: int):
+    return {"num_layers": f"32 -> {layers}",
+            "why": "fp32 masters, 167 GB at 32 layers"}
+
+
+@contextlib.contextmanager
+def _routing(mode, calls):
+    """Stand in for ``models/moe.py``'s ``top_k`` (``moe_apply`` looks it
+    up per call): ``"record"`` appends each call's expert indices to
+    ``calls``, ``"replay"`` hands the recorded ones back in order, with the
+    gate values gathered from this run's own probabilities; None leaves
+    the routing alone."""
+    if mode is None:
+        yield
+        return
+    import repro_torch.models.moe as moe_mod
+    top_k, replay = moe_mod.top_k, iter(list(calls))
+
+    def route(probs, k):
+        if mode == "replay":
+            idx = next(replay)
+            return probs.gather(-1, idx), idx
+        vals, idx = top_k(probs, k)
+        calls.append(idx.detach().clone())
+        return vals, idx
+
+    moe_mod.top_k = route
+    try:
+        yield
+    finally:
+        moe_mod.top_k = top_k
+
+
+def _flips(calls_a, calls_b):
+    """How many (token, layer) routings two recorded runs chose apart (any
+    difference in the ordered top-k indices)."""
+    differ = [int((a != b).any(-1).sum()) for a, b in zip(calls_a, calls_b)]
+    return {"routings_differing": sum(differ),
+            "routings_differing_by_call": differ,
+            "routings": sum(a[..., 0].numel() for a in calls_a)}
+
+
+def _moe_layer0(torch, model, prompts):
+    """Layer 0's MoE input at the serving prompt (caught on its way into
+    ``moe_apply``) through both backends' ``moe_apply``: the same fp32
+    routing by construction, so y differs only by the expert GEMMs."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.core import use
+    moe_apply, caught = moe_mod.moe_apply, []
+
+    def catch(ff, cfg, x):
+        if not caught:
+            caught.append(x.clone())
+        return moe_apply(ff, cfg, x)
+
+    moe_mod.moe_apply = catch  # MoE.forward looks it up per call
+    try:
+        with use(backend="engine", fused="auto", device="cuda"), \
+                torch.no_grad():
+            model.apply(prompts, logits_mode="last")
+    finally:
+        moe_mod.moe_apply = moe_apply
+    out = {}
+    for backend in ("engine", "torch"):
+        with use(backend=backend, fused="auto", device="cuda"), \
+                torch.no_grad():
+            out[backend] = moe_apply(model.blocks[0].ff, model.cfg, caught[0])
+    torch.cuda.synchronize()
+    (ye, auxe), (yt, auxt) = out["engine"], out["torch"]
+    max_abs, rel, nbad, tol = compare(torch, ye, yt, "bfloat16")
+    return {"y_max_abs_err": max_abs, "y_max_rel_err": rel,
+            "y_mismatches": nbad, "tolerance": tol,
+            "aux_engine": auxe.item(), "aux_torch": auxt.item()}
+
+
+def phase_serve_moe(torch):
+    """phi3.5-moe-42b at full width and 4 layers through ``generate``
+    (engine, fused="auto"), counted alone, with its gates; then, outside
+    the count, the torch backend's prefill, the routings that differ, layer
+    0's MoE through both backends and a profile of two decode steps."""
+    from repro_torch.core import use
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LanguageModel
+    cfg = _moe_cfg(MOE_SERVE_LAYERS)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(torch, cfg.vocab_size)
+    with use(backend="engine", fused="auto", device="cuda"):
+        generate(model, prompts, 2)  # warm: plans, first launches
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = generate(model, prompts, GEN)
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        routes = {"engine": [], "torch": []}
+        with _routing("record", routes["engine"]):
+            logits = _prefill_logits(torch, model, prompts)
+    toks = res["tokens"]
+    if tuple(toks.shape) != (BATCH, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"serve_moe: bad tokens {tuple(toks.shape)}")
+    # One prefill and GEN - 1 decode steps: three expert GEMMs a layer a
+    # forward on the fused grouped kernel, four attention projections a
+    # layer and the read-out on the GEMM kernels, flash once a layer in the
+    # prefill.
+    want = {"grouped_fused": GEN * 3 * L, "engine_grouped_launches":
+            GEN * 3 * L, "grouped_padded": 0, "grouped_bwd": 0,
+            "engine_gemm_calls": GEN * (4 * L + 1), "flash_fwd_fused": L,
+            "engine_flash_launches": L}
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if counts["gemm_fused"] + counts["gemm_region"] != \
+            counts["engine_gemm_launches"]:
+        bad["gemm kernels vs engine"] = (
+            counts["gemm_fused"] + counts["gemm_region"],
+            counts["engine_gemm_launches"])
+    # The torch backend with the engine's routing replayed (gated), and
+    # with its own (reported, with the routings that flipped).
+    with use(backend="torch", device="cuda"):
+        with _routing("replay", routes["engine"]):
+            ref = _prefill_logits(torch, model, prompts)
+        with _routing("record", routes["torch"]):
+            ref_free = _prefill_logits(torch, model, prompts)
+    gap, spread, rel = _logit_gap(torch, logits, ref)
+    free_gap, _, free_rel = _logit_gap(torch, logits, ref_free)
+    routing = _flips(routes["engine"], routes["torch"])
+    layer0 = _moe_layer0(torch, model, prompts)
+    emit(phase="serve_moe", model=cfg.name, params=cfg.param_count(),
+         reduced=_moe_reduced(L), d_model=cfg.d_model,
+         experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+         d_ff=cfg.d_ff, batch=BATCH, prompt=PROMPT, new_tokens=GEN,
+         fused="auto", init_seconds=init_s,
+         prefill_seconds=res["prefill_seconds"],
+         prefill_tokens_per_s=BATCH * PROMPT / res["prefill_seconds"],
+         decode_seconds=res["decode_seconds"],
+         decode_tokens_per_s=BATCH * (GEN - 1) / res["decode_seconds"],
+         peak_memory_bytes=peak, launches=counts, expected=want,
+         routing="the torch backend replays the engine's",
+         logits_vs_torch_max_abs=gap, logits_spread=spread, logits_rel=rel,
+         logits_bound=LOGIT_BOUND, logits_vs_torch_free_routing_max_abs=
+         free_gap, logits_rel_free_routing=free_rel, **routing,
+         layer0_moe=layer0)
+    if bad:
+        fail(f"serve_moe launch counts (got, want): {bad}")
+    if layer0["y_mismatches"]:
+        fail(f"serve_moe: layer 0's MoE differs between the backends in "
+             f"{layer0['y_mismatches']} elements (atol=rtol="
+             f"{layer0['tolerance']})")
+    if rel > LOGIT_BOUND:
+        fail(f"serve_moe: engine vs torch prefill logits differ by "
+             f"{rel:.4f} of their range (bound {LOGIT_BOUND})")
+    phase_profile(torch, model, prompts, name="serve_moe_profile")
+    return counts, model, prompts, logits
+
+
+def phase_serve_moe_off(torch, model, prompts, logits_auto):
+    """The same model and prompts under fused="off": every grouped GEMM on
+    the pad/scatter kernel."""
+    from repro_torch.core import use
+    from repro_torch.launch.serve import generate
+    L = model.cfg.num_layers
+    steps = 4
+    with use(backend="engine", fused="off", device="cuda"):
+        _reset_counts()
+        res = generate(model, prompts, steps)
+        counts = _read_counts()
+        logits = _prefill_logits(torch, model, prompts)
+    want = {"grouped_padded": steps * 3 * L, "grouped_fused": 0,
+            "engine_grouped_launches": steps * 3 * L}
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    gap, _, rel = _logit_gap(torch, logits, logits_auto)
+    emit(phase="serve_moe_off", fused="off", new_tokens=steps,
+         prefill_seconds=res["prefill_seconds"],
+         decode_seconds=res["decode_seconds"], launches=counts,
+         expected=want, logits_vs_auto_max_abs=gap, logits_rel=rel,
+         logits_differing=int((logits != logits_auto).sum()),
+         logits_count=logits.numel(), logits_bound=LOGIT_BOUND)
+    if bad:
+        fail(f"serve_moe_off launch counts (got, want): {bad}")
+    if rel > LOGIT_BOUND:
+        fail(f"serve_moe fused='off' logits differ from fused='auto' by "
              f"{rel:.4f}")
     return counts
 

@@ -1,8 +1,8 @@
 """ModelConfig dataclass + architecture registry (``--arch <id>``).
 
 A copy of the reference package's config schema, so a configuration means
-the same model in both packages.  The port registers ``qwen3-0.6b`` and
-``mamba2-130m`` so far."""
+the same model in both packages.  The port registers ``qwen3-0.6b``,
+``mamba2-130m`` and ``phi3.5-moe-42b`` so far."""
 from __future__ import annotations
 
 import dataclasses

@@ -11,16 +11,18 @@
 """
 from repro_torch.core.descriptor import (  # noqa: F401
     FlashBwdDescriptor, FlashDecodeDescriptor, FlashDescriptor,
-    GemmDescriptor, KernelDescriptor, SsdChunkBwdDescriptor,
-    SsdChunkDescriptor)
+    GemmDescriptor, GroupedGemmBwdDescriptor, GroupedGemmDescriptor,
+    KernelDescriptor, SsdChunkBwdDescriptor, SsdChunkDescriptor)
 from repro_torch.core.blocking import (  # noqa: F401
-    BlockingPlan, FlashDecodePlan, FlashPlan, Region, flash_bwd_fused_legal,
-    flash_decode_legal, flash_fused_legal, fused_legal, palette, plan_flash,
-    plan_flash_bwd, plan_flash_decode, plan_gemm, plan_ssd, plan_ssd_bwd,
-    ssd_bwd_fused_legal, ssd_fused_legal, SsdChunkPlan)
+    BlockingPlan, FlashDecodePlan, FlashPlan, GroupedGemmPlan, Region,
+    flash_bwd_fused_legal, flash_decode_legal, flash_fused_legal, fused_legal,
+    grouped_bwd_fused_legal, grouped_fused_legal, palette, plan_flash,
+    plan_flash_bwd, plan_flash_decode, plan_gemm, plan_grouped,
+    plan_grouped_bwd, plan_ssd, plan_ssd_bwd, ssd_bwd_fused_legal,
+    ssd_fused_legal, SsdChunkPlan)
 from repro_torch.core.schedule import (  # noqa: F401
-    DecodeTileSchedule, FlashTileSchedule, TileSchedule, flash_tile_schedule,
-    flatten_regions, plan_launches)
+    DecodeTileSchedule, FlashTileSchedule, GroupedTileSchedule, TileSchedule,
+    flash_tile_schedule, flatten_regions, plan_launches)
 from repro_torch.core.machine import (  # noqa: F401
     DEFAULT_MACHINE, H100_SXM, MachineModel, TPU_V5E, get_machine)
 from repro_torch.core.config import (  # noqa: F401

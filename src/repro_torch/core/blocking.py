@@ -1,5 +1,5 @@
-"""Blocking planners: GEMM region covers, flash tilings and the SSD scan
-plans (paper §IV-B).
+"""Blocking planners: GEMM region covers, flash tilings, the grouped-GEMM
+tilings and the SSD scan plans (paper §IV-B).
 
 The paper's generator owns a *palette* of accumulator blockings and
 covers a ragged C with a heterogeneous mix of them, minimising kernel
@@ -17,13 +17,15 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
-from .descriptor import (FlashBwdDescriptor, FlashDecodeDescriptor,
-                         FlashDescriptor, GemmDescriptor,
-                         SsdChunkBwdDescriptor, SsdChunkDescriptor)
+from .descriptor import (BIAS_EPILOGUES, FlashBwdDescriptor,
+                         FlashDecodeDescriptor, FlashDescriptor,
+                         GemmDescriptor, GroupedGemmBwdDescriptor,
+                         GroupedGemmDescriptor, SsdChunkBwdDescriptor,
+                         SsdChunkDescriptor)
 from .machine import DEFAULT_MACHINE, MachineModel, itemsize
-from .schedule import (DecodeTileSchedule, FlashTileSchedule, TileSchedule,
-                       ceil_div, flash_tile_schedule, flatten_regions,
-                       round_up)
+from .schedule import (DecodeTileSchedule, FlashTileSchedule,
+                       GroupedTileSchedule, TileSchedule, ceil_div,
+                       flash_tile_schedule, flatten_regions, round_up)
 
 
 def palette(budget: Optional[int] = None,
@@ -563,3 +565,162 @@ def plan_ssd_bwd(desc: SsdChunkBwdDescriptor,
         fits = ssd_kernel_legal(desc, machine)
     return SsdChunkPlan(desc, fits_vmem=fits,
                         fused=ssd_bwd_fused_legal(desc, machine))
+
+
+# ---------------------------------------------------------------------------
+# Grouped (ragged) GEMM
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GroupedGemmPlan:
+    """Planned (bm, bk, bn) tiling of one ragged grouped GEMM, plus the
+    ``fused`` lowering bit (one launch over runtime tile tables, else the
+    pad/scatter lowering)."""
+
+    desc: GroupedGemmDescriptor
+    bm: int
+    bk: int
+    bn: int
+    fused: bool = False
+
+    @property
+    def t_padded(self) -> int:
+        """Static row bound of the pad/scatter lowering: T rounded up plus
+        room for every group's padding."""
+        d = self.desc
+        return round_up(d.t, self.bm) + d.num_experts * self.bm
+
+    def tile_schedule(self) -> GroupedTileSchedule:
+        """The static geometry of the fused lowering; the tables are
+        runtime data built from ``group_sizes``."""
+        d = self.desc
+        return GroupedTileSchedule(
+            t=d.t, k=d.k, n=d.n, num_experts=d.num_experts,
+            bm=min(self.bm, d.t), bk=min(self.bk, d.k), bn=min(self.bn, d.n))
+
+    def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE
+                          ) -> float:
+        return _predict_grouped_seconds(self.desc, self.bm, self.bk, self.bn,
+                                        machine, fused=self.fused)
+
+
+def grouped_fused_legal(desc: GroupedGemmDescriptor,
+                        machine: MachineModel = DEFAULT_MACHINE) -> bool:
+    """Can this grouped GEMM run as one scheduled launch?  A kernel that
+    stages the whole token block and output on chip (clamped row windows
+    need element-granular origins) plus a double-buffered expert panel
+    needs them to fit; a kernel that streams tiles from device memory
+    takes every problem."""
+    if not machine.stages_whole_operands:
+        return True
+    isz = itemsize(desc.dtype)
+    need = desc.t * desc.k * desc.x_wire_itemsize + desc.t * desc.n * isz
+    need += 2 * desc.k * desc.n * desc.w_wire_itemsize
+    need += machine.acc_budget_elems * 4
+    return need <= machine.vmem_bytes
+
+
+def _predict_grouped_seconds(desc: GroupedGemmDescriptor, bm: int, bk: int,
+                             bn: int, machine: MachineModel,
+                             fused: bool = False) -> float:
+    """Napkin-math time of one grouped tiling: issued MACs against tile
+    traffic, plus per-step and launch overheads; the pad/scatter lowering
+    adds padded rows and its scatter-in / gather-back traffic."""
+    isz = itemsize(desc.dtype)
+    x_sz, w_sz = desc.x_wire_itemsize, desc.w_wire_itemsize
+    gn = ceil_div(desc.n, bn)
+    gk = ceil_div(desc.k, bk)
+    if fused:
+        # Ragged row blocks: each expert may add one partial block, plus
+        # the zero-fill tail; no padded intermediate, no gather.
+        gm = ceil_div(desc.t, bm) + desc.num_experts + 1
+        stitch_s = 0.0
+    else:
+        t_padded = round_up(desc.t, bm) + desc.num_experts * bm
+        gm = ceil_div(t_padded, bm)
+        stitch_bytes = 2 * desc.t * desc.k * isz          # scatter x
+        stitch_bytes += (gm * bm + desc.t) * desc.n * isz  # gather out
+        stitch_s = stitch_bytes / machine.hbm_bw
+    steps = gm * gn * gk
+    issued = 2 * gm * bm * gn * bn * desc.k
+    compute_s = issued / machine.peak(desc.compute_dtype)
+    traffic = (steps * (bm * bk * x_sz + bk * bn * w_sz)
+               + gm * bm * desc.n * isz)
+    memory_s = traffic / machine.hbm_bw
+    return (max(compute_s, memory_s) + steps * machine.step_overhead_s
+            + machine.launch_overhead_s + stitch_s)
+
+
+def grouped_smem_bytes(bm: int, bk: int, bn: int) -> int:
+    """Shared memory one grouped tile stages: a (bm, bk) and a (bk, bn)
+    panel in fp32 with 4 words of row padding each (the bf16 panels and the
+    tensor-core scratch take less)."""
+    return bk * (bm + bn + 8) * 4
+
+
+def _grouped_legal(desc: GroupedGemmDescriptor,
+                   machine: MachineModel) -> List[Tuple[int, int, int]]:
+    """All legal (bm, bk, bn) triples for one grouped descriptor: the
+    kernel's own tilings that fit its shared memory where the machine
+    lists them, else every VMEM fit."""
+    if machine.grouped_blocks is not None:
+        return [b for b in machine.grouped_blocks
+                if grouped_smem_bytes(*b) <= machine.grouped_smem_bytes]
+    sub, lane = machine.reg_tile(desc.dtype)
+    isz = itemsize(desc.dtype)
+    legal = []
+    for bm in _tile_candidates(desc.t, sub, lo=sub):
+        for bn in _tile_candidates(desc.n, lane, lo=lane):
+            for bk in _tile_candidates(desc.k, lane, lo=lane):
+                vmem = bm * bn * 4 + 2 * (bm * bk + bk * bn) * isz
+                if vmem > machine.vmem_bytes // 2:
+                    continue
+                legal.append((bm, bk, bn))
+    if not legal:
+        legal.append((sub, lane, lane))
+    return legal
+
+
+def plan_grouped(desc: GroupedGemmDescriptor,
+                 machine: MachineModel = DEFAULT_MACHINE) -> GroupedGemmPlan:
+    """Pick (bm, bk, bn) by the cost model (bm trades per-group padding
+    against grid size); ``fused`` whenever :func:`grouped_fused_legal`
+    allows."""
+    fused = grouped_fused_legal(desc, machine)
+    best = min(_grouped_legal(desc, machine),
+               key=lambda s: _predict_grouped_seconds(desc, *s,
+                                                      machine=machine,
+                                                      fused=fused))
+    return GroupedGemmPlan(desc, *best, fused=fused)
+
+
+def grouped_bwd_fused_legal(desc: GroupedGemmBwdDescriptor,
+                            machine: MachineModel = DEFAULT_MACHINE) -> bool:
+    """Can this grouped-GEMM backward run as one scheduled launch?  Staged
+    whole: x, dy and dx, the double-buffered expert panel, and the fp32 dW
+    (and db) accumulated in place must fit.  Streamed (dW and dX tiles
+    each reduced by one thread block): every problem."""
+    if not machine.stages_whole_operands:
+        return True
+    isz = itemsize(desc.dtype)
+    need = desc.t * (2 * desc.k + desc.n) * isz      # x, dx, dy
+    need += 2 * desc.k * desc.n * isz                # double-buffered panel
+    need += desc.num_experts * desc.k * desc.n * 4   # dW, fp32
+    if desc.epilogue in BIAS_EPILOGUES:
+        need += desc.num_experts * desc.n * 4        # db, fp32
+    need += machine.acc_budget_elems * 4
+    return need <= machine.vmem_bytes
+
+
+def plan_grouped_bwd(desc: GroupedGemmBwdDescriptor,
+                     machine: MachineModel = DEFAULT_MACHINE
+                     ) -> GroupedGemmPlan:
+    """Plan the grouped backward: the forward's (bm, bk, bn) search (both
+    gradients walk the same runtime tile tables), gated by
+    :func:`grouped_bwd_fused_legal`."""
+    fused = grouped_bwd_fused_legal(desc, machine)
+    best = min(_grouped_legal(desc, machine),
+               key=lambda s: _predict_grouped_seconds(desc, *s,
+                                                      machine=machine,
+                                                      fused=fused))
+    return GroupedGemmPlan(desc, *best, fused=fused)

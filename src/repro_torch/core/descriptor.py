@@ -401,3 +401,104 @@ class SsdChunkBwdDescriptor(SsdChunkDescriptor):
         return (self.cells * per_cell * isz
                 + self.cells * 2 * self.q * 4              # ddi / ddo, fp32
                 + self.groups * self.p * self.n * 4)       # ds0
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedGemmDescriptor(KernelDescriptor):
+    """Ragged grouped GEMM (MoE expert compute): (T, K) x (E, K, N) -> (T, N).
+
+    ``t`` is the static row count; the split of the rows into groups
+    (``group_sizes``) is a runtime operand and not part of the descriptor:
+    the kernel is shaped by the descriptor, the routing is data.  The
+    ``bias`` operand of a bias epilogue is per expert, ``(E, N)``.
+    """
+
+    family = "grouped_gemm"
+
+    t: int
+    k: int
+    n: int
+    num_experts: int
+    dtype: str = "float32"
+    epilogue: Optional[str] = None
+    quant: None = None
+    mesh: None = None
+
+    def __post_init__(self):
+        _reject_unported(quant=self.quant, mesh=self.mesh)
+        for v in (self.t, self.k, self.n, self.num_experts):
+            if v <= 0:
+                raise ValueError(
+                    f"grouped-GEMM dims must be positive, got {self}")
+        if self.epilogue not in EPILOGUES:
+            raise ValueError(f"epilogue must be one of {EPILOGUES}")
+
+    @classmethod
+    def from_operands(cls, x, w, epilogue=None):
+        t, k = x.shape
+        e, kw, n = w.shape
+        if kw != k:
+            raise ValueError(f"contraction mismatch: x{tuple(x.shape)} vs "
+                             f"w{tuple(w.shape)}")
+        return cls(t=t, k=k, n=n, num_experts=e,
+                   dtype=canonical_dtype(x.dtype), epilogue=epilogue)
+
+    @property
+    def x_wire_itemsize(self) -> int:
+        return itemsize(self.dtype)
+
+    @property
+    def w_wire_itemsize(self) -> int:
+        return itemsize(self.dtype)
+
+    @property
+    def compute_dtype(self) -> str:
+        return self.dtype
+
+    @property
+    def flops(self) -> int:
+        # Each row contracts against exactly one expert's (K, N) panel.
+        return 2 * self.t * self.k * self.n
+
+    @property
+    def in_bytes(self) -> int:
+        return (self.t * self.k + self.num_experts * self.k * self.n) \
+            * itemsize(self.dtype)
+
+    @property
+    def out_bytes(self) -> int:
+        return self.t * self.n * itemsize(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedGemmBwdDescriptor(GroupedGemmDescriptor):
+    """Grouped-GEMM backward: dY, X, W, group_sizes -> dX, dW, (db).  The
+    forward's geometry under its own ``family``, so backward plans cache
+    and count apart."""
+
+    family = "grouped_gemm_bwd"
+
+    @classmethod
+    def from_forward(cls, desc: GroupedGemmDescriptor
+                     ) -> "GroupedGemmBwdDescriptor":
+        """Backward descriptor sharing a forward descriptor's geometry."""
+        return cls(**dataclasses.asdict(desc))
+
+    @property
+    def flops(self) -> int:
+        # dX = dY @ W^T and dW = X^T @ dY: twice the forward's products.
+        return 2 * super().flops
+
+    @property
+    def in_bytes(self) -> int:
+        return (self.t * (self.k + self.n)
+                + self.num_experts * self.k * self.n) * itemsize(self.dtype)
+
+    @property
+    def out_bytes(self) -> int:
+        # dX in the operand dtype; dW (and db when biased) in fp32.
+        total = self.t * self.k * itemsize(self.dtype) \
+            + self.num_experts * self.k * self.n * 4
+        if self.epilogue in BIAS_EPILOGUES:
+            total += self.num_experts * self.n * 4
+        return total

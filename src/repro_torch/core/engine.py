@@ -44,6 +44,8 @@ _FAMILY_MODULES = {
     "flash_attention": "repro_torch.kernels.flash_attention.ops",
     "flash_attention_bwd": "repro_torch.kernels.flash_attention.ops",
     "flash_decode": "repro_torch.kernels.flash_attention.ops",
+    "grouped_gemm": "repro_torch.kernels.grouped_gemm.ops",
+    "grouped_gemm_bwd": "repro_torch.kernels.grouped_gemm.ops",
     "ssd_chunk": "repro_torch.kernels.ssd_chunk.ops",
     "ssd_chunk_bwd": "repro_torch.kernels.ssd_chunk.ops",
 }

@@ -20,7 +20,10 @@ kernels accept rather than from a scratchpad size:
   * the SSD chunked-scan kernels take chunks of up to ``ssd_max_q`` rows,
     states of up to ``ssd_max_state`` and head dims of up to
     ``ssd_max_head_dim`` (the constants of ``csrc/ssd_scan.cu`` and
-    ``csrc/ssd_scan_bwd.cu``).
+    ``csrc/ssd_scan_bwd.cu``);
+  * the grouped-GEMM kernels take the ``(bm, bk, bn)`` tilings of
+    ``grouped_blocks`` (the shapes ``csrc/grouped.cu`` instantiates), each
+    of which must fit its static shared memory (``grouped_smem_bytes``).
 
 The dispatch overheads are pinned assumptions, not measurements; a later
 calibration replaces them.
@@ -113,6 +116,11 @@ class MachineModel:
     ssd_max_q: Optional[int] = None
     ssd_max_state: Optional[int] = None
     ssd_max_head_dim: Optional[int] = None
+    # Grouped-GEMM kernel tilings (bm, bk, bn) and the static shared memory
+    # a tile may stage; None: legality is the VMEM fit of a kernel that
+    # stages whole operands.
+    grouped_blocks: Optional[Tuple[Tuple[int, int, int], ...]] = None
+    grouped_smem_bytes: Optional[int] = None
 
     @functools.cached_property
     def fingerprint(self) -> str:
@@ -170,6 +178,9 @@ H100_SXM = MachineModel(
     ssd_max_q=256,
     ssd_max_state=128,
     ssd_max_head_dim=64,
+    grouped_blocks=((16, 32, 64), (16, 32, 128), (64, 32, 64),
+                    (64, 32, 128), (128, 32, 64), (128, 32, 128)),
+    grouped_smem_bytes=48 * 1024,
 )
 
 DEFAULT_MACHINE = H100_SXM

@@ -5,6 +5,9 @@
   * :class:`FlashTileSchedule` -- the flattened (q-block, k-block) walk
     of one flash-attention problem, with causal k-blocks above the
     diagonal dropped at plan time;
+  * :class:`GroupedTileSchedule` -- the ragged row blocks of a grouped
+    GEMM: its tables are runtime data, built on the device from the
+    router's group sizes;
   * :class:`DecodeTileSchedule` -- one continuous-batching decode step
     over a paged KV pool: its tables are runtime data, built on the
     device from this step's block tables and lengths;
@@ -15,8 +18,8 @@
 Two contracts carry over from the reference unchanged: every output
 element is owned by exactly one tile, and causal-masked tiles never
 reach a kernel.  GEMM and flash tables are computed on the host with
-plain Python and uploaded once per plan by the kernel executors; decode
-tables are torch ops on the device, with no host sync.
+plain Python and uploaded once per plan by the kernel executors; grouped
+and decode tables are torch ops on the device, with no host sync.
 """
 from __future__ import annotations
 
@@ -250,6 +253,122 @@ def plan_launches(plan, fused: bool) -> int:
         return 1
     regions = getattr(plan, "regions", None)
     return len(regions) if regions is not None else 1
+
+
+# ---------------------------------------------------------------------------
+# Ragged (grouped) tile schedules -- runtime tables, static geometry
+# ---------------------------------------------------------------------------
+
+# Tile states in the grouped table's ``state`` column.
+TILE_SKIP = 0     # beyond the active tile count: no work
+TILE_COMPUTE = 1  # owns rows of one expert: accumulate and store
+TILE_ZERO = 2     # owns rows past sum(group_sizes): store zeros
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedTileSchedule:
+    """Schedule of a ragged row partition (the grouped GEMM).
+
+    The geometry (blocks, grid extents, the static ``max_tiles`` bound) is
+    fixed by the descriptor and plan; the tables are data: the router
+    decides ``group_sizes`` per call, so each expert's row blocks are
+    computed by device ops (:meth:`tables`), with no host sync, no padded
+    intermediate and no gather-back.
+
+    Each table row is ``(row0, row_end, row_start, expert, state)``:
+    ``[row0, row_end)`` are the x/out rows the tile owns, ``row_start``
+    the clamped origin of a fixed ``bm``-row window (the reference's
+    kernels read that window; the CUDA kernels address rows element by
+    element from ``row0``), ``expert`` selects the weight and bias panel,
+    and ``state`` marks the tile compute / zero-fill (rows past
+    ``sum(group_sizes)``) / skip.
+    """
+
+    t: int
+    k: int
+    n: int
+    num_experts: int
+    bm: int
+    bk: int
+    bn: int
+
+    def __post_init__(self):
+        assert self.bm <= self.t and self.bn <= self.n and self.bk <= self.k
+
+    @property
+    def max_tiles(self) -> int:
+        """Static row-tile bound: every expert may add one partial block,
+        plus the zero-fill tail region."""
+        return ceil_div(self.t, self.bm) + self.num_experts + 1
+
+    @property
+    def k_steps(self) -> int:
+        return ceil_div(self.k, self.bk)
+
+    @property
+    def n_steps(self) -> int:
+        return ceil_div(self.n, self.bn)
+
+    def tables(self, group_sizes: torch.Tensor) -> torch.Tensor:
+        """The ``(max_tiles, 5)`` int32 tile table from the router's
+        ``group_sizes``, on their device, without a host sync
+        (``torch.searchsorted(..., right=True)`` is the reference's
+        ``jnp.searchsorted(side="right")``).  Rows past
+        ``sum(group_sizes)`` form a zero-fill pseudo-group, so the tiles
+        cover every output row exactly once."""
+        bm, t, e = self.bm, self.t, self.num_experts
+        dev = group_sizes.device
+        sizes = group_sizes.long()
+        tail = t - sizes.sum()
+        all_sizes = torch.cat([sizes, tail[None]])                 # (E+1,)
+        zero = torch.zeros(1, dtype=torch.long, device=dev)
+        all_off = torch.cat([zero, torch.cumsum(all_sizes, 0)])    # (E+2,)
+        nblocks = (all_sizes + bm - 1) // bm                       # (E+1,)
+        bstart = torch.cat([zero, torch.cumsum(nblocks, 0)])       # (E+2,)
+        g = torch.arange(self.max_tiles, dtype=torch.long, device=dev)
+        # Which (pseudo-)group owns tile g; empty groups own no tiles.
+        owner = torch.clamp(torch.searchsorted(bstart, g, right=True) - 1,
+                            0, e)
+        local = g - bstart[owner]
+        row0 = all_off[owner] + local * bm
+        row_end = torch.minimum(row0 + bm, all_off[owner] + all_sizes[owner])
+        active = g < bstart[-1]
+        row0 = torch.where(active, row0, t)
+        row_end = torch.where(active, row_end, t)
+        rs = torch.clamp_min(torch.clamp_max(row0, t - bm), 0)
+        expert = torch.clamp_max(owner, e - 1)  # always a legal panel index
+        state = torch.where(
+            active & (row_end > row0),
+            torch.where(owner < e, TILE_COMPUTE, TILE_ZERO), TILE_SKIP)
+        return torch.stack([row0, row_end, rs, expert, state],
+                           dim=1).to(torch.int32)
+
+    def validate_tables(self, table, group_sizes) -> bool:
+        """Property check on one concrete table (tests): every output row
+        owned by exactly one tile, windows in bounds, experts consistent."""
+        table = np.asarray(table)
+        sizes = np.asarray(group_sizes, dtype=np.int64)
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        assert table.shape == (self.max_tiles, 5), table.shape
+        assert table.dtype == np.int32, table.dtype
+        owner_of = np.full(self.t, -1, dtype=np.int64)
+        for row0, row_end, rs, expert, state in table:
+            if state == TILE_SKIP:
+                assert row0 == row_end, (row0, row_end)
+                continue
+            assert 0 <= rs and rs + self.bm <= self.t, (rs, self.bm, self.t)
+            assert rs <= row0 and row_end <= rs + self.bm
+            assert 0 <= expert < self.num_experts
+            assert (owner_of[row0:row_end] == -1).all(), "row owned twice"
+            owner_of[row0:row_end] = expert if state == TILE_COMPUTE else -2
+            if state == TILE_COMPUTE:
+                # owned rows really belong to that expert
+                assert offsets[expert] <= row0
+                assert row_end <= offsets[expert + 1]
+            else:  # TILE_ZERO: rows past the ragged total
+                assert row0 >= offsets[-1]
+        assert (owner_of != -1).all(), "uncovered output rows"
+        return True
 
 
 # ---------------------------------------------------------------------------

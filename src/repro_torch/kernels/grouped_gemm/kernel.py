@@ -1,0 +1,245 @@
+"""Wrappers around the Hopper grouped-GEMM kernels (``csrc/grouped.cu``),
+each beside its plain torch version.
+
+  * :func:`grouped_fused` -- one launch over the runtime tile table of a
+    :class:`~repro_torch.core.schedule.GroupedTileSchedule`, one thread
+    block per (table row, N block) (the counterpart of the reference's
+    ``build_fused_grouped_kernel``);
+  * :func:`grouped_padded` -- the pad/scatter lowering over groups padded
+    to ``bm`` rows, one thread block per (row block, N block), the expert
+    from ``block_expert`` (the counterpart of ``build_grouped_gemm_kernel``);
+  * :func:`grouped_bwd` -- dX, dW and db in one deterministic launch over
+    the same table (the counterpart of ``build_fused_grouped_bwd_kernel``).
+
+Operands are float32 or bfloat16 (x, w and bias in one dtype), outputs of
+the forward kernels in x's dtype; the backward takes an fp32 cotangent and
+returns fp32 gradients.  The kernels take the ``(bm, bn)`` tilings of
+:data:`SHAPES` with a K panel of 32 (``H100_SXM.grouped_blocks``).  A
+wrapper runs its plain version only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.schedule import TILE_COMPUTE, TILE_ZERO
+from repro_torch.kernels import _build, disable_tf32
+from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
+from repro_torch.kernels.grouped_gemm.ref import (expert_offsets,
+                                                  ref_grouped_gemm_bwd)
+
+LAUNCHES = {"grouped_fused": 0, "grouped_padded": 0, "grouped_bwd": 0}
+
+# (bm, bn) tilings csrc/grouped.cu instantiates, in its shape order.
+SHAPES = ((16, 64), (16, 128), (64, 64), (64, 128), (128, 64), (128, 128))
+
+_DT = {torch.float32: 0, torch.bfloat16: 1}
+_EPI = {None: 0, "bias": 1, "gelu": 2, "silu": 3, "relu": 4, "bias_gelu": 5,
+        "bias_silu": 6}
+
+_LIB = None
+
+
+def _lib():
+    """The built ``grouped`` library, with its C signatures declared."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.library("grouped")
+        P, I = _build.P, _build.I
+        lib.grouped_fused.argtypes = [P] * 5 + [I] * 8 + [P]
+        lib.grouped_fused.restype = I
+        lib.grouped_padded.argtypes = [P] * 6 + [I] * 8 + [P]
+        lib.grouped_padded.restype = I
+        lib.grouped_bwd.argtypes = [P] * 8 + [I] * 6 + [P]
+        lib.grouped_bwd.restype = I
+        _LIB = lib
+    return _LIB
+
+
+def _check(x, w, bias, epilogue, extra=()):
+    """Shapes, dtypes and, on the card, placement and contiguity.
+    ``extra``: (name, tensor) of the int32 index operands."""
+    if x.ndim != 2 or w.ndim != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"expected x (T, K) and w (E, K, N), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if w.dtype != x.dtype:
+        raise ValueError(f"x and w dtypes differ: {x.dtype}, {w.dtype}")
+    if needs_bias(epilogue):
+        if bias is None or tuple(bias.shape) != (w.shape[0], w.shape[2]):
+            got = None if bias is None else tuple(bias.shape)
+            raise ValueError(f"epilogue {epilogue!r} needs an (E, N) bias, "
+                             f"got {got}")
+    for name, t in extra:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if x.is_cuda:
+        operands = [("x", x), ("w", w), *extra]
+        if needs_bias(epilogue):
+            operands.append(("bias", bias))
+        for name, t in operands:
+            if t.device != x.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {x.device}")
+        for name, t in (("x", x), ("bias", bias)):
+            if t is not None and t.dtype not in _DT:
+                raise ValueError(f"the CUDA grouped kernels take float32 or "
+                                 f"bfloat16 {name}, got {t.dtype}")
+    elif x.device.type != "cpu":
+        raise RuntimeError(f"no grouped-GEMM kernel for device {x.device}")
+
+
+def _check_tiles(bm: int, bn: int) -> None:
+    if (bm, bn) not in SHAPES:
+        raise NotImplementedError(f"the CUDA grouped kernels take (bm, bn) in "
+                                  f"{SHAPES}, got {(bm, bn)}")
+
+
+def _bias_code(bias) -> int:
+    return _DT[bias.dtype] if bias is not None else 0
+
+
+def grouped_fused(table, x, w, bias=None, *, bm: int, bn: int,
+                  epilogue: Optional[str] = None) -> torch.Tensor:
+    """One launch over the ``(max_tiles, 5)`` int32 tile table -> ``(T, N)``
+    in x's dtype.  ``bm`` is the kernel's row tile (at least the table's
+    block), ``bn`` its column tile."""
+    _check(x, w, bias, epilogue, (("table", table),))
+    if not x.is_cuda:
+        return grouped_fused_plain(table, x, w, bias, epilogue=epilogue)
+    _check_tiles(bm, bn)
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    bias = bias if needs_bias(epilogue) else None
+    status = _lib().grouped_fused(
+        _build.ptr(x), _build.ptr(w), _build.ptr(bias), _build.ptr(out),
+        _build.ptr(table), table.shape[0], x.shape[1], w.shape[2], bm, bn,
+        _DT[x.dtype], _bias_code(bias), _EPI[epilogue], _build.stream_ptr(x))
+    LAUNCHES["grouped_fused"] += 1
+    _build.check(status, "grouped_fused")
+    return out
+
+
+def grouped_padded(x_padded, w, block_expert, nrows, bias=None, *, bm: int,
+                   bn: int, epilogue: Optional[str] = None) -> torch.Tensor:
+    """One launch of the pad/scatter lowering: ``x_padded (T_pad, K)`` with
+    every group padded to ``bm`` rows, ``block_expert (T_pad / bm,)`` and
+    ``nrows (1,)`` int32 -> ``(T_pad, N)`` in x's dtype.  Blocks at or past
+    ``nrows`` hold the epilogue of a zero accumulator."""
+    _check(x_padded, w, bias, epilogue,
+           (("block_expert", block_expert), ("nrows", nrows)))
+    t_pad = x_padded.shape[0]
+    if t_pad % bm or block_expert.shape != (t_pad // bm,):
+        raise ValueError(f"x_padded rows {t_pad} must be block_expert "
+                         f"{tuple(block_expert.shape)} blocks of {bm}")
+    if not x_padded.is_cuda:
+        return grouped_padded_plain(x_padded, w, block_expert, nrows, bias,
+                                    bm=bm, epilogue=epilogue)
+    _check_tiles(bm, bn)
+    out = torch.empty((t_pad, w.shape[2]), dtype=x_padded.dtype,
+                      device=x_padded.device)
+    bias = bias if needs_bias(epilogue) else None
+    status = _lib().grouped_padded(
+        _build.ptr(x_padded), _build.ptr(w), _build.ptr(bias),
+        _build.ptr(out), _build.ptr(block_expert), _build.ptr(nrows), t_pad,
+        x_padded.shape[1], w.shape[2], bm, bn, _DT[x_padded.dtype],
+        _bias_code(bias), _EPI[epilogue], _build.stream_ptr(x_padded))
+    LAUNCHES["grouped_padded"] += 1
+    _build.check(status, "grouped_padded")
+    return out
+
+
+def grouped_bwd(table, x, dy, w, group_sizes, *, bm: int,
+                with_db: bool = False):
+    """One launch -> fp32 ``(dX (T, K), dW (E, K, N), db (E, N) or None)``
+    from the fp32 pre-activation cotangent ``dy (T, N)``.  ``bm`` is the
+    dX tile's rows (at least the table's block)."""
+    _check(x, w, None, None, (("table", table),))
+    if tuple(dy.shape) != (x.shape[0], w.shape[2]) \
+            or dy.dtype != torch.float32:
+        raise ValueError(f"dy must be {(x.shape[0], w.shape[2])} float32, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if not x.is_cuda:
+        return grouped_bwd_plain(table, x, dy, w, group_sizes,
+                                 with_db=with_db)
+    bms = sorted({s[0] for s in SHAPES})
+    if bm not in bms:
+        raise NotImplementedError(f"the CUDA grouped backward takes bm in "
+                                  f"{bms}, got {bm}")
+    if dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous on {x.device}")
+    t, k = x.shape
+    e, _, n = w.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dw = torch.empty((t, k), **f32), torch.empty((e, k, n), **f32)
+    db = torch.empty((e, n), **f32) if with_db else None
+    offsets = expert_offsets(group_sizes).to(torch.int32)
+    status = _lib().grouped_bwd(
+        _build.ptr(x), _build.ptr(dy), _build.ptr(w), _build.ptr(table),
+        _build.ptr(offsets), _build.ptr(dx), _build.ptr(dw), _build.ptr(db),
+        table.shape[0], k, n, e, bm, _DT[x.dtype], _build.stream_ptr(x))
+    LAUNCHES["grouped_bwd"] += 1
+    _build.check(status, "grouped_bwd")
+    return dx, dw, db
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions (the CPU path, and the card-side comparison)
+# ---------------------------------------------------------------------------
+
+def grouped_fused_plain(table, x, w, bias=None, *,
+                        epilogue: Optional[str] = None) -> torch.Tensor:
+    """The fused kernel's arithmetic, walking the table on the host: each
+    COMPUTE row's x rows times its expert's panel in fp32, the epilogue
+    with that expert's bias row, stored in x's dtype; ZERO rows zeros."""
+    if x.is_cuda:
+        disable_tf32()
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    for row0, row_end, _, e, state in table.tolist():
+        if state == TILE_COMPUTE:
+            acc = x[row0:row_end].float() @ w[e].float()
+            out[row0:row_end] = apply_epilogue(
+                acc, epilogue, bias[e] if needs_bias(epilogue) else None
+            ).to(x.dtype)
+        elif state == TILE_ZERO:
+            out[row0:row_end] = 0
+    return out
+
+
+def grouped_padded_plain(x_padded, w, block_expert, nrows, bias=None, *,
+                         bm: int, epilogue: Optional[str] = None
+                         ) -> torch.Tensor:
+    """The pad/scatter kernel's arithmetic, row block by row block; blocks
+    at or past ``nrows`` hold the epilogue of a zero accumulator."""
+    if x_padded.is_cuda:
+        disable_tf32()
+    t_pad = x_padded.shape[0]
+    out = torch.empty((t_pad, w.shape[2]), dtype=x_padded.dtype,
+                      device=x_padded.device)
+    limit = int(nrows[0])
+    for i, e in enumerate(block_expert.tolist()):
+        rows = slice(i * bm, (i + 1) * bm)
+        if i * bm < limit:
+            acc = x_padded[rows].float() @ w[e].float()
+        else:
+            acc = torch.zeros((bm, w.shape[2]), dtype=torch.float32,
+                              device=x_padded.device)
+        out[rows] = apply_epilogue(
+            acc, epilogue, bias[e] if needs_bias(epilogue) else None
+        ).to(x_padded.dtype)
+    return out
+
+
+def grouped_bwd_plain(table, x, dy, w, group_sizes, *,
+                      with_db: bool = False):
+    """The backward kernel's arithmetic: the expert-by-expert fp32 oracle
+    (the table's COMPUTE rows of expert e are exactly its rows)."""
+    if x.is_cuda:
+        disable_tf32()
+    return ref_grouped_gemm_bwd(x, dy, w, group_sizes, with_db=with_db)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,258 @@
+"""Ragged grouped GEMM family (MoE expert compute): engine-planned dispatch,
+forward and backward.
+
+Takes rows sorted by group plus the group sizes and runs one of two
+lowerings, resolved by ``engine.resolve_fused`` as for the dense GEMM:
+
+  * **fused** (``plan.fused``): the plan's
+    :class:`~repro_torch.core.schedule.GroupedTileSchedule` turns
+    ``group_sizes`` into a runtime tile table on the device and ONE
+    ``grouped_fused`` launch walks the ragged expert row blocks: no padded
+    intermediate, no gather-back;
+  * **pad/scatter**: pad each group to a ``bm`` multiple, build the
+    block -> expert map, ONE ``grouped_padded`` launch over the static
+    grid, gather the rows back out (the scatter and the gather are device
+    torch ops, as they are jnp ops outside the kernel in the reference).
+
+Either counts one launch.  The backward family ``grouped_gemm_bwd`` is ONE
+``grouped_bwd`` launch over the same tables.  Gradients flow through
+:class:`_GroupedFn` (the reference's ``_grouped_vjp``): its forward is the
+engine dispatch; its backward peels the activation off by recomputing the
+pre-activation through the engine, then runs the backward kernel, or, where
+:func:`~repro_torch.core.blocking.grouped_bwd_fused_legal` fails (or under
+``fused="off"``), differentiates :func:`_ref_grouped` in torch.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core.blocking import (GroupedGemmPlan,
+                                       grouped_bwd_fused_legal, plan_grouped,
+                                       plan_grouped_bwd)
+from repro_torch.core.config import get_config, use
+from repro_torch.core.descriptor import (GroupedGemmBwdDescriptor,
+                                         GroupedGemmDescriptor, check_bias)
+from repro_torch.core.schedule import plan_launches
+from repro_torch.kernels import disable_tf32
+from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
+from repro_torch.kernels.grouped_gemm.kernel import (grouped_bwd,
+                                                     grouped_fused,
+                                                     grouped_padded)
+from repro_torch.kernels.grouped_gemm.ref import expert_offsets, row_experts
+
+
+def plan_groups(group_sizes: torch.Tensor, num_experts: int, bm: int,
+                t_padded: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Row offsets per group after padding each group to a bm multiple.
+
+    Returns int32 ``(padded_offsets (E+1,), block_expert (nb,), nrows
+    (1,))``, device ops on group_sizes' device, no host sync.
+    """
+    sizes = group_sizes.long()
+    padded = ((sizes + bm - 1) // bm) * bm
+    offsets = expert_offsets(padded)
+    block_row = torch.arange(t_padded // bm, device=sizes.device) * bm
+    block_expert = torch.clamp(
+        torch.searchsorted(offsets, block_row, right=True) - 1,
+        0, num_experts - 1)
+    return (offsets.to(torch.int32), block_expert.to(torch.int32),
+            offsets[-1:].to(torch.int32))
+
+
+def scatter_rows(x_sorted_by_group, group_sizes, offsets, bm, t_padded):
+    """Place each group's rows at its padded offset (zeros between);
+    returns ``(x_padded, dest)``."""
+    t = x_sorted_by_group.shape[0]
+    src_off = expert_offsets(group_sizes)
+    grp, _ = row_experts(group_sizes, t)
+    row = torch.arange(t, device=src_off.device)
+    dest = offsets.long()[grp] + (row - src_off[grp])
+    out = torch.zeros((t_padded, x_sorted_by_group.shape[1]),
+                      dtype=x_sorted_by_group.dtype,
+                      device=x_sorted_by_group.device)
+    out[dest] = x_sorted_by_group
+    return out, dest
+
+
+def _execute_fused(desc, plan, x, w, group_sizes, bias):
+    """Single scheduled launch: runtime tables, direct ragged stores."""
+    table = plan.tile_schedule().tables(group_sizes)
+    return grouped_fused(table, x, w, bias, bm=plan.bm, bn=plan.bn,
+                         epilogue=desc.epilogue)
+
+
+def _execute_padded(desc, plan, x, w, group_sizes, bias):
+    """Pad/scatter lowering: pad groups to bm multiples, gather back."""
+    bm, t_padded = plan.bm, plan.t_padded
+    offsets, block_expert, nrows = plan_groups(group_sizes, desc.num_experts,
+                                               bm, t_padded)
+    x_padded, dest = scatter_rows(x, group_sizes, offsets, bm, t_padded)
+    out_padded = grouped_padded(x_padded, w, block_expert, nrows, bias, bm=bm,
+                                bn=plan.bn, epilogue=desc.epilogue)
+    # back to the caller's (sorted, unpadded) row order; rows past
+    # sum(group_sizes) belong to no group -> zero (matches the oracle)
+    _, valid = row_experts(group_sizes, desc.t)
+    return torch.where(valid[:, None], out_padded[dest], 0).to(x.dtype)
+
+
+def _contiguous(*ts):
+    return tuple(None if t is None else t.contiguous() for t in ts)
+
+
+def execute(desc: GroupedGemmDescriptor, plan: GroupedGemmPlan, x, w,
+            group_sizes, *, bias=None) -> torch.Tensor:
+    """Engine executor: run one planned grouped GEMM (either lowering)."""
+    check_bias(desc.epilogue, bias)
+    fused = engine.resolve_fused(plan)
+    engine.count_launches("grouped_gemm", plan_launches(plan, fused=fused))
+    x, w, bias = _contiguous(x, w, bias)
+    run = _execute_fused if fused else _execute_padded
+    return run(desc, plan, x, w, group_sizes, bias)
+
+
+engine.register_family("grouped_gemm", planner=plan_grouped, execute=execute)
+
+
+def execute_bwd(desc: GroupedGemmBwdDescriptor, plan: GroupedGemmPlan, x, dy,
+                w, group_sizes):
+    """Engine executor: one planned grouped-GEMM backward -> fp32 ``(dX,
+    dW, db or None)``.  ``dy`` is the pre-epilogue cotangent.  Single
+    lowering, the scheduled walk: an illegal backward never reaches the
+    engine (:class:`_GroupedFn` differentiates the reference first)."""
+    engine.count_launches("grouped_gemm_bwd", 1)
+    table = plan.tile_schedule().tables(group_sizes)
+    x, dy, w = _contiguous(x, dy.float(), w)
+    return grouped_bwd(table, x, dy, w, group_sizes, bm=plan.bm,
+                       with_db=needs_bias(desc.epilogue))
+
+
+engine.register_family("grouped_gemm_bwd", planner=plan_grouped_bwd,
+                       execute=execute_bwd)
+
+
+def _act_name(epilogue: Optional[str]) -> Optional[str]:
+    """The activation half of an epilogue name (None when linear)."""
+    if epilogue is None or epilogue == "bias":
+        return None
+    return epilogue.split("_")[-1]
+
+
+def _ref_grouped(epilogue, x, w, group_sizes, bias):
+    """Epilogue-aware plain version, differentiable by autograd: the
+    oracle the backward falls back to when the scheduled backward is not
+    legal.  Expert by expert in fp32 (sizes read on the host), so any size
+    fits; rows past ``sum(group_sizes)`` are zero whatever the epilogue."""
+    if x.is_cuda:
+        disable_tf32()
+    offsets = expert_offsets(group_sizes).tolist()
+    parts = []
+    for e in range(w.shape[0]):
+        r0, r1 = offsets[e], offsets[e + 1]
+        if r1 > r0:
+            acc = x[r0:r1].float() @ w[e].float()
+            parts.append(apply_epilogue(acc, epilogue,
+                                        None if bias is None else bias[e]))
+    tail = x.shape[0] - offsets[-1]
+    parts.append(x.new_zeros((tail, w.shape[2]), dtype=torch.float32))
+    return torch.cat(parts).to(x.dtype)
+
+
+def _grouped_dispatch(epilogue, x, w, group_sizes, bias):
+    """The engine-dispatched forward (primal path)."""
+    desc = GroupedGemmDescriptor.from_operands(x, w, epilogue=epilogue)
+    return engine.dispatch(desc, x, w, group_sizes, bias=bias)
+
+
+class _GroupedFn(torch.autograd.Function):
+    """Differentiable grouped GEMM (the reference's ``_grouped_vjp``).  The
+    backward branch is decided in the forward, under the configuration in
+    force there, and kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, epilogue, x, w, group_sizes, bias):
+        cfg = get_config()
+        desc = GroupedGemmDescriptor.from_operands(x, w, epilogue=epilogue)
+        ctx.fused = (cfg.fused != "off" and grouped_bwd_fused_legal(
+            GroupedGemmBwdDescriptor.from_forward(desc), cfg.machine))
+        ctx.epilogue = epilogue
+        ctx.save_for_backward(x, w, group_sizes, bias)
+        return engine.dispatch(desc, x, w, group_sizes, bias=bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, group_sizes, bias = ctx.saved_tensors
+        epilogue = ctx.epilogue
+        if ctx.fused:
+            dpre = g.float()
+            act = _act_name(epilogue)
+            if act is not None:
+                # Peel the activation off: recompute the pre-activation
+                # through the engine with the activation stripped, then
+                # pull g through the activation alone (in fp32, the
+                # cotangent back in the pre-activation's dtype).
+                biased = needs_bias(epilogue)
+                pre = _grouped_dispatch("bias" if biased else None, x, w,
+                                        group_sizes, bias if biased else None)
+                pre = pre.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    y = apply_epilogue(pre.float(), act)
+                    dpre = torch.autograd.grad(y, pre, dpre)[0]
+            bdesc = GroupedGemmBwdDescriptor.from_forward(
+                GroupedGemmDescriptor.from_operands(x, w, epilogue=epilogue))
+            dx, dw, db = engine.dispatch(bdesc, x, dpre, w, group_sizes)
+            db = db.to(bias.dtype) if needs_bias(epilogue) else None
+        else:
+            leaves = [t.detach().requires_grad_(True) for t in (x, w)]
+            if bias is not None:
+                leaves.append(bias.detach().requires_grad_(True))
+            with torch.enable_grad():
+                out = _ref_grouped(epilogue, leaves[0], leaves[1],
+                                   group_sizes,
+                                   leaves[2] if bias is not None else None)
+                grads = torch.autograd.grad(out, leaves, g.to(x.dtype))
+            dx, dw = grads[0], grads[1]
+            db = grads[2] if bias is not None else None
+        return None, dx.to(x.dtype), dw.to(w.dtype), None, db
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                 *, epilogue: Optional[str] = None,
+                 bias: Optional[torch.Tensor] = None,
+                 bm: Optional[int] = None, bk: Optional[int] = None,
+                 bn: Optional[int] = None, fused: Optional[bool] = None,
+                 quant=None) -> torch.Tensor:
+    """Ragged grouped GEMM via the engine.
+
+    x: (T, K) rows sorted by group; w: (E, K, N); group_sizes: (E,) int
+    (runtime data, sum <= T).  Returns (T, N): row i multiplied by its
+    group's weight; rows beyond sum(group_sizes) are zero.  ``epilogue``
+    fuses the GEMM tail (``bias`` is per expert, (E, N));
+    ``bm``/``bk``/``bn`` pin the tiling and ``fused=True/False`` the
+    lowering for this call (pinned calls are not differentiable, as in
+    the reference).  With gradients on, the default call flows through
+    :class:`_GroupedFn` onto the backward kernel.  The quantized axis is
+    not ported: ``quant`` must be None or False.
+    """
+    if quant not in (None, False):
+        raise NotImplementedError("the grouped GEMM quant axis is not ported")
+    check_bias(epilogue, bias)
+    desc = GroupedGemmDescriptor.from_operands(x, w, epilogue=epilogue)
+    plan = None
+    if bm is not None or bk is not None or bn is not None:
+        # Fill unpinned knobs from the (cached) engine plan.
+        auto = engine.plan_for(desc)
+        plan = GroupedGemmPlan(desc, bm or auto.bm, bk or auto.bk,
+                               bn or auto.bn, fused=auto.fused)
+    if plan is None and fused is None:
+        ops = (x, w) if bias is None else (x, w, bias)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+            return _GroupedFn.apply(epilogue, x, w, group_sizes, bias)
+        return engine.dispatch(desc, x, w, group_sizes, bias=bias)
+    if fused is None:
+        return engine.dispatch(desc, x, w, group_sizes, plan=plan, bias=bias)
+    with use(fused="on" if fused else "off"):
+        return engine.dispatch(desc, x, w, group_sizes, plan=plan, bias=bias)

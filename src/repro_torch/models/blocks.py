@@ -1,17 +1,18 @@
 """Residual blocks and the layer stack.
 
 A block is norm -> mixer -> residual, then (where the model has one)
-norm -> MLP -> residual.  Mixer kinds ported: "attn" (global attention)
-and "ssm" (Mamba-2 SSD); the layer at depth ``i`` has kind
-``block_pattern[i % len(block_pattern)]``.  The stack is an
-``nn.ModuleList`` run in a Python loop (the reference scans stacked
-parameters; the port runs eagerly).  Other kinds ("rec", "local"), MoE
-and cross-attention raise.
+norm -> MLP or mixture of experts -> residual.  Mixer kinds ported:
+"attn" (global attention) and "ssm" (Mamba-2 SSD); the layer at depth
+``i`` has kind ``block_pattern[i % len(block_pattern)]``.  The stack is
+an ``nn.ModuleList`` run in a Python loop (the reference scans stacked
+parameters; the port runs eagerly) and sums the blocks' MoE auxiliary
+losses.  Other kinds ("rec", "local") and cross-attention raise.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
+import torch
 from torch import nn
 
 from repro_torch.core.machine import torch_dtype
@@ -20,6 +21,7 @@ from repro_torch.models.attention import (Attention, KVCache, PagedKVCache,
                                           paged_step)
 from repro_torch.models.common import Init, make_norm
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssd import SSD, init_ssm_state
 
 
@@ -28,7 +30,8 @@ def check_ported(cfg) -> None:
     unported = {
         "block kinds other than 'attn' and 'ssm'":
             not set(cfg.block_pattern) <= {"attn", "ssm"},
-        "mixture of experts": cfg.num_experts > 0,
+        "mixture of experts without top-k routing (num_experts_per_tok < 1)":
+            cfg.num_experts > 0 and cfg.num_experts_per_tok < 1,
         "encoder-decoder": cfg.encoder_decoder,
         "modality frontends": cfg.modality is not None,
         "sliding-window attention": cfg.attn_window is not None,
@@ -53,13 +56,14 @@ class Block(nn.Module):
         self.mixer = SSD(cfg, init) if kind == "ssm" else Attention(cfg, init)
         if cfg.block_has_mlp:
             self.norm_ff = make_norm(cfg.norm_type, cfg.d_model, init)
-            self.ff = MLP(cfg, init)
+            self.ff = MoE(cfg, init) if cfg.num_experts else MLP(cfg, init)
 
     def forward(self, x, positions, *, cache: Optional[KVCache] = None,
                 step=None):
-        """Returns (x, cache); ``step`` is a paged decode step's
+        """Returns (x, cache, aux_loss); ``step`` is a paged decode step's
         :class:`~repro_torch.models.attention.PagedStep`.  An "ssm" block's
-        cache is its :class:`~repro_torch.models.ssd.SSMState`."""
+        cache is its :class:`~repro_torch.models.ssd.SSMState`; aux_loss is
+        the MoE load-balancing loss (zero without experts)."""
         cfg = self.cfg
         h = self.norm_mix(x, cfg.norm_eps)
         if self.kind == "ssm":
@@ -67,9 +71,15 @@ class Block(nn.Module):
         else:
             y, cache = self.mixer(h, positions, cache=cache, step=step)
         x = x + y
+        aux = torch.zeros((), device=x.device)
         if cfg.block_has_mlp:
-            x = x + self.ff(self.norm_ff(x, cfg.norm_eps))
-        return x, cache
+            h = self.norm_ff(x, cfg.norm_eps)
+            if cfg.num_experts:
+                y, aux = self.ff(h)
+            else:
+                y = self.ff(h)
+            x = x + y
+        return x, cache, aux
 
 
 def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
@@ -80,14 +90,19 @@ def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
     pages, so the layers share one block-table tensor); for "ssm" layers
     a dense slot-major :class:`~repro_torch.models.ssd.SSMState`, O(1) in
     the sequence length.  Paged pools are refused for a model with any
-    "ssm" layer: the continuous runtime does not carry plain state leaves
-    yet."""
+    "ssm" layer (the continuous runtime does not carry plain state leaves
+    yet) and for a mixture of experts (continuous MoE is not held to the
+    reference yet)."""
     dt = torch_dtype(cfg.kv_cache_dtype)
     kinds = layer_kinds(cfg)
     if paged is not None and set(kinds) != {"attn"}:
         raise NotImplementedError(
             f"{cfg.name}: paged serving caches hold attention KV only; "
             f"continuous batching of SSM state leaves is not ported")
+    if paged is not None and cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: continuous batching of a mixture of experts is "
+            f"not ported")
     if paged is not None:
         leaves = [init_paged_kv_cache(batch, paged, cfg.num_kv_heads,
                                       cfg.head_dim, dt, device)
@@ -102,15 +117,19 @@ def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
 
 
 def stack_apply(blocks: nn.ModuleList, x, positions, *, cache=None):
-    """Run every block in order; returns (x, caches or None).  A paged
-    decode step's per-slot state is built once, for every layer."""
+    """Run every block in order; returns (x, caches or None, the sum of
+    the blocks' aux losses).  A paged decode step's per-slot state is
+    built once, for every layer."""
     new_cache = [] if cache is not None else None
     step = paged_step(cache[0], positions) \
         if cache and isinstance(cache[0], PagedKVCache) else None
+    aux_total = torch.zeros((), device=x.device)
     for i, block in enumerate(blocks):
-        x, c = block(x, positions, cache=None if cache is None else cache[i],
-                     step=step)
+        x, c, aux = block(x, positions,
+                          cache=None if cache is None else cache[i],
+                          step=step)
+        aux_total = aux_total + aux
         if new_cache is not None:
             new_cache.append(c)
-    return x, new_cache
+    return x, new_cache, aux_total
 

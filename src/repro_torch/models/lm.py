@@ -42,7 +42,8 @@ class LanguageModel(nn.Module):
     def forward(self, tokens, *, positions=None, cache=None,
                 logits_mode="all"):
         """tokens: (b, s) integer ids.  ``logits_mode="last"`` unembeds only
-        the final position.  Returns (logits, new_cache, aux_loss)."""
+        the final position.  Returns (logits, new_cache, aux_loss), the
+        last the sum of the MoE layers' load-balancing losses."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         s = tokens.shape[1]
@@ -51,7 +52,8 @@ class LanguageModel(nn.Module):
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
-        x, new_cache = stack_apply(self.blocks, x, positions, cache=cache)
+        x, new_cache, aux = stack_apply(self.blocks, x, positions,
+                                        cache=cache)
         x = self.final_norm(x, cfg.norm_eps)
         if logits_mode == "last":
             x = x[:, -1:]
@@ -63,7 +65,7 @@ class LanguageModel(nn.Module):
         if cfg.final_logit_softcap:
             cap = cfg.final_logit_softcap
             logits = torch.tanh(logits / cap) * cap
-        return logits, new_cache, torch.zeros((), device=tokens.device)
+        return logits, new_cache, aux
 
     # The reference's name for the forward pass.  (It shadows
     # nn.Module.apply(fn); the port never applies functions to submodules.)

@@ -75,7 +75,7 @@ def train(step_fn: Callable, model, opt_state, batch_fn: Callable[[int], Any],
     """Run ``step_fn(model, opt_state, batch, step) -> metrics`` from
     ``start_step`` to ``loop_cfg.total_steps``, checkpointing every
     ``save_every`` steps and at the end (unless that step was just
-    saved)."""
+    saved); ``save_every=0`` writes no checkpoint."""
     mgr = CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.save_every,
                             loop_cfg.max_to_keep)
     stats = StragglerStats()
@@ -98,10 +98,10 @@ def train(step_fn: Callable, model, opt_state, batch_fn: Callable[[int], Any],
                        or step == loop_cfg.total_steps - 1):
             log_fn(step, scalars)
         step += 1
-        if mgr.maybe_save(step, _state_tree(model, opt_state),
-                          meta={"data_step": step}):
+        if loop_cfg.save_every and mgr.maybe_save(
+                step, _state_tree(model, opt_state), meta={"data_step": step}):
             saved = step
-    if saved != step:
+    if loop_cfg.save_every and saved != step:
         mgr.maybe_save(step, _state_tree(model, opt_state),
                        meta={"data_step": step}, force=True)
     mgr.wait()

@@ -159,8 +159,8 @@ def test_ssd_shared_memory_fits_h100_at_the_limits(q, n, p):
 
 def test_every_kernel_source_is_built():
     assert sorted(_build.sources()) == ["flash_bwd", "flash_decode",
-                                        "flash_fwd", "gemm", "ssd_scan",
-                                        "ssd_scan_bwd"]
+                                        "flash_fwd", "gemm", "grouped",
+                                        "ssd_scan", "ssd_scan_bwd"]
 
 
 def test_h100_flash_blocks_within_kernel_limits():
