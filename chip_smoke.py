@@ -8,7 +8,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device  -- the card's name, the device count and nvidia-smi's name and
                 power limit; no CUDA device is a failure;
   2. build   -- nvcc builds every kernel source in the checkout;
-  3. kernels -- each of the twelve kernels against its plain torch version on
+  3. kernels -- each of the sixteen kernels against its plain torch version on
                 the card, at the full-width main-path shapes of Qwen3-0.6B (serving:
                 batch 4, prompt 256; training: batch 8, sequence 128;
                 continuous decode: 8 slots over a paged pool), of
@@ -24,7 +24,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
                 decode) and on ragged cases with an empty expert, whose dW
-                must be exactly zero;
+                must be exactly zero; then the transpose (fig89's panel,
+                Qwen3's tied table, a ragged batch read from a padded view
+                holding NaN: bit-exact), the quantized GEMM (Qwen3's seven
+                projection shapes at decode and prefill rows under W8A16,
+                int8 and fp8), paged decode over KV-int8 pools and the
+                quantized grouped GEMM (phi3.5-moe's expert shapes, int8);
+     gemm_transpose -- §IV-C: gemm(a, b, layout="nt") against the two passes
+                gemm(a, transpose(b)) at fig89's shape and Qwen3's tied
+                read-out; one transpose launch a two-pass call;
   4. serve   -- full-width Qwen3-0.6B (seeded random weights) through
                 ``generate`` on the engine backend, fused="auto": batch 4,
                 prompt 256, 16 new tokens; launch counts must equal what
@@ -44,6 +52,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the count, the static-path oracle, one decode step's
                 logits against the static dense path's, and a profile of
                 two decode steps;
+     continuous_quant -- the same model quantized W8A16 in place
+                (quantize_model) with KV-int8 pools (PageSpec(kv_quant=
+                "int8")) on the same trace: every request finishes, every
+                projection runs gemm_quant and every decode layer
+                flash_decode_int8; one decode step's logits engine vs
+                torch; the share of tokens equal to the wide run printed;
      reduced -- reduced_config(qwen3-0.6b) in fp32: engine and torch give
                 identical greedy tokens, and a continuous run with an
                 eviction gives the static path's tokens; reduced_config(
@@ -77,6 +91,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 routings that differ between the backends counted, and
                 layer 0's MoE input through both backends' moe_apply;
      serve_moe_off -- the same under fused="off": grouped_padded only;
+     serve_moe_quant -- the same under use(quant="int8"): three
+                grouped_quant launches a layer a forward, logits against the
+                torch backend (wide einsums, routing replayed), the gap to
+                the wide logits printed;
      train_moe -- the same widths at 2 layers, 4 steps of 8 x 128 through
                 run_with_restarts, no checkpoint: four grouped_fused (the
                 gate's pre-activation recomputed) and three grouped_bwd
@@ -109,8 +127,10 @@ LSE_TOL = 1e-4
 # Prefill last-position logits, engine vs torch backend (both bf16): the
 # largest difference may be at most this fraction of the logits' range.
 LOGIT_BOUND = 0.05
-PEAK = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM data sheet, dense
-HBM_BPS = 3.35e12
+# int8 rows (f32 outputs) against their plain versions: exact int32 sums
+# and the same dequant products; only the epilogue's transcendentals
+# differ, in the last fp32 bits.
+QUANT_I8_TOL = 1e-5
 
 # Training: the reference CLI's defaults (batch 8, sequence 128, peak lr
 # 3e-3 with warmup_cosine over the run), 4 steps, a checkpoint every 2.
@@ -154,6 +174,28 @@ def emit(**kw):
     print(json.dumps(kw), flush=True)
 
 
+def peak(dtype_name: str) -> float:
+    """The H100 SXM dense peak of a dtype, operations per second, from the
+    port's machine model (``H100_SXM``: NVIDIA's data-sheet figures)."""
+    from repro_torch.core.machine import H100_SXM
+    return H100_SXM.peak(dtype_name)
+
+
+def hbm() -> float:
+    """The H100 SXM's HBM3 rate, bytes per second (``H100_SXM.hbm_bw``)."""
+    from repro_torch.core.machine import H100_SXM
+    return H100_SXM.hbm_bw
+
+
+def bound(nbytes: float, ops: float, dtype_name: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the dtype's peak."""
+    op_ms = ops / peak(dtype_name) * 1e3
+    byte_ms = nbytes / hbm() * 1e3
+    return dict(op_ms=op_ms, byte_ms=byte_ms, bound_ms=max(op_ms, byte_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations")
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -185,10 +227,13 @@ def main():
          sources=sorted(_build.sources()))
 
     results = phase_kernels(torch)
+    counts_transpose = phase_gemm_transpose(torch)
     counts_on, model, prompts, logits = phase_serve(torch)
     counts_off = phase_serve_off(torch, model, prompts, logits)
     phase_profile(torch, model, prompts)
-    counts_cont = phase_continuous(torch, model)
+    counts_cont, wide_cont = phase_continuous(torch, model)
+    # Quantizes the serving model in place: the last phase to use it.
+    counts_cont_quant = phase_continuous_quant(torch, model, wide_cont)
     del model, logits  # free the serving model before training
     phase_reduced(torch)
     torch.cuda.empty_cache()
@@ -203,6 +248,7 @@ def main():
     torch.cuda.empty_cache()
     counts_moe, model, prompts, logits = phase_serve_moe(torch)
     counts_moe_off = phase_serve_moe_off(torch, model, prompts, logits)
+    counts_moe_quant = phase_serve_moe_quant(torch, model, prompts, logits)
     del model, logits
     torch.cuda.empty_cache()
     # Training: 2 layers, no checkpoint (parameters, m and v would be a 34
@@ -216,7 +262,10 @@ def main():
                "serve_ssm": counts_ssm, "serve_ssm_off": counts_ssm_off,
                "train_ssm": counts_train_ssm, "serve_moe": counts_moe,
                "serve_moe_off": counts_moe_off,
-               "train_moe": counts_train_moe}
+               "train_moe": counts_train_moe,
+               "gemm_transpose": counts_transpose,
+               "continuous_quant": counts_cont_quant,
+               "serve_moe_quant": counts_moe_quant}
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -286,6 +335,20 @@ KERNELS = {
                        "src/repro/kernels/grouped_gemm/kernel.py:417"),
     "grouped_bwd": ("src/repro_torch/kernels/grouped_gemm/csrc/grouped.cu",
                     "src/repro/kernels/grouped_gemm/kernel.py:313"),
+    # The quant branches of kernels 1, 6 and 7 (their reference function
+    # with quant= / kv_quant=True), each its own row: their bounds take the
+    # int8 / e4m3 peaks and the wire bytes.
+    "gemm_quant": ("src/repro_torch/kernels/gemm/csrc/gemm_quant.cu",
+                   "src/repro/kernels/gemm/kernel.py:266"),
+    "flash_decode_int8": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_attention/kernel.py:358"),
+    "grouped_quant": (
+        "src/repro_torch/kernels/grouped_gemm/csrc/grouped_quant.cu",
+        "src/repro/kernels/grouped_gemm/kernel.py:138"),
+    "transpose": ("src/repro_torch/kernels/transpose/csrc/transpose.cu",
+                  "src/repro/kernels/transpose/kernel.py:31",
+                  "x.transpose(-2, -1).contiguous()"),
 }
 
 
@@ -309,9 +372,11 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(torch, out, ref, dtype_name):
+def compare(torch, out, ref, dtype_name, tol=None):
+    """Element-wise atol = rtol = ``tol`` (the dtype's TOL by default):
+    (max abs error, max relative to the largest |ref|, mismatches, tol)."""
     diff = (out.float() - ref.float()).abs()
-    tol = TOL[dtype_name]
+    tol = TOL[dtype_name] if tol is None else tol
     bad = diff > tol + tol * ref.float().abs()
     if not torch.isfinite(out.float()).all():
         fail("kernel output is not finite")
@@ -435,8 +500,8 @@ def run_gemm_case(torch, case, gen):
     isz = 2 if dname == "bfloat16" else 4
     nbytes = isz * (nbx * (m * k + k * n + m * n * (2 if acc else 1))
                     + (n if bias is not None else 0))
-    op_ms = 2 * nbx * m * n * k / PEAK[dname] * 1e3
-    byte_ms = nbytes / HBM_BPS * 1e3
+    op_ms = 2 * nbx * m * n * k / peak(dname) * 1e3
+    byte_ms = nbytes / hbm() * 1e3
     lib_ms = time_ms(torch, library, 20)
     rows = []
     for kname, kern, plain, out_k, out_p in (
@@ -497,8 +562,8 @@ def run_flash_case(torch, case, gen):
         return F.scaled_dot_product_attention(q[None], k[None], v[None],
                                               is_causal=causal)
 
-    op_ms = desc.flops / PEAK[dname] * 1e3
-    byte_ms = (desc.in_bytes + desc.out_bytes) / HBM_BPS * 1e3
+    op_ms = desc.flops / peak(dname) * 1e3
+    byte_ms = (desc.in_bytes + desc.out_bytes) / hbm() * 1e3
     lib_ms = time_ms(torch, library, 20)
     rows = []
     for kname, kern, plain in (
@@ -564,8 +629,8 @@ def run_flash_bwd_case(torch, case, gen):
     rows = []
 
     def row(kname, errs, tol, ms, plain_ms, lib_ms, nbytes, flops):
-        op_ms = flops / PEAK[dname] * 1e3
-        byte_ms = nbytes / HBM_BPS * 1e3
+        op_ms = flops / peak(dname) * 1e3
+        byte_ms = nbytes / hbm() * 1e3
         r = dict(phase="kernel", kernel=kname, case=label,
                  main_path=main_path, shape=[bh, sq, sk, d], causal=causal,
                  dtype=dname, blocks=[exe.schedule.bq, exe.schedule.bk],
@@ -683,8 +748,8 @@ def run_decode_case(torch, case, gen):
     live_pages = sum(-(-L // P) for L in lengths)
     nbytes = isz * (2 * sum(lengths) * hkv * hd + 2 * S * h * hd) \
         + 4 * (live_pages + S)
-    op_ms = 4 * h * hd * sum(lengths) / PEAK[dname] * 1e3
-    byte_ms = nbytes / HBM_BPS * 1e3
+    op_ms = 4 * h * hd * sum(lengths) / peak(dname) * 1e3
+    byte_ms = nbytes / hbm() * 1e3
     row = dict(phase="kernel", kernel="flash_decode", case=label,
                main_path=main_path, shape=[S, h, hkv, hd, P],
                lengths=list(lengths), dtype=dname, max_abs_err=max_abs,
@@ -771,7 +836,7 @@ def _ssd_bound(kind, shape, dtypes, states=False):
     cb, xb = dtypes[0] == "bfloat16", dtypes[2] == "bfloat16"
 
     def ops_ms(*terms):  # (flops, both operands bf16)
-        return sum(f / PEAK["bfloat16" if bf else "float32"]
+        return sum(f / peak("bfloat16" if bf else "float32")
                    for f, bf in terms) * 1e3
 
     cell_in = 2 * q * n * ci + q * q * li + q * p * xi
@@ -793,7 +858,7 @@ def _ssd_bound(kind, shape, dtypes, states=False):
         op = ops_ms((cells * 2 * q * q * n, cb),
                     (cells * (2 * q * q * (2 * n + 2 * p) + 10 * q * n * p),
                      False))
-    return nbytes / HBM_BPS * 1e3, op
+    return nbytes / hbm() * 1e3, op
 
 
 def run_ssd_case(torch, case, gen):
@@ -1024,7 +1089,7 @@ def run_grouped_case(torch, case, gen):
     nbytes = isz * (total * k + panels + t * n
                     + (sum(1 for sz in sizes if sz) * n if biased else 0))
     flops = 2 * total * k * n
-    op_ms, byte_ms = flops / PEAK[dname] * 1e3, nbytes / HBM_BPS * 1e3
+    op_ms, byte_ms = flops / peak(dname) * 1e3, nbytes / hbm() * 1e3
     lib_ms = time_ms(torch, lib_fwd, 5)
     base = dict(phase="kernel", case=label, main_path=main_path,
                 group_sizes=sizes, rows=t, k=k, n=n, epilogue=epi,
@@ -1074,10 +1139,10 @@ def run_grouped_case(torch, case, gen):
     # dx and dw: 4 x rows x K x N products, each with the fp32 cotangent
     # as an operand; bytes: x, dy, the touched panels in, dx, every dW
     # (empty experts' zeros too) and db out.
-    b_op_ms = 2 * flops / PEAK["float32"] * 1e3
+    b_op_ms = 2 * flops / peak("float32") * 1e3
     b_bytes = isz * (total * k + panels) + 4 * (
         total * n + t * k + e * k * n + (e * n if biased else 0))
-    b_byte_ms = b_bytes / HBM_BPS * 1e3
+    b_byte_ms = b_bytes / hbm() * 1e3
     row = dict(base, kernel="grouped_bwd", library=lib_bwd_name,
                max_abs_err=max(v[0] for v in errs.values()),
                errors={k_: v[0] for k_, v in errs.items()},
@@ -1102,6 +1167,387 @@ def run_grouped_case(torch, case, gen):
     return rows
 
 
+def transpose_cases():
+    """(label, (nb, rows, cols), dtype, padded source view, main): the
+    §IV-C panel at fig89's shape, Qwen3-0.6B's tied table (the read-out's
+    B, 151,936 x 1,024 bf16, 311 MB each way) and a ragged batched case
+    read from a padded view whose padding holds NaN."""
+    return [("fig89_256x512", (1, 256, 512), "float32", False, True),
+            ("qwen3_tied_table", (1, 151936, 1024), "bfloat16", False, True),
+            ("ragged_batched_padded", (3, 1000, 777), "float32", True,
+             False)]
+
+
+def run_transpose_case(torch, case, gen):
+    """transpose_tiles at the planned tile edge against its plain version:
+    bit-exact, nothing read past the view's extent; the library is
+    ``x.transpose(-2, -1).contiguous()``."""
+    from repro_torch.core import TransposeDescriptor, plan_transpose
+    from repro_torch.kernels.transpose.kernel import (transpose_plain,
+                                                      transpose_tiles)
+    label, (nb, rows, cols), dname, padded, main_path = case
+    dt = getattr(torch, dname)
+    data = torch.randn((nb, rows, cols), generator=gen, device="cuda").to(dt)
+    if padded:
+        base = torch.full((nb, rows + 5, cols + 11), float("nan"),
+                          device="cuda", dtype=dt)
+        x = base[:, :rows, :cols]
+        x.copy_(data)
+    else:
+        x = data
+    bt = plan_transpose(TransposeDescriptor(rows=rows, cols=cols, dtype=dname,
+                                            batch=nb)).bt
+    got, want = transpose_tiles(x, bt=bt), transpose_plain(x, bt=bt)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, want))
+    nan = bool(torch.isnan(got.float()).any())
+    row = dict(phase="kernel", kernel="transpose", case=label,
+               main_path=main_path, shape=[nb, rows, cols], dtype=dname,
+               tile=bt, padded_view=padded,
+               max_abs_err=(got.float() - want.float()).abs().max().item(),
+               bit_exact=exact, nan_in_output=nan,
+               ms=time_ms(torch, lambda: transpose_tiles(x, bt=bt), 20),
+               plain_ms=time_ms(torch, lambda: transpose_plain(x, bt=bt), 3),
+               library_ms=time_ms(
+                   torch, lambda: x.transpose(-2, -1).contiguous(), 20),
+               library="x.transpose(-2, -1).contiguous()",
+               **bound(2 * nb * rows * cols * x.element_size(), 0, dname))
+    emit(**row)
+    if not exact or nan:
+        fail(f"transpose {label}: not bit-exact against its plain version "
+             f"(or NaN from outside the view reached the output)")
+    return [row]
+
+
+QUANT_COMPUTE = {"int8": "int8", "fp8": "float8_e4m3"}
+
+
+def gemm_quant_cases():
+    """(label, mode, m, n, k, layout, epilogue, A dtype, out dtype, main):
+    Qwen3-0.6B's seven projection shapes (q 1024 -> 2048, k / v 1024 ->
+    1024, o 2048 -> 1024, gate (silu) and up 1024 -> 3072, down 3072 ->
+    1024) at the continuous phase's decode rows (8 slots) and a 256-token
+    prefill, under W8A16 (the continuous_quant path: bf16 A, int8 B, bf16
+    out), int8 and fp8 (A quantized from bf16; int8 with fp32 outputs, so
+    that its exactness shows); then ragged cases: nt with a bias, and
+    W8A16 with fp32 activations."""
+    d, q, kv, ff = 1024, 2048, 1024, 3072
+    shapes = [("q", q, d, None), ("kv", kv, d, None), ("o", d, q, None),
+              ("gate_silu", ff, d, "silu"), ("up", ff, d, None),
+              ("down", d, ff, None)]
+    cases = []
+    for mode in ("w8a16", "int8", "fp8"):
+        out = "float32" if mode == "int8" else "bfloat16"
+        for stage, m in (("decode", CONT_SLOTS), ("prefill", PROMPT)):
+            cases += [(f"{mode}_{stage}_{name}", mode, m, n, k, "nn", epi,
+                       "bfloat16", out, True) for name, n, k, epi in shapes]
+    cases += [
+        ("int8_ragged_bias_gelu_nt", "int8", 300, 200, 129, "nt",
+         "bias_gelu", "bfloat16", "float32", False),
+        ("fp8_ragged_bias_silu_nt", "fp8", 77, 130, 100, "nt", "bias_silu",
+         "bfloat16", "bfloat16", False),
+        ("w8a16_f32_ragged_relu", "w8a16", 77, 130, 100, "nn", "relu",
+         "float32", "float32", False),
+    ]
+    return cases
+
+
+def _first_working(torch, candidates):
+    """(name, fn) of the first candidate PyTorch call that runs on these
+    operands, else (None, None)."""
+    for name, fn in candidates:
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return name, fn
+        except (RuntimeError, TypeError, ValueError, NotImplementedError):
+            continue
+    return None, None
+
+
+def _quant_gemm_library(torch, mode, a, aq, bq, sa, sb, epi, bias, layout,
+                        out_dt):
+    """One PyTorch call for the same function: ``torch._int_mm`` plus the
+    dequant epilogue (int8), ``torch._scaled_mm`` with row and column
+    scales (e4m3), ``torch.matmul`` on the bf16-cast weight times ``sb``
+    (W8A16).  ``_int_mm`` and ``_scaled_mm`` take at least 17 and 16 rows:
+    a decode A is zero-padded to 32 rows (the name says so)."""
+    from repro_torch.kernels.epilogue import apply_epilogue
+    m = a.shape[0]
+    b_kn = bq if layout == "nn" else bq.t()
+    if mode == "w8a16":
+        bw = b_kn.to(a.dtype).contiguous()
+
+        def w8a16():
+            return apply_epilogue(torch.matmul(a, bw).float(), epi, bias,
+                                  sb[None, :]).to(out_dt)
+        return _first_working(torch, [(
+            "torch.matmul on the cast weight x sb + epilogue", w8a16)])
+    rows = m if m > 16 else 32
+    # padded through an int8 view: zero bytes are +0 in e4m3 too
+    a_p = aq if rows == m else torch.cat(
+        [aq.view(torch.int8), torch.zeros((rows - m, aq.shape[1]),
+                                          dtype=torch.int8, device=a.device)]
+    ).view(aq.dtype)
+    sa_p = sa if rows == m else torch.cat([sa, sa.new_ones(rows - m)])
+    pad = "" if rows == m else f" (A padded to {rows} rows)"
+    b_col = b_kn.t().contiguous().t()  # column-major (k, n)
+    if mode == "int8":
+        factor = sa[:, None] * sb[None, :]
+
+        def int_mm(b):
+            return lambda: apply_epilogue(
+                torch._int_mm(a_p, b)[:m], epi, bias, factor).to(out_dt)
+        return _first_working(torch, [
+            (f"torch._int_mm{pad} + dequant epilogue", int_mm(b_kn.contiguous())),
+            (f"torch._int_mm{pad} (column-major B) + dequant epilogue",
+             int_mm(b_col))])
+
+    def scaled(rowwise):
+        if rowwise:
+            kw = dict(scale_a=sa_p[:, None].contiguous(),
+                      scale_b=sb[None, :].contiguous())
+            after = None
+        else:
+            one = torch.ones((), device=a.device)
+            kw = dict(scale_a=one, scale_b=one)
+            after = sa[:, None] * sb[None, :]
+
+        def run():
+            y = torch._scaled_mm(a_p, b_col, out_dtype=torch.bfloat16,
+                                 **kw)[:m].float()
+            return apply_epilogue(y, epi, bias, after).to(out_dt)
+        return run
+    return _first_working(torch, [
+        (f"torch._scaled_mm{pad}, row / column scales + epilogue",
+         scaled(True)),
+        (f"torch._scaled_mm{pad}, scales in the epilogue", scaled(False))])
+
+
+def run_gemm_quant_case(torch, case, gen):
+    """gemm_quant over the plan's tile table against its plain version on
+    the same quantized operands."""
+    from repro_torch.core import GemmDescriptor, plan_gemm, resolve_quant
+    from repro_torch.kernels.gemm.kernel import (FusedGemm, gemm_quant,
+                                                 gemm_quant_plain)
+    from repro_torch.optim.compression import quantize_operand
+    label, mode, m, n, k, layout, epi, adt, odt, main_path = case
+    spec = resolve_quant(mode)
+    a = torch.randn((m, k), generator=gen, device="cuda").to(
+        getattr(torch, adt))
+    b = torch.randn((k, n) if layout == "nn" else (n, k), generator=gen,
+                    device="cuda") * k ** -0.5
+    bias = torch.randn((n,), generator=gen, device="cuda") \
+        if epi and epi.startswith("bias") else None
+    bq, sb = quantize_operand(b, spec, axis=1 if layout == "nn" else 0)
+    aq, sa = (a, None) if spec.weight_only else \
+        quantize_operand(a, spec, axis=0)
+    out_dt = getattr(torch, odt)
+    desc = GemmDescriptor(m=m, n=n, k=k, layout=layout, in_dtype=str(
+        aq.dtype).replace("torch.", "").replace("float8_e4m3fn",
+                                                "float8_e4m3"),
+        out_dtype=odt, epilogue=epi, quant=spec)
+    plan = plan_gemm(desc)
+    if not plan.fused:
+        fail(f"gemm_quant {label}: the H100 plan is not fused")
+    exe = FusedGemm(plan.tile_schedule(), "cuda")
+    kw = dict(layout=layout, epilogue=epi, bias=bias, out_dtype=out_dt)
+
+    def kern():
+        return gemm_quant(exe, aq, bq, sa, sb, **kw)
+
+    def plain():
+        return gemm_quant_plain(aq, bq, sa, sb, **kw)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tol = QUANT_I8_TOL if mode == "int8" else TOL[odt]
+    max_abs, rel, nbad, tol = compare(torch, got, want, odt, tol)
+    lib_name, lib = _quant_gemm_library(torch, mode, a, aq, bq, sa, sb, epi,
+                                        bias, layout, out_dt)
+    compute = QUANT_COMPUTE.get(mode, adt)
+    nbytes = (m * k * aq.element_size() + k * n + 4 * n
+              + (4 * m if sa is not None else 0) + m * n * got.element_size()
+              + (4 * n if bias is not None else 0))
+    row = dict(phase="kernel", kernel="gemm_quant", case=label,
+               main_path=main_path, mode=mode, shape=[m, n, k],
+               layout=layout, epilogue=epi, a_dtype=adt, out_dtype=odt,
+               blocks=[[r.bm, r.bn] for r in plan.regions],
+               max_abs_err=max_abs, max_rel_err=rel, tolerance=tol,
+               mismatches=nbad, ms=time_ms(torch, kern, 20),
+               plain_ms=time_ms(torch, plain, 2),
+               library_ms=time_ms(torch, lib, 20) if lib else None,
+               library=lib_name or "none runs on these operands",
+               **bound(nbytes, 2 * m * n * k, compute))
+    emit(**row)
+    if nbad:
+        fail(f"gemm_quant {label}: {nbad} elements outside atol=rtol={tol}")
+    return [row]
+
+
+def run_decode_int8_case(torch, gen):
+    """flash_decode's KV-int8 branch at the continuous phase's pool (8
+    slots, 16 / 8 heads of 128, 96 pages of 16, 24 blocks) over ragged
+    lengths, one slot empty, pools quantized per token as a decode step
+    writes them; the library is SDPA over the gathered pages, dequantized
+    outside the timed region."""
+    import torch.nn.functional as F
+    from repro_torch.core import DecodeTileSchedule
+    from repro_torch.kernels.flash_attention.kernel import (
+        FlashDecode, flash_decode, flash_decode_plain)
+    from repro_torch.models.attention import quantize_kv_rows
+    S, P, B, h, hkv, hd = (CONT_SLOTS, CONT_PAGE, CONT_BLOCKS, 16, 8, 128)
+    lengths = (0, 1, 16, 17, 300, 255, 100, 33)
+    q = torch.randn((S, h, hd), generator=gen, device="cuda").bfloat16()
+    (kq, ks), (vq, vs) = (quantize_kv_rows(torch.randn(
+        (CONT_PAGES, P, hkv, hd), generator=gen, device="cuda").bfloat16())
+        for _ in range(2))
+    perm = torch.randperm(CONT_PAGES, generator=torch.Generator()
+                          .manual_seed(3))
+    bt = torch.zeros((S, B), dtype=torch.int32)
+    used = 0
+    for slot, npages in enumerate(-(-L // P) for L in lengths):
+        bt[slot, :npages] = perm[used:used + npages]
+        used += npages
+    bt, lens = bt.cuda(), torch.tensor(lengths, dtype=torch.int32,
+                                       device="cuda")
+    exe = FlashDecode(DecodeTileSchedule(num_seqs=S, pages=CONT_PAGES,
+                                         page_size=P, max_blocks=B), "cuda")
+    exe.update(bt, lens)
+
+    def kern():
+        return flash_decode(exe, q, kq, vq, ks, vs)
+
+    def plain():
+        return flash_decode_plain(exe, q, kq, vq, ks, vs)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    max_abs, rel, nbad, tol = compare(torch, got, want, "bfloat16")
+    if got[0].abs().max().item() != 0:
+        fail("flash_decode_int8: the empty slot did not drain zeros")
+    span = torch.arange(B * P, device="cuda")
+    gk, gv = ((t[bt.long()].float() * s[bt.long()][..., None, None])
+              .bfloat16().reshape(S, B * P, hkv, hd).transpose(1, 2)
+              .repeat_interleave(h // hkv, dim=1).contiguous()
+              for t, s in ((kq, ks), (vq, vs)))
+    mask = (span[None, :] < lens[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    live_pages = sum(-(-L // P) for L in lengths)
+    nbytes = (2 * sum(lengths) * (hkv * hd + 4) + 2 * 2 * S * h * hd
+              + 4 * (live_pages + S))
+    row = dict(phase="kernel", kernel="flash_decode_int8", case="serve_ragged",
+               main_path=True, shape=[S, h, hkv, hd, P], lengths=list(lengths),
+               dtype="bfloat16", kv_dtype="int8", max_abs_err=max_abs,
+               max_rel_err=rel, tolerance=tol, mismatches=nbad,
+               ms=time_ms(torch, kern, 50), plain_ms=time_ms(torch, plain, 2),
+               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, gk, gv, attn_mask=mask), 50),
+               library="SDPA over the gathered pages, dequantized outside "
+                       "the timed region",
+               **bound(nbytes, 4 * h * hd * sum(lengths), "bfloat16"))
+    emit(**row)
+    if nbad:
+        fail(f"flash_decode_int8: {nbad} elements outside atol=rtol={tol}")
+    return [row]
+
+
+def grouped_quant_cases():
+    """(label, mode, group sizes, rows past their sum, K, N, epilogue, x
+    dtype, out dtype, main): phi3.5-moe-42b's four expert GEMMs under
+    use(quant="int8") (16 groups of 256 capacity rows at prefill, of 32 at
+    decode; up / gate 4096 -> 6400, down the reverse), with fp32 outputs so
+    that the int8 path's exactness shows; then ragged cases through the
+    e4m3 and W8A16 routes with an empty expert."""
+    d, ff = 4096, 6400
+    return [
+        ("prefill_gate_silu", "int8", [256] * 16, 0, d, ff, "silu",
+         "bfloat16", "float32", True),
+        ("prefill_down", "int8", [256] * 16, 0, ff, d, None, "bfloat16",
+         "float32", True),
+        ("decode_gate_silu", "int8", [32] * 16, 0, d, ff, "silu", "bfloat16",
+         "float32", True),
+        ("decode_down", "int8", [32] * 16, 0, ff, d, None, "bfloat16",
+         "float32", True),
+        ("ragged_fp8_bias_silu", "fp8", [37, 0, 201, 70], 4, 100, 70,
+         "bias_silu", "bfloat16", "bfloat16", False),
+        ("ragged_w8a16_f32_gelu", "w8a16", [13, 0, 40, 7], 5, 129, 200,
+         "gelu", "float32", "float32", False),
+    ]
+
+
+def run_grouped_quant_case(torch, case, gen):
+    """grouped_quant over the runtime table against its plain version on
+    the same quantized operands; the library is grouped_fused's yardstick
+    (torch.bmm over the uniform layout, else a per-expert loop) on the
+    dequantized operands."""
+    from repro_torch.core import (GroupedGemmDescriptor, plan_grouped,
+                                  resolve_quant)
+    from repro_torch.kernels.grouped_gemm.kernel import (grouped_quant,
+                                                         grouped_quant_plain)
+    from repro_torch.kernels.grouped_gemm.ops import _quantize_grouped_w
+    from repro_torch.optim.compression import quantize_operand
+    label, mode, sizes, extra, k, n, epi, xdt, odt, main_path = case
+    spec = resolve_quant(mode)
+    e, total = len(sizes), sum(sizes)
+    t = total + extra
+    biased = epi is not None and epi.startswith("bias")
+    x = torch.randn((t, k), generator=gen, device="cuda").to(
+        getattr(torch, xdt))
+    w = torch.randn((e, k, n), generator=gen, device="cuda") * k ** -0.5
+    bias = torch.randn((e, n), generator=gen, device="cuda") if biased \
+        else None
+    wq, sw = _quantize_grouped_w(w, spec)
+    xq, sx = (x, None) if spec.weight_only else \
+        quantize_operand(x, spec, axis=0)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    desc = GroupedGemmDescriptor(t=t, k=k, n=n, num_experts=e, dtype=xdt,
+                                 epilogue=epi, quant=spec)
+    plan = plan_grouped(desc)
+    if not plan.fused:
+        fail(f"grouped_quant {label}: the H100 plan is not fused")
+    table = plan.tile_schedule().tables(gs)
+    out_dt = getattr(torch, odt)
+
+    def kern():
+        return grouped_quant(table, xq, wq, sx, sw, bias, bm=plan.bm,
+                             bn=plan.bn, epilogue=epi, out_dtype=out_dt)
+
+    def plain():
+        return grouped_quant_plain(table, xq, wq, sx, sw, bias, epilogue=epi,
+                                   out_dtype=out_dt)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tol = QUANT_I8_TOL if mode == "int8" else TOL[odt]
+    max_abs, rel, nbad, tol = compare(torch, got, want, odt, tol)
+    x_deq = x if sx is None else (xq.float() * sx[:, None]).to(x.dtype)
+    w_deq = (wq.float() * sw[:, None, :]).to(x.dtype)
+    lib_name, lib_fwd, _, _ = _grouped_library(
+        torch, x_deq, w_deq, None if bias is None else bias.to(x.dtype), epi,
+        sizes)
+    touched = sum(1 for sz in sizes if sz)
+    nbytes = (total * k * xq.element_size() + touched * (k * n + 4 * n)
+              + (4 * total if sx is not None else 0)
+              + t * n * got.element_size() + (4 * touched * n if biased
+                                              else 0))
+    row = dict(phase="kernel", kernel="grouped_quant", case=label,
+               main_path=main_path, mode=mode, group_sizes=sizes, rows=t,
+               k=k, n=n, epilogue=epi, x_dtype=xdt, out_dtype=odt,
+               blocks=[plan.bm, plan.bk, plan.bn], max_abs_err=max_abs,
+               max_rel_err=rel, tolerance=tol, mismatches=nbad,
+               ms=time_ms(torch, kern, 5), plain_ms=time_ms(torch, plain, 2),
+               library_ms=time_ms(torch, lib_fwd, 5),
+               library=lib_name + " on the dequantized operands",
+               **bound(nbytes, 2 * total * k * n,
+                       QUANT_COMPUTE.get(mode, xdt)))
+    emit(**row)
+    if nbad:
+        fail(f"grouped_quant {label}: {nbad} elements outside atol=rtol="
+             f"{tol}")
+    return [row]
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -1117,6 +1563,13 @@ def phase_kernels(torch):
         rows += run_ssd_case(torch, case, gen)
     for case in grouped_cases():
         rows += run_grouped_case(torch, case, gen)
+    for case in transpose_cases():
+        rows += run_transpose_case(torch, case, gen)
+    for case in gemm_quant_cases():
+        rows += run_gemm_quant_case(torch, case, gen)
+    rows += run_decode_int8_case(torch, gen)
+    for case in grouped_quant_cases():
+        rows += run_grouped_quant_case(torch, case, gen)
     return rows
 
 
@@ -1124,27 +1577,31 @@ def phase_kernels(torch):
 # Phases 4-6: the model through generate
 # ---------------------------------------------------------------------------
 
-def _reset_counts():
-    from repro_torch.core import engine
+def _kernel_modules():
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.gemm import kernel as gk
     from repro_torch.kernels.grouped_gemm import kernel as grk
     from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.kernels.transpose import kernel as tk
+    return gk, fk, sk, grk, tk
+
+
+def _reset_counts():
+    from repro_torch.core import engine
     engine.reset_stats(entries=False)
-    gk.reset_launches()
-    fk.reset_launches()
-    sk.reset_launches()
-    grk.reset_launches()
+    for mod in _kernel_modules():
+        mod.reset_launches()
 
 
 def _read_counts():
     from repro_torch.core import engine
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.gemm import kernel as gk
-    from repro_torch.kernels.grouped_gemm import kernel as grk
-    from repro_torch.kernels.ssd_chunk import kernel as sk
     st = engine.stats()
-    return {**gk.LAUNCHES, **fk.LAUNCHES, **sk.LAUNCHES, **grk.LAUNCHES,
+    launches = {}
+    for mod in _kernel_modules():
+        launches.update(mod.LAUNCHES)
+    return {**launches,
+            "engine_transpose_launches": st.get("transpose", {})
+            .get("launches", 0),
             "engine_grouped_launches": st.get("grouped_gemm", {})
             .get("launches", 0),
             "engine_grouped_launches_bwd": st.get("grouped_gemm", {})
@@ -1397,7 +1854,7 @@ def phase_continuous(torch, model):
             want["engine_gemm_calls"]:
         fail(f"projections did not all run the GEMM kernels: {counts}")
     _continuous_logits(torch, model, reqs)
-    return counts
+    return counts, res
 
 
 def _continuous_logits(torch, model, reqs):
@@ -2101,6 +2558,298 @@ def phase_serve_moe_off(torch, model, prompts, logits_auto):
     if rel > LOGIT_BOUND:
         fail(f"serve_moe fused='off' logits differ from fused='auto' by "
              f"{rel:.4f}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The quant axis and the §IV-C two-pass GEMM
+# ---------------------------------------------------------------------------
+
+def phase_gemm_transpose(torch):
+    """§IV-C: ``gemm(a, b, layout="nt")`` (B's contraction dim strided, the
+    kernel reads it in place) against the two passes ``gemm(a,
+    transpose(b))`` (a blocked panel transpose, then an nn GEMM), at
+    fig89's shape and at Qwen3-0.6B's tied read-out over a 1,024-token
+    prefill.  Gated: the outputs agree at the dtype's tolerance and each
+    two-pass call launches exactly one transpose.  The counted run is one
+    call of each form per case; the timings come after it."""
+    from repro_torch.core import use
+    from repro_torch.kernels.gemm import gemm
+    from repro_torch.kernels.transpose import transpose
+    from repro_torch.kernels.transpose import kernel as tk
+    cases = [("fig89", 256, 256, 512, "float32", 20),
+             ("qwen3_readout", 1024, 151936, 1024, "bfloat16", 3)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ops = []
+    with use(backend="engine", fused="auto", device="cuda"):
+        for label, m, n, k, dname, iters in cases:
+            dt = getattr(torch, dname)
+            a = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            b = (torch.randn((n, k), generator=gen, device="cuda")
+                 * k ** -0.5).to(dt)
+            gemm(a, b, layout="nt")  # warm: plans, tile tables
+            gemm(a, transpose(b))
+            ops.append((label, m, n, k, dname, iters, a, b))
+        torch.cuda.synchronize()
+        _reset_counts()
+        outs = []
+        for label, m, n, k, dname, iters, a, b in ops:
+            n0 = tk.LAUNCHES["transpose"]
+            two = gemm(a, transpose(b))
+            per_call = tk.LAUNCHES["transpose"] - n0
+            one = gemm(a, b, layout="nt")
+            outs.append((one, two, per_call))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        rows = []
+        for (label, m, n, k, dname, iters, a, b), (one, two, per_call) in \
+                zip(ops, outs):
+            max_abs, rel, nbad, tol = compare(torch, two, one, dname)
+            row = dict(phase="gemm_transpose", case=label, shape=[m, n, k],
+                       dtype=dname, max_abs_err=max_abs, max_rel_err=rel,
+                       tolerance=tol, mismatches=nbad,
+                       transpose_launches_per_call=per_call,
+                       nt_ms=time_ms(torch, lambda: gemm(a, b, layout="nt"),
+                                     iters),
+                       two_pass_ms=time_ms(
+                           torch, lambda: gemm(a, transpose(b)), iters),
+                       transpose_ms=time_ms(torch, lambda: transpose(b),
+                                            iters))
+            row["two_pass_over_nt"] = row["two_pass_ms"] / row["nt_ms"]
+            emit(**row)
+            rows.append(row)
+    emit(phase="gemm_transpose_counts", launches=counts)
+    for row in rows:
+        if row["mismatches"]:
+            fail(f"gemm_transpose {row['case']}: two-pass and nt outputs "
+                 f"differ in {row['mismatches']} elements")
+        if row["transpose_launches_per_call"] != 1:
+            fail(f"gemm_transpose {row['case']}: "
+                 f"{row['transpose_launches_per_call']} transpose launches "
+                 f"in one two-pass call")
+    if counts["transpose"] != len(cases) or \
+            counts["engine_transpose_launches"] != len(cases):
+        fail(f"gemm_transpose launch counts: {counts}")
+    return counts
+
+
+def phase_continuous_quant(torch, model, wide):
+    """Qwen3-0.6B at full width with W8A16 weights (``quantize_model``,
+    in place: the wide projections are dropped) and KV-int8 pools
+    (``PageSpec(kv_quant="int8")``) through the continuous-batching engine
+    on the continuous phase's trace, counted alone, as the reference's
+    ``benchmarks/quant_gemm.py`` serve phase builds it.  Gated: every
+    request finishes, and the quant launches are what the code implies
+    (every projection of every forward on gemm_quant, every layer of every
+    decode step on flash_decode_int8); then, outside the count, one decode
+    step's logits under the engine against the torch backend with the
+    same weights and pools.  The share of tokens equal to the wide run's
+    is printed, not gated."""
+    from repro_torch.core import use
+    from repro_torch.models.attention import PageSpec
+    from repro_torch.optim.compression import quantize_model
+    from repro_torch.runtime.batching import (ContinuousBatchingEngine,
+                                              poisson_trace)
+    cfg = model.cfg
+    L = cfg.num_layers
+    wide_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    t0 = time.perf_counter()
+    quantize_model(model, "w8a16")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    trace = dict(CONT_TRACE)
+    reqs = poisson_trace(num_requests=trace["num_requests"],
+                         rate=trace["rate"], prompt_lens=trace["prompt_len"],
+                         max_new=trace["max_new"],
+                         vocab_size=cfg.vocab_size, seed=trace["seed"])
+    spec = PageSpec(CONT_PAGES, CONT_PAGE, CONT_BLOCKS, kv_quant="int8")
+    with use(backend="engine", fused="auto", device="cuda"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        serving = ContinuousBatchingEngine(model, num_slots=CONT_SLOTS,
+                                           spec=spec)
+        res = serving.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+    m = res["metrics"]
+    steps = m["decode_steps"]
+    admissions = len(reqs) + m["evictions"]
+    forwards = admissions + steps
+    want = {"gemm_quant": forwards * 7 * L,
+            "flash_decode_int8": steps * L, "flash_decode": 0,
+            "engine_decode_launches": steps * L,
+            "engine_gemm_calls": forwards * (7 * L + 1),
+            "flash_fwd_fused": admissions * L}
+    match = total = 0
+    for r in reqs:
+        q, w = res["outputs"].get(r.rid), wide["outputs"].get(r.rid)
+        if q is not None and w is not None:
+            match += int((q == w).sum())
+            total += len(w)
+    wm = wide["metrics"]
+    quant_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters()) + sum(
+        mod.w.q.numel() + mod.w.scale.numel() * 4
+        for mod in model.modules() if hasattr(mod, "w")
+        and not isinstance(mod.w, torch.nn.Parameter))
+    emit(phase="continuous_quant", model=cfg.name, weights="w8a16",
+         kv_quant="int8", slots=CONT_SLOTS, num_pages=CONT_PAGES,
+         page_size=CONT_PAGE, max_blocks=CONT_BLOCKS, trace=CONT_TRACE,
+         quantize_seconds=quantize_s, weight_bytes_wide=wide_bytes,
+         weight_bytes_quantized=quant_bytes,
+         tokens_per_s=m["tokens_per_s"], total_tokens=m["total_tokens"],
+         p50_token_latency_s=m["p50_token_latency_s"],
+         p99_token_latency_s=m["p99_token_latency_s"],
+         phase_seconds=m["phase_seconds"], decode_steps=steps,
+         evictions=m["evictions"], run_seconds=m["wall_seconds"],
+         wall_seconds=wall, peak_memory_bytes=peak_mem,
+         wide_tokens_per_s=wm["tokens_per_s"],
+         wide_p50_token_latency_s=wm["p50_token_latency_s"],
+         wide_p99_token_latency_s=wm["p99_token_latency_s"],
+         wide_decode_steps=wm["decode_steps"],
+         wide_evictions=wm["evictions"],
+         token_match_frac=match / max(total, 1), launches=counts,
+         expected=want, requests=len(reqs))
+    for r in reqs:
+        out = res["outputs"].get(r.rid)
+        if out is None or len(out) != r.max_new or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"continuous_quant: request {r.rid} did not finish with "
+                 f"{r.max_new} in-vocab tokens: {out}")
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if counts["gemm_fused"] + counts["gemm_region"] + counts["gemm_quant"] \
+            != counts["engine_gemm_launches"]:
+        bad["gemm kernels vs engine"] = (
+            counts["gemm_fused"] + counts["gemm_region"]
+            + counts["gemm_quant"], counts["engine_gemm_launches"])
+    if bad:
+        fail(f"continuous_quant launch counts (got, want): {bad}")
+    serving.pool.check_invariants([0] * CONT_SLOTS)
+    _continuous_quant_logits(torch, model, reqs)
+    return counts
+
+
+def _continuous_quant_logits(torch, model, reqs):
+    """Prefill the first 8 requests into int8 pools and run one paged
+    decode step from the same weights and pools under the engine and under
+    the torch backend (the pools restored between): the logits of every
+    slot within LOGIT_BOUND of their range."""
+    from repro_torch.core import use
+    from repro_torch.models.attention import PageSpec
+    from repro_torch.runtime.pages import (PagePool, init_serving_cache,
+                                           refresh_tables, write_prefill)
+    from repro_torch.runtime.steps import (make_paged_serve_step,
+                                           make_prefill_step)
+    spec = PageSpec(CONT_SLOTS * CONT_BLOCKS, CONT_PAGE, CONT_BLOCKS,
+                    kv_quant="int8")
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        pool = PagePool(spec, CONT_SLOTS)
+        cache = init_serving_cache(model, CONT_SLOTS, spec)
+        toks = []
+        for slot, r in enumerate(reqs[:CONT_SLOTS]):
+            L = len(r.prompt)
+            prompt = torch.from_numpy(r.prompt).long().cuda()[None]
+            logits, dcache = make_prefill_step(model, L)({"tokens": prompt})
+            write_prefill(cache, dcache, slot=slot, length=L,
+                          page_ids=pool.grow(slot, L), page_size=CONT_PAGE)
+            pool.grow(slot, L + 1)
+            toks.append(torch.argmax(logits, -1))
+        refresh_tables(cache, pool.tables)
+        tokens = torch.stack(toks)
+        positions = torch.tensor([[len(r.prompt)] for r in
+                                  reqs[:CONT_SLOTS]], dtype=torch.int32,
+                                 device="cuda")
+        saved = [tuple(t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale))
+                 for c in cache]
+        eng, _, _ = model.apply(tokens, positions=positions, cache=cache)
+        for c, (k, v, ks, vs) in zip(cache, saved):
+            for dst, src in ((c.k, k), (c.v, v), (c.k_scale, ks),
+                             (c.v_scale, vs)):
+                dst.copy_(src)
+    with use(backend="torch", device="cuda"), torch.no_grad():
+        ref, _, _ = model.apply(tokens, positions=positions, cache=cache)
+    gaps = [_logit_gap(torch, eng[s, -1].float(), ref[s, -1].float())[2]
+            for s in range(CONT_SLOTS)]
+    emit(phase="continuous_quant_logits", slots=CONT_SLOTS, rel_gaps=gaps,
+         bound=LOGIT_BOUND)
+    if max(gaps) > LOGIT_BOUND:
+        fail(f"continuous_quant: engine vs torch decode logits differ by "
+             f"{max(gaps):.4f} of their range (bound {LOGIT_BOUND})")
+    # Two engine decode steps over the 8 slots, profiled (the pools have
+    # room for them: each slot grew by one position past its prompt and
+    # the steps rewrite that position).
+    step_fn = make_paged_serve_step(model)
+    active = torch.ones(CONT_SLOTS, dtype=torch.bool, device="cuda")
+    lengths = positions[:, 0].long()
+
+    def step():
+        with use(backend="engine", fused="auto", device="cuda"):
+            step_fn(cache, tokens, lengths, active)
+
+    emit(phase="continuous_quant_profile", decode_steps=2,
+         active_slots=CONT_SLOTS, **_device_profile(torch, step, 2))
+
+
+def phase_serve_moe_quant(torch, model, prompts, logits_wide):
+    """phi3.5-moe-42b at 4 layers under ``use(quant="int8")`` through
+    ``generate``, counted alone: every expert GEMM quantizes its rows and
+    its bank at dispatch and runs grouped_quant (three a layer a forward).
+    The torch backend's expert einsums stay wide, as the reference's XLA
+    path does: its logits, with the engine's routing replayed, are gated
+    at LOGIT_BOUND; the gap to the wide serve_moe logits is printed."""
+    from repro_torch.core import use
+    from repro_torch.launch.serve import generate
+    cfg = model.cfg
+    L = cfg.num_layers
+    with use(backend="engine", fused="auto", device="cuda", quant="int8"):
+        generate(model, prompts, 2)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = generate(model, prompts, GEN)
+        counts = _read_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        routes = []
+        with _routing("record", routes):
+            logits = _prefill_logits(torch, model, prompts)
+    want = {"grouped_quant": GEN * 3 * L, "engine_grouped_launches":
+            GEN * 3 * L, "grouped_fused": 0, "grouped_padded": 0,
+            "engine_gemm_calls": GEN * (4 * L + 1), "flash_fwd_fused": L,
+            "gemm_quant": 0}
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    with use(backend="torch", device="cuda", quant="int8"), \
+            _routing("replay", routes):
+        ref = _prefill_logits(torch, model, prompts)
+    gap, spread, rel = _logit_gap(torch, logits, ref)
+    wide_gap, _, wide_rel = _logit_gap(torch, logits, logits_wide)
+    toks = res["tokens"]
+    emit(phase="serve_moe_quant", model=cfg.name, reduced=_moe_reduced(L),
+         quant="int8", batch=BATCH, prompt=PROMPT, new_tokens=GEN,
+         prefill_seconds=res["prefill_seconds"],
+         prefill_tokens_per_s=BATCH * PROMPT / res["prefill_seconds"],
+         decode_seconds=res["decode_seconds"],
+         decode_tokens_per_s=BATCH * (GEN - 1) / res["decode_seconds"],
+         peak_memory_bytes=peak_mem, launches=counts, expected=want,
+         routing="the torch backend replays the engine's",
+         logits_vs_torch_max_abs=gap, logits_spread=spread, logits_rel=rel,
+         logits_bound=LOGIT_BOUND, logits_vs_wide_max_abs=wide_gap,
+         logits_vs_wide_rel=wide_rel)
+    if tuple(toks.shape) != (BATCH, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"serve_moe_quant: bad tokens {tuple(toks.shape)}")
+    if bad:
+        fail(f"serve_moe_quant launch counts (got, want): {bad}")
+    if rel > LOGIT_BOUND:
+        fail(f"serve_moe_quant: engine vs torch prefill logits differ by "
+             f"{rel:.4f} of their range (bound {LOGIT_BOUND})")
+    with use(quant="int8"):
+        phase_profile(torch, model, prompts, name="serve_moe_quant_profile")
     return counts
 
 

@@ -12,14 +12,15 @@
 from repro_torch.core.descriptor import (  # noqa: F401
     FlashBwdDescriptor, FlashDecodeDescriptor, FlashDescriptor,
     GemmDescriptor, GroupedGemmBwdDescriptor, GroupedGemmDescriptor,
-    KernelDescriptor, SsdChunkBwdDescriptor, SsdChunkDescriptor)
+    KernelDescriptor, QuantSpec, SsdChunkBwdDescriptor, SsdChunkDescriptor,
+    TransposeDescriptor, resolve_quant)
 from repro_torch.core.blocking import (  # noqa: F401
     BlockingPlan, FlashDecodePlan, FlashPlan, GroupedGemmPlan, Region,
     flash_bwd_fused_legal, flash_decode_legal, flash_fused_legal, fused_legal,
     grouped_bwd_fused_legal, grouped_fused_legal, palette, plan_flash,
     plan_flash_bwd, plan_flash_decode, plan_gemm, plan_grouped,
-    plan_grouped_bwd, plan_ssd, plan_ssd_bwd, ssd_bwd_fused_legal,
-    ssd_fused_legal, SsdChunkPlan)
+    plan_grouped_bwd, plan_ssd, plan_ssd_bwd, plan_transpose,
+    ssd_bwd_fused_legal, ssd_fused_legal, SsdChunkPlan, TransposePlan)
 from repro_torch.core.schedule import (  # noqa: F401
     DecodeTileSchedule, FlashTileSchedule, GroupedTileSchedule, TileSchedule,
     flash_tile_schedule, flatten_regions, plan_launches)

@@ -1,5 +1,5 @@
 """Blocking planners: GEMM region covers, flash tilings, the grouped-GEMM
-tilings and the SSD scan plans (paper §IV-B).
+tilings, the SSD scan plans and the transpose tile edge (paper §IV-B).
 
 The paper's generator owns a *palette* of accumulator blockings and
 covers a ragged C with a heterogeneous mix of them, minimising kernel
@@ -21,7 +21,7 @@ from .descriptor import (BIAS_EPILOGUES, FlashBwdDescriptor,
                          FlashDecodeDescriptor, FlashDescriptor,
                          GemmDescriptor, GroupedGemmBwdDescriptor,
                          GroupedGemmDescriptor, SsdChunkBwdDescriptor,
-                         SsdChunkDescriptor)
+                         SsdChunkDescriptor, TransposeDescriptor)
 from .machine import DEFAULT_MACHINE, MachineModel, itemsize
 from .schedule import (DecodeTileSchedule, FlashTileSchedule,
                        GroupedTileSchedule, TileSchedule, ceil_div,
@@ -165,6 +165,8 @@ def fused_legal(desc: GemmDescriptor,
     out_sz = itemsize(desc.out_dtype)
     need = (desc.m * desc.k * desc.a_wire_itemsize
             + desc.k * desc.n * desc.b_wire_itemsize)
+    if desc.quant is not None:
+        need += (desc.m + desc.n) * 4  # staged sa (m, 1) and sb (1, n), f32
     need += desc.m * desc.n * out_sz * (2 if desc.accumulate else 1)
     need += machine.acc_budget_elems * 4
     return need <= machine.vmem_bytes
@@ -200,8 +202,14 @@ def plan_gemm(desc: GemmDescriptor,
     if homo.predicted_seconds(machine) < plan.predicted_seconds(machine):
         plan = homo
     # Multi-region covers pay the fused walk's per-step decode on every
-    # region's tiles: compare both lowerings under the model.
-    if plan.fused and len(plan.regions) > 1:
+    # region's tiles: compare both lowerings under the model.  A quantized
+    # plan on a machine whose kernels stream has no multi-launch kernel to
+    # compare with (the region kernel has no quant form, and the
+    # non-fused quant lowering is the kernel-free composition), so it
+    # stays fused.
+    streamed_quant = desc.quant is not None \
+        and not machine.stages_whole_operands
+    if plan.fused and len(plan.regions) > 1 and not streamed_quant:
         multi = dataclasses.replace(plan, fused=False)
         if multi.predicted_seconds(machine) < plan.predicted_seconds(machine):
             plan = multi
@@ -616,6 +624,8 @@ def grouped_fused_legal(desc: GroupedGemmDescriptor,
     isz = itemsize(desc.dtype)
     need = desc.t * desc.k * desc.x_wire_itemsize + desc.t * desc.n * isz
     need += 2 * desc.k * desc.n * desc.w_wire_itemsize
+    if desc.quant is not None:
+        need += (desc.t + desc.n) * 4  # sx (t, 1) and one sw row, f32
     need += machine.acc_budget_elems * 4
     return need <= machine.vmem_bytes
 
@@ -724,3 +734,56 @@ def plan_grouped_bwd(desc: GroupedGemmBwdDescriptor,
                                                       machine=machine,
                                                       fused=fused))
     return GroupedGemmPlan(desc, *best, fused=fused)
+
+
+# ---------------------------------------------------------------------------
+# Tile transpose
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TransposePlan:
+    """Planned square tile edge ``bt`` of one (batched) blocked
+    transpose."""
+
+    desc: TransposeDescriptor
+    bt: int
+
+    def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE
+                          ) -> float:
+        return _predict_transpose_seconds(self.desc, self.bt, machine)
+
+
+def _predict_transpose_seconds(desc: TransposeDescriptor, bt: int,
+                               machine: MachineModel) -> float:
+    """Napkin-math time: every (bt, bt) tile read and written whole (the
+    masked edge tiles charged as full ones), plus per-tile and launch
+    overheads; the batch is a grid dimension of the one launch."""
+    nb = max(1, desc.batch)
+    steps = nb * ceil_div(desc.rows, bt) * ceil_div(desc.cols, bt)
+    traffic = 2 * steps * bt * bt * itemsize(desc.dtype)
+    return (traffic / machine.hbm_bw + steps * machine.step_overhead_s
+            + machine.launch_overhead_s)
+
+
+def _transpose_legal(desc: TransposeDescriptor,
+                     machine: MachineModel) -> List[int]:
+    """All legal square tile edges: the kernel's own where the machine
+    lists them, else every aligned edge whose staged tile (and its
+    transpose) fits half of VMEM."""
+    if machine.transpose_tiles is not None:
+        return list(machine.transpose_tiles)
+    sub, lane = machine.reg_tile(desc.dtype)
+    isz = itemsize(desc.dtype)
+    extent = max(desc.rows, desc.cols)
+    legal = [bt for bt in _tile_candidates(extent, max(sub, 8), lo=32)
+             if 2 * bt * bt * isz <= machine.vmem_bytes // 2]
+    return legal or [lane]
+
+
+def plan_transpose(desc: TransposeDescriptor,
+                   machine: MachineModel = DEFAULT_MACHINE) -> TransposePlan:
+    """Pick the square tile edge: the largest legal tile wins on traffic,
+    smaller tiles win on ragged edges (masked-tile waste)."""
+    best = min(_transpose_legal(desc, machine),
+               key=lambda bt: _predict_transpose_seconds(desc, bt, machine))
+    return TransposePlan(desc, best)

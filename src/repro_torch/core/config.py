@@ -11,7 +11,14 @@
     every planner reads (``H100_SXM`` by default);
   * ``fused``   -- ``"auto"`` follows the plan's ``fused`` bit, ``"on"`` /
     ``"off"`` force the single-launch or the multi-launch / dense-grid
-    lowering.  ``REPRO_FUSED=auto|on|off`` seeds the process default.
+    lowering.  ``REPRO_FUSED=auto|on|off`` seeds the process default;
+  * ``quant``   -- the ambient low-precision spec the GEMM-family entry
+    points (``gemm``, ``grouped_gemm``) apply when a call passes none:
+    ``None`` (wide, the default), a :class:`~repro_torch.core.descriptor.
+    QuantSpec` or a shorthand (``"int8"``/``"w8a16"``/``"fp8"``).  Per
+    call, ``quant=False`` opts out; in ``use``/``configure``,
+    ``quant=False`` clears it.  ``REPRO_QUANT=int8|w8a16|fp8`` seeds the
+    process default.
 
 Configuration is layered: a process-wide default (``configure``) under a
 thread-local override stack (``use``).
@@ -27,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from .descriptor import QuantSpec, resolve_quant
 from .machine import DEFAULT_MACHINE, MachineModel, get_machine
 
 BACKENDS = ("torch", "engine")
@@ -41,6 +49,7 @@ class EngineConfig:
     device: str = "cuda"
     machine: MachineModel = DEFAULT_MACHINE
     fused: str = "auto"
+    quant: Optional[QuantSpec] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -51,6 +60,9 @@ class EngineConfig:
                              f"got {self.fused!r}")
         if torch.device(self.device).type not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda or cpu, got {self.device!r}")
+        if self.quant is not None and not isinstance(self.quant, QuantSpec):
+            raise ValueError(f"quant must be None or a QuantSpec, "
+                             f"got {self.quant!r}")
 
     def replace(self, **kw) -> "EngineConfig":
         kw = {k: v for k, v in kw.items() if v is not None}
@@ -58,6 +70,9 @@ class EngineConfig:
             kw["machine"] = get_machine(kw["machine"])
         if "device" in kw:
             kw["device"] = str(kw["device"])
+        if "quant" in kw:
+            # quant=False is the explicit off switch (None leaves it as is)
+            kw["quant"] = resolve_quant(kw["quant"])
         return dataclasses.replace(self, **kw)
 
 
@@ -72,7 +87,14 @@ def _env_default() -> EngineConfig:
             warnings.warn(f"ignoring REPRO_FUSED={fused!r}: "
                           f"must be one of {FUSED_MODES}")
         fused = "auto"
-    return EngineConfig(fused=fused)
+    quant = None
+    raw = os.environ.get("REPRO_QUANT", "").lower()
+    if raw and raw not in ("0", "false", "no", "off", "none"):
+        try:
+            quant = resolve_quant(raw)
+        except ValueError as e:
+            warnings.warn(f"ignoring REPRO_QUANT={raw!r}: {e}")
+    return EngineConfig(fused=fused, quant=quant)
 
 
 _DEFAULT = _env_default()
@@ -93,22 +115,23 @@ def get_config() -> EngineConfig:
 
 
 def configure(*, backend: Optional[str] = None, device=None, machine=None,
-              fused: Optional[str] = None) -> EngineConfig:
+              fused: Optional[str] = None, quant=None) -> EngineConfig:
     """Mutate the process-wide default (all threads without an override)."""
     global _DEFAULT
     with _default_lock:
         _DEFAULT = _DEFAULT.replace(backend=backend, device=device,
-                                    machine=machine, fused=fused)
+                                    machine=machine, fused=fused, quant=quant)
         return _DEFAULT
 
 
 @contextlib.contextmanager
 def use(*, backend: Optional[str] = None, device=None, machine=None,
-        fused: Optional[str] = None):
+        fused: Optional[str] = None, quant=None):
     """Thread-local override: ``with use(backend="torch"): ...``."""
     stack = _stack()
     stack.append(get_config().replace(backend=backend, device=device,
-                                      machine=machine, fused=fused))
+                                      machine=machine, fused=fused,
+                                      quant=quant))
     try:
         yield stack[-1]
     finally:

@@ -2,9 +2,10 @@
 and kernel caches and feeds the planners.
 
 Field for field these are the reference package's descriptors, so
-``cache_key()`` agrees between the two.  The ``quant`` and ``mesh``
-fields are kept for that agreement but accept only ``None``: the
-quantized and mesh axes are not ported yet.
+``cache_key()`` agrees between the two.  The quant axis (a
+:class:`QuantSpec` on the GEMM and grouped descriptors) is ported; the
+``mesh`` fields are kept for the key's agreement but accept only
+``None``: the mesh axis is not ported yet.
 
 Layouts: ``"nn"`` is ``C[M,N] = A[M,K] @ B[K,N]``; ``"nt"`` is
 ``A[M,K] @ B[N,K]^T`` (B stores N major, K minor -- the tied read-out).
@@ -20,6 +21,73 @@ LAYOUTS = ("nn", "nt")
 EPILOGUES = (None, "bias", "gelu", "silu", "relu", "bias_gelu", "bias_silu")
 BIAS_EPILOGUES = tuple(e for e in EPILOGUES if e and e.startswith("bias"))
 
+QUANT_DTYPES = ("int8", "float8_e4m3")
+QUANT_SCHEMES = ("per_tensor", "per_channel", "per_tile")
+
+# String shorthands accepted anywhere a quant spec is (config knob,
+# REPRO_QUANT, gemm(quant=...)).
+_QUANT_ALIASES = {
+    "int8": ("int8", False),
+    "w8a16": ("int8", True),
+    "fp8": ("float8_e4m3", False),
+    "float8_e4m3": ("float8_e4m3", False),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Low-precision execution spec of the GEMM-family descriptors.
+
+    ``dtype`` is the wire dtype the quantized operand(s) are stored and
+    staged in; accumulation is wide (int32 for int8 operands, fp32
+    otherwise) and the dequantization runs in the shared epilogue.
+    ``scheme`` fixes how scales partition operand channels: one scale
+    (``per_tensor``), one per A row / B output column (``per_channel``)
+    or one per ``QUANT_TILE``-wide channel block (``per_tile``).  All
+    three are row/column separable, so the dequant commutes through the
+    contraction.  ``weight_only`` quantizes only B (W8A16): A stays in
+    ``in_dtype``, B is widened in the kernel, and the column scales apply
+    in the epilogue.
+    """
+
+    dtype: str = "int8"
+    scheme: str = "per_channel"
+    weight_only: bool = False
+
+    def __post_init__(self):
+        if self.dtype not in QUANT_DTYPES:
+            raise ValueError(
+                f"quant dtype must be one of {QUANT_DTYPES}, got {self.dtype}")
+        if self.scheme not in QUANT_SCHEMES:
+            raise ValueError(
+                f"quant scheme must be one of {QUANT_SCHEMES}, "
+                f"got {self.scheme}")
+
+    @property
+    def wire_itemsize(self) -> int:
+        """Bytes per element of the quantized wire format (1 for both
+        int8 and fp8)."""
+        return 1
+
+
+def resolve_quant(quant) -> Optional[QuantSpec]:
+    """Normalize a quant argument: None/False -> None, a shorthand
+    (``"int8"``/``"w8a16"``/``"fp8"``) -> its :class:`QuantSpec`, a spec
+    -> itself."""
+    if quant is None or quant is False:
+        return None
+    if isinstance(quant, QuantSpec):
+        return quant
+    if isinstance(quant, str):
+        if quant not in _QUANT_ALIASES:
+            raise ValueError(
+                f"unknown quant shorthand {quant!r}; expected one of "
+                f"{sorted(_QUANT_ALIASES)} or a QuantSpec")
+        dtype, weight_only = _QUANT_ALIASES[quant]
+        return QuantSpec(dtype=dtype, weight_only=weight_only)
+    raise ValueError(f"quant must be None, a str or a QuantSpec, got "
+                     f"{type(quant).__name__}")
+
 
 def check_bias(epilogue, bias) -> None:
     """Shared precondition: a bias-consuming epilogue needs a bias operand."""
@@ -28,12 +96,11 @@ def check_bias(epilogue, bias) -> None:
             f"epilogue {epilogue!r} requires a bias operand, got bias=None")
 
 
-def _reject_unported(**fields) -> None:
-    for name, value in fields.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"descriptor field {name}={value!r}: the {name} axis is not "
-                f"ported yet")
+def _reject_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"descriptor field mesh={mesh!r}: the mesh axis is not ported "
+            f"yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +143,11 @@ class GemmDescriptor(KernelDescriptor):
     epilogue: Optional[str] = None
     edge: str = "mask"
     batch: int = 0
-    quant: None = None
+    quant: Optional[QuantSpec] = None
     mesh: None = None
 
     def __post_init__(self):
-        _reject_unported(quant=self.quant, mesh=self.mesh)
+        _reject_mesh(self.mesh)
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {self.layout}")
         if self.epilogue not in EPILOGUES:
@@ -90,10 +157,21 @@ class GemmDescriptor(KernelDescriptor):
         for d in (self.m, self.n, self.k):
             if d <= 0:
                 raise ValueError(f"GEMM dims must be positive, got {self}")
+        if self.quant is not None:
+            if not isinstance(self.quant, QuantSpec):
+                raise ValueError(f"quant must be a QuantSpec, got {self.quant!r}")
+            if self.accumulate:
+                raise ValueError("quantized GEMM does not support accumulate "
+                                 "(C += A@B); dequant owns the epilogue")
+            if self.batch:
+                raise ValueError("quantized GEMM is unbatched (scale vectors "
+                                 "are per-row/per-column of one problem)")
+            if self.edge != "mask":
+                raise ValueError("quantized GEMM requires edge='mask'")
 
     @classmethod
     def from_operands(cls, a, b, layout="nn", accumulate=False, epilogue=None,
-                      acc_dtype="float32", out_dtype=None):
+                      acc_dtype="float32", out_dtype=None, quant=None):
         if a.ndim != b.ndim:
             raise ValueError(f"rank mismatch: A{tuple(a.shape)} vs B{tuple(b.shape)}")
         batch = 0
@@ -111,13 +189,18 @@ class GemmDescriptor(KernelDescriptor):
         if kb != k:
             raise ValueError(f"contraction mismatch: A{tuple(a.shape)} {layout} "
                              f"B{tuple(b.shape)}")
+        quant = resolve_quant(quant)
         in_dtype = canonical_dtype(a.dtype)
-        if canonical_dtype(b.dtype) != in_dtype:
+        # W8A16: B arrives in (or will be quantized to) the wire dtype while
+        # A stays wide, so only the wide path holds A and B to one dtype.
+        if (quant is None or not quant.weight_only) \
+                and canonical_dtype(b.dtype) != in_dtype:
             raise ValueError(f"A/B dtype mismatch: {a.dtype} vs {b.dtype}")
         return cls(m=m, n=n, k=k, layout=layout, in_dtype=in_dtype,
                    acc_dtype=canonical_dtype(acc_dtype),
                    out_dtype=canonical_dtype(out_dtype or acc_dtype),
-                   accumulate=accumulate, epilogue=epilogue, batch=batch)
+                   accumulate=accumulate, epilogue=epilogue, batch=batch,
+                   quant=quant)
 
     @property
     def flops(self) -> int:
@@ -125,21 +208,35 @@ class GemmDescriptor(KernelDescriptor):
 
     @property
     def a_wire_itemsize(self) -> int:
+        """Bytes per staged A element: the wire format for a fully
+        quantized GEMM, ``in_dtype`` otherwise (W8A16 keeps A wide)."""
+        if self.quant is not None and not self.quant.weight_only:
+            return self.quant.wire_itemsize
         return itemsize(self.in_dtype)
 
     @property
     def b_wire_itemsize(self) -> int:
+        """Bytes per staged B element (any quant spec narrows B)."""
+        if self.quant is not None:
+            return self.quant.wire_itemsize
         return itemsize(self.in_dtype)
 
     @property
     def compute_dtype(self) -> str:
+        """The dtype whose peak prices the products: the wire dtype for a
+        fully quantized GEMM, ``in_dtype`` for wide and W8A16 GEMMs."""
+        if self.quant is not None and not self.quant.weight_only:
+            return self.quant.dtype
         return self.in_dtype
 
     @property
     def in_bytes(self) -> int:
         nb = max(1, self.batch)
-        return nb * (self.m * self.k * self.a_wire_itemsize
-                     + self.k * self.n * self.b_wire_itemsize)
+        total = nb * (self.m * self.k * self.a_wire_itemsize
+                      + self.k * self.n * self.b_wire_itemsize)
+        if self.quant is not None:
+            total += (self.m + self.n) * 4  # the f32 dequant scale vectors
+        return total
 
     @property
     def out_bytes(self) -> int:
@@ -421,38 +518,51 @@ class GroupedGemmDescriptor(KernelDescriptor):
     num_experts: int
     dtype: str = "float32"
     epilogue: Optional[str] = None
-    quant: None = None
+    quant: Optional[QuantSpec] = None
     mesh: None = None
 
     def __post_init__(self):
-        _reject_unported(quant=self.quant, mesh=self.mesh)
+        _reject_mesh(self.mesh)
         for v in (self.t, self.k, self.n, self.num_experts):
             if v <= 0:
                 raise ValueError(
                     f"grouped-GEMM dims must be positive, got {self}")
         if self.epilogue not in EPILOGUES:
             raise ValueError(f"epilogue must be one of {EPILOGUES}")
+        if self.quant is not None and not isinstance(self.quant, QuantSpec):
+            raise ValueError(f"quant must be a QuantSpec, got {self.quant!r}")
 
     @classmethod
-    def from_operands(cls, x, w, epilogue=None):
+    def from_operands(cls, x, w, epilogue=None, quant=None):
         t, k = x.shape
         e, kw, n = w.shape
         if kw != k:
             raise ValueError(f"contraction mismatch: x{tuple(x.shape)} vs "
                              f"w{tuple(w.shape)}")
         return cls(t=t, k=k, n=n, num_experts=e,
-                   dtype=canonical_dtype(x.dtype), epilogue=epilogue)
+                   dtype=canonical_dtype(x.dtype), epilogue=epilogue,
+                   quant=resolve_quant(quant))
 
     @property
     def x_wire_itemsize(self) -> int:
+        """Bytes per staged activation element (narrow only for a fully
+        quantized grouped GEMM)."""
+        if self.quant is not None and not self.quant.weight_only:
+            return self.quant.wire_itemsize
         return itemsize(self.dtype)
 
     @property
     def w_wire_itemsize(self) -> int:
+        """Bytes per staged expert-panel element (narrow under any spec)."""
+        if self.quant is not None:
+            return self.quant.wire_itemsize
         return itemsize(self.dtype)
 
     @property
     def compute_dtype(self) -> str:
+        """Dtype pricing the products (see GemmDescriptor.compute_dtype)."""
+        if self.quant is not None and not self.quant.weight_only:
+            return self.quant.dtype
         return self.dtype
 
     @property
@@ -462,8 +572,12 @@ class GroupedGemmDescriptor(KernelDescriptor):
 
     @property
     def in_bytes(self) -> int:
-        return (self.t * self.k + self.num_experts * self.k * self.n) \
-            * itemsize(self.dtype)
+        total = (self.t * self.k * self.x_wire_itemsize
+                 + self.num_experts * self.k * self.n * self.w_wire_itemsize)
+        if self.quant is not None:
+            # per-expert column scales (+ per-row activation scales)
+            total += (self.num_experts * self.n + self.t) * 4
+        return total
 
     @property
     def out_bytes(self) -> int:
@@ -481,8 +595,12 @@ class GroupedGemmBwdDescriptor(GroupedGemmDescriptor):
     @classmethod
     def from_forward(cls, desc: GroupedGemmDescriptor
                      ) -> "GroupedGemmBwdDescriptor":
-        """Backward descriptor sharing a forward descriptor's geometry."""
-        return cls(**dataclasses.asdict(desc))
+        """Backward descriptor sharing a forward descriptor's geometry.
+        The quant spec is dropped: quantization is an inference axis, and
+        the backward runs in the wide dtype."""
+        fields = dataclasses.asdict(desc)
+        fields["quant"] = None
+        return cls(**fields)
 
     @property
     def flops(self) -> int:
@@ -502,3 +620,47 @@ class GroupedGemmBwdDescriptor(GroupedGemmDescriptor):
         if self.epilogue in BIAS_EPILOGUES:
             total += self.num_experts * self.n * 4
         return total
+
+
+@dataclasses.dataclass(frozen=True)
+class TransposeDescriptor(KernelDescriptor):
+    """Blocked (batched) 2-D transpose: (..., rows, cols) -> (..., cols,
+    rows).  ``batch`` is a grid dimension of the one launch, so a batched
+    transpose is ONE launch."""
+
+    family = "transpose"
+
+    rows: int
+    cols: int
+    dtype: str = "float32"
+    # leading batch dim shared by in/out; 0 => unbatched 2-D transpose
+    batch: int = 0
+
+    def __post_init__(self):
+        if self.rows <= 0 or self.cols <= 0:
+            raise ValueError(f"transpose dims must be positive, got {self}")
+
+    @classmethod
+    def from_operands(cls, x):
+        batch = 0
+        if x.ndim == 3:
+            batch = x.shape[0]
+        elif x.ndim != 2:
+            raise ValueError(f"transpose operand must be rank 2 or 3, "
+                             f"got {x.ndim}")
+        rows, cols = x.shape[-2], x.shape[-1]
+        return cls(rows=rows, cols=cols, dtype=canonical_dtype(x.dtype),
+                   batch=batch)
+
+    @property
+    def flops(self) -> int:
+        return 0  # pure data movement
+
+    @property
+    def in_bytes(self) -> int:
+        return max(1, self.batch) * self.rows * self.cols \
+            * itemsize(self.dtype)
+
+    @property
+    def out_bytes(self) -> int:
+        return self.in_bytes

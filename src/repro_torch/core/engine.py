@@ -48,6 +48,7 @@ _FAMILY_MODULES = {
     "grouped_gemm_bwd": "repro_torch.kernels.grouped_gemm.ops",
     "ssd_chunk": "repro_torch.kernels.ssd_chunk.ops",
     "ssd_chunk_bwd": "repro_torch.kernels.ssd_chunk.ops",
+    "transpose": "repro_torch.kernels.transpose.ops",
 }
 
 PLAN_CACHE = LruCache(max_entries=65536)

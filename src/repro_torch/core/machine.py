@@ -23,7 +23,9 @@ kernels accept rather than from a scratchpad size:
     ``csrc/ssd_scan_bwd.cu``);
   * the grouped-GEMM kernels take the ``(bm, bk, bn)`` tilings of
     ``grouped_blocks`` (the shapes ``csrc/grouped.cu`` instantiates), each
-    of which must fit its static shared memory (``grouped_smem_bytes``).
+    of which must fit its static shared memory (``grouped_smem_bytes``);
+  * the transpose kernel takes the square tile edges ``transpose_tiles``
+    (the ones ``csrc/transpose.cu`` instantiates).
 
 The dispatch overheads are pinned assumptions, not measurements; a later
 calibration replaces them.
@@ -43,13 +45,17 @@ DEFAULT_FUSED_TILE_DECODE_S = 6e-7
 DEFAULT_EXTRA_LAUNCH_FACTOR = 0.25
 DEFAULT_STITCH_DISCOUNT = 0.25
 
+# The e4m3 wire dtype of the quant axis (``jnp.float8_e4m3fn`` in the
+# reference): 4 exponent bits, 3 mantissa bits, no infinities, +-448.
+FP8_DTYPE = torch.float8_e4m3fn
+
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1,
              "float8_e4m3": 1, "float64": 8}
 
 _TORCH_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16", torch.int8: "int8",
                 torch.float64: "float64",
-                torch.float8_e4m3fn: "float8_e4m3"}
+                FP8_DTYPE: "float8_e4m3"}
 
 _NAME_TO_TORCH = {v: k for k, v in _TORCH_NAMES.items()}
 
@@ -121,6 +127,9 @@ class MachineModel:
     # stages whole operands.
     grouped_blocks: Optional[Tuple[Tuple[int, int, int], ...]] = None
     grouped_smem_bytes: Optional[int] = None
+    # Square tile edges the transpose kernel instantiates; None: legality
+    # is the VMEM fit of a staged (bt, bt) tile.
+    transpose_tiles: Optional[Tuple[int, ...]] = None
 
     @functools.cached_property
     def fingerprint(self) -> str:
@@ -147,9 +156,11 @@ TPU_V5E = MachineModel(
     lanes=128,
 )
 
-# NVIDIA H100 SXM: 989 TFLOP/s bf16/fp16 dense, 1979 fp8/int8, 67 TFLOP/s
-# fp32 outside the tensor cores (the port's fp32 GEMMs never use TF32),
-# 80 GB HBM3 at 3.35 TB/s, 227 KB shared memory per block.
+# NVIDIA H100 SXM (NVIDIA's H100 data sheet, SXM5 part, dense rates
+# without sparsity, at the 700 W limit): 989 TFLOP/s bf16/fp16, 1,979
+# TFLOP/s fp8 (e4m3) and 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s
+# fp32 outside them (the port's fp32 GEMMs never use TF32), 80 GB HBM3 at
+# 3.35 TB/s, 227 KB shared memory per block.
 H100_SXM = MachineModel(
     name="h100_sxm",
     peak_flops={"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
@@ -181,6 +192,7 @@ H100_SXM = MachineModel(
     grouped_blocks=((16, 32, 64), (16, 32, 128), (64, 32, 64),
                     (64, 32, 128), (128, 32, 64), (128, 32, 128)),
     grouped_smem_bytes=48 * 1024,
+    transpose_tiles=(32, 64),
 )
 
 DEFAULT_MACHINE = H100_SXM

@@ -10,6 +10,12 @@ Both backends share the reference's backward (``_dot_bwd``): the
 cotangent is rounded to the operands' dtype and dA / dB come out in the
 operands' dtypes, accumulated in fp32 -- bf16 gradients from bf16
 operands, as the reference's XLA path gives them.
+
+A :class:`~repro_torch.optim.compression.QuantizedTensor` ``b`` (W8A16
+weights quantized at load) takes the inference path
+:func:`_w8a16_matmul`: the engine's quantized GEMM, or under ``torch`` the
+commuted contraction ``(a @ q) * s``.  Gradients reach ``a`` only through
+the latter, as in the reference.
 """
 from __future__ import annotations
 
@@ -40,6 +46,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
     be = get_config().backend
     out_dtype = out_dtype or a.dtype
     check_bias(epilogue, bias)
+    from repro_torch.optim.compression import QuantizedTensor
+    if isinstance(b, QuantizedTensor):
+        return _w8a16_matmul(a, b, be, layout, epilogue, bias, out_dtype)
     if be == "torch":
         return _torch_gemm(a, b, c, layout, epilogue, bias, out_dtype)
 
@@ -52,6 +61,33 @@ def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
     out = _EngineGemm.apply(a, b, c, bias, layout, epilogue, out_dtype)
     if lead is not None:
         out = out.reshape(*lead, out.shape[-1])
+    return out
+
+
+def _w8a16_matmul(a, bq, be, layout, epilogue, bias, out_dtype):
+    """Weight-only quantized dense layer, ``epilogue(a @ deq(bq))``.  The
+    column scales are separable, so the dequant commutes through the
+    contraction: ``a @ (q * s) == (a @ q) * s``.  The engine backend runs
+    the quantized GEMM family (one fused launch, dequant in the epilogue);
+    the torch backend the commuted contraction in fp32.  Either way the
+    narrow weight is what is read."""
+    from repro_torch.optim.compression import expand_scale
+    if layout != "nn":
+        raise ValueError("QuantizedTensor weights support layout='nn' only")
+    n = bq.shape[1]
+    lead = None
+    if a.ndim > 2:
+        lead = a.shape[:-1]
+        a = a.reshape(-1, a.shape[-1])
+    if be == "engine":
+        from repro_torch.kernels.gemm.ops import gemm
+        out = gemm(a, bq, epilogue=epilogue, bias=bias, out_dtype=out_dtype)
+    else:
+        acc = _product32(a, bq.q, "nn")
+        sb = expand_scale(bq.scale, bq.spec, n)[None, :]
+        out = apply_epilogue(acc, epilogue, bias, sb).to(out_dtype)
+    if lead is not None:
+        out = out.reshape(*lead, n)
     return out
 
 

@@ -40,9 +40,10 @@ def round_up(a: int, b: int) -> int:
     return ceil_div(a, b) * b
 
 
-# Channel-block width of the reference's per-tile quant scales.  The
-# quant axis is not ported, but every tile row still carries its
-# ``scale_idx`` column so the tables stay equal to the reference's.
+# Channel-block width of the per-tile quant scales (``per_tile`` scheme,
+# ``repro_torch.optim.compression``).  Every tile row carries its
+# ``scale_idx`` column, as the reference's tables do; the kernels take
+# dense expanded scale vectors and do not read it.
 QUANT_TILE = 128
 
 

@@ -8,9 +8,10 @@ interface:
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <name>.cu
 
 All sources are compiled in parallel, one nvcc each.  The output name
-carries a hash of the source, the ``*.cuh`` headers beside it and the
-flags, so an edited source or header rebuilds and an unchanged one is
-reused.  A missing nvcc, a failed build or a
+carries a hash of the source, every ``kernels/*/csrc/*.cuh`` header (a
+header may be shared across families: ``gemm/csrc/quant_tile.cuh`` is
+included by the quantized GEMM and grouped GEMM) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused.  A missing nvcc, a failed build or a
 kernel that reports a launch error raises; nothing falls back.
 
 The libraries go to ``$REPRO_TORCH_BUILD_DIR`` if it is set, else to
@@ -68,10 +69,10 @@ def build_dir() -> Path:
 
 
 def _target(src: Path) -> Path:
-    """The library's path, named by a hash of the source, the headers
-    beside it and the flags."""
+    """The library's path, named by a hash of the source, the kernel
+    headers and the flags."""
     blob = src.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+        h.read_bytes() for h in sorted(_KERNELS_DIR.glob("*/csrc/*.cuh")))
     digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{src.stem}-{digest[:16]}.so"
 
@@ -132,6 +133,7 @@ def stream_ptr(tensor) -> int:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 

@@ -1,11 +1,15 @@
-"""Shared epilogue: bias, then activation, on the fp32 accumulator.
+"""Shared epilogue: dequant, then bias, then activation, on the
+accumulator.
 
 The CUDA kernels apply the same tail in ``epilogue()`` of
-``kernels/gemm/csrc/gemm.cu``; this is its plain torch form, used by
-every plain version and by the ``torch`` backend.  ``gelu`` is the tanh
+``kernels/gemm/csrc/gemm.cu`` (and the quantized kernels' epilogue in
+``kernels/gemm/csrc/quant_tile.cuh``); this is its plain torch form, used
+by every plain version and by the ``torch`` backend.  ``dequant`` is the
+quant axis's f32 factor (``sa * sb`` for a fully quantized product, the
+column scales alone for W8A16), applied to the accumulator (int32 for
+int8 operands) in f32 before bias and activation.  ``gelu`` is the tanh
 approximation (the reference's ``jax.nn.gelu`` default), ``silu`` is
-``x * sigmoid(x)``, ``relu`` is ``max(x, 0)``.  The quant axis's dequant
-stage is not ported.
+``x * sigmoid(x)``, ``relu`` is ``max(x, 0)``.
 """
 from __future__ import annotations
 
@@ -23,9 +27,12 @@ def needs_bias(epilogue: Optional[str]) -> bool:
 
 
 def apply_epilogue(x: torch.Tensor, epilogue: Optional[str],
-                   bias_blk: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Lower one epilogue onto an (fp32) accumulator block; ``bias_blk``
-    broadcasts against its last dim."""
+                   bias_blk: Optional[torch.Tensor] = None,
+                   dequant: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Lower one epilogue onto an accumulator block; ``bias_blk`` and
+    ``dequant`` broadcast against it."""
+    if dequant is not None:
+        x = x.float() * dequant
     if needs_bias(epilogue):
         x = x + bias_blk.to(x.dtype)
     if epilogue in ("gelu", "bias_gelu"):

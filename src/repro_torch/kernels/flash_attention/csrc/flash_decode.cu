@@ -21,8 +21,17 @@
 // never multiplied (stale pages may hold NaN), so an empty slot's one dummy
 // row (k_len = 0: every p = exp(0) = 1) drains exact zeros through
 // acc / max(l, 1e-30); scores are scaled in fp32; P is rounded to V's type
-// before the PV product.  KV-int8 pools (the reference's kv_quant) are not
-// ported.
+// before the PV product.
+//
+// KV-int8 pools (the reference's kv_quant=True, _decode_flash_kernel's
+// quant branch): the pools hold int8 values with per-token f32 scales,
+// (pages, P) arrays k_scale / v_scale on the same page walk.  The values
+// widen exactly; the scales are separable by page position, so the K
+// scale multiplies a score column after the hd^-0.5 scaling
+// (q . (k s) = (q . k) s), and the V scale folds into P before it is
+// rounded to q's type for the PV product (sum_j p_j (v_j s_j) =
+// sum_j (p_j s_j) v_j); the softmax sum l takes the unscaled p.  A dead
+// slot's scales are selected to 0 like its values, never multiplied in.
 //
 // What bounds it on the H100 at the serving shape (8 slots, 16 query / 8 KV
 // heads of 128, page 16, bf16, a few hundred positions a slot): about 4 h hd
@@ -37,6 +46,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -53,6 +63,8 @@ struct DecodeArgs {
   void* o;             // (S, h, hd)
   const int* table;    // (max_tiles, 5): seq page k_len first last
   const int* bstart;   // (S + 1,): slot s's rows [bstart[s], bstart[s+1])
+  const float* ks;     // (pages, P) K scales of int8 pools, else null
+  const float* vs;     // (pages, P) V scales of int8 pools, else null
   int h, hkv, hd, page_size;
   float scale;
 };
@@ -61,6 +73,9 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(signed char x) {
+  return static_cast<float>(x);
+}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -68,10 +83,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // Shared-memory carve-up (floats): the group's q rows, one page of k
-// (padded rows) and v, the scores (padded rows), the output accumulator
-// and the per-head m / l / alpha.
+// (padded rows) and v, the scores (padded rows), the output accumulator,
+// the per-head m / l / alpha and the page's K and V scales (int8 pools).
 struct Smem {
-  float *q, *k, *v, *s, *acc, *m, *l, *alpha;
+  float *q, *k, *v, *s, *acc, *m, *l, *alpha, *ks, *vs;
   __device__ Smem(float* base, int rep, int page, int d) {
     q = base;
     k = q + rep * d;
@@ -81,19 +96,24 @@ struct Smem {
     m = acc + rep * d;
     l = m + rep;
     alpha = l + rep;
+    ks = alpha + rep;
+    vs = ks + page;
   }
 };
 
-template <typename T>
+// T: q's (and the output's) type; TKV: the pools' (T, or signed char for
+// KV-int8 pools with their scales).
+template <typename T, typename TKV>
 __global__ void __launch_bounds__(NT) flash_decode_kernel(DecodeArgs f) {
+  constexpr bool QUANT = std::is_same<TKV, signed char>::value;
   extern __shared__ float smem[];
   const int rep = f.h / f.hkv, d = f.hd, P = f.page_size;
   const Smem sm(smem, rep, P, d);
   const int slot = blockIdx.x, g = blockIdx.y;
   const int64_t head0 = (int64_t)slot * f.h + (int64_t)g * rep;
   const T* Q = reinterpret_cast<const T*>(f.q) + head0 * d;
-  const T* K = reinterpret_cast<const T*>(f.k);
-  const T* V = reinterpret_cast<const T*>(f.v);
+  const TKV* K = reinterpret_cast<const TKV*>(f.k);
+  const TKV* V = reinterpret_cast<const TKV*>(f.v);
   T* O = reinterpret_cast<T*>(f.o) + head0 * d;
   for (int i = threadIdx.x; i < rep * d; i += NT) sm.q[i] = to_f(Q[i]);
 
@@ -119,6 +139,13 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(DecodeArgs f) {
       sm.k[j * (d + 1) + c] = live ? to_f(K[at]) : 0.f;
       sm.v[j * d + c] = live ? to_f(V[at]) : 0.f;
     }
+    if (QUANT) {
+      for (int j = threadIdx.x; j < P; j += NT) {
+        const bool live = j < k_len;
+        sm.ks[j] = live ? f.ks[page * P + j] : 0.f;
+        sm.vs[j] = live ? f.vs[page * P + j] : 0.f;
+      }
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < rep * P; i += NT) {
       const int r = i / P, j = i % P;
@@ -126,7 +153,9 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(DecodeArgs f) {
       const float* kr = sm.k + j * (d + 1);
       float dot = 0.f;
       for (int c = 0; c < d; ++c) dot = fmaf(qr[c], kr[c], dot);
-      sm.s[r * (P + 1) + j] = j < k_len ? dot * f.scale : NEG_INF;
+      float sc = dot * f.scale;
+      if (QUANT) sc = sc * sm.ks[j];
+      sm.s[r * (P + 1) + j] = j < k_len ? sc : NEG_INF;
     }
     __syncthreads();
     for (int r = threadIdx.x; r < rep; r += NT) {
@@ -138,7 +167,9 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(DecodeArgs f) {
       for (int j = 0; j < P; ++j) {
         const float p = expf(sr[j] - m_new);
         sum += p;
-        sr[j] = to_f(from_f<T>(p));  // P in V's type for the PV product
+        // P (times the V scale of an int8 pool) in q's type for the PV
+        // product
+        sr[j] = to_f(from_f<T>(QUANT ? p * sm.vs[j] : p));
       }
       const float alpha = expf(m_prev - m_new);
       sm.l[r] = sm.l[r] * alpha + sum;
@@ -164,7 +195,7 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(DecodeArgs f) {
 size_t smem_bytes(int rep, int page, int d) {
   return sizeof(float) * (2 * (size_t)rep * d + (size_t)page * (d + 1) +
                           (size_t)page * d + (size_t)rep * (page + 1) +
-                          3 * (size_t)rep);
+                          3 * (size_t)rep + 2 * (size_t)page);
 }
 
 template <typename Kernel>
@@ -179,21 +210,32 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
 
 }  // namespace
 
+// dtype: q's (0 fp32, 1 bf16); the pools are q's type when k_scale and
+// v_scale are null, int8 when both are given.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             void* o, const int* table, const int* bstart,
+                            const float* k_scale, const float* v_scale,
                             int num_seqs, int h, int hkv, int hd,
                             int page_size, float scale, int dtype,
                             void* stream) {
   if (num_seqs < 1 || hkv < 1 || hkv > 65535 || h % hkv != 0 ||
       h / hkv > GROUP_MAX || hd < 1 || hd > D_MAX || page_size < 1 ||
-      page_size > PAGE_MAX)
+      page_size > PAGE_MAX || (k_scale == nullptr) != (v_scale == nullptr))
     return cudaErrorInvalidValue;
-  DecodeArgs f{q, k, v, o, table, bstart, h, hkv, hd, page_size, scale};
+  DecodeArgs f{q,       k,       v, o,   table, bstart,    k_scale,
+               v_scale, h,       hkv, hd, page_size, scale};
   dim3 grid(num_seqs, hkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_bytes(h / hkv, page_size, hd);
+  const bool quant = k_scale != nullptr;
   if (dtype == 1)
-    return launch(flash_decode_kernel<__nv_bfloat16>, grid, smem, s, f);
-  if (dtype == 0) return launch(flash_decode_kernel<float>, grid, smem, s, f);
+    return quant ? launch(flash_decode_kernel<__nv_bfloat16, signed char>,
+                          grid, smem, s, f)
+                 : launch(flash_decode_kernel<__nv_bfloat16, __nv_bfloat16>,
+                          grid, smem, s, f);
+  if (dtype == 0)
+    return quant ? launch(flash_decode_kernel<float, signed char>, grid, smem,
+                          s, f)
+                 : launch(flash_decode_kernel<float, float>, grid, smem, s, f);
   return cudaErrorInvalidValue;
 }

@@ -15,7 +15,10 @@ torch version.
   * :func:`flash_decode` -- one paged decode step over a KV pool, one
     thread block per (slot, KV head) walking that slot's rows of the
     runtime :class:`~repro_torch.core.schedule.DecodeTileSchedule` table
-    (the counterpart of ``build_decode_flash_kernel``).
+    (the counterpart of ``build_decode_flash_kernel``); with int8 pools
+    and their per-token ``(pages, page_size)`` f32 scales it is the same
+    kernel's KV-int8 branch (``kv_quant=True``), counted apart as
+    ``flash_decode_int8``.
 
 Operands are ``(BH, s, d)``, or for decode ``q (S, h, hd)`` against
 ``(pages, page_size, hkv, hd)`` pools.  A wrapper runs its plain version only for
@@ -41,7 +44,7 @@ MAX_BLOCK = 64
 MAX_HEAD_DIM = 128
 
 LAUNCHES = {"flash_fwd_fused": 0, "flash_fwd_dense": 0, "flash_bwd_fused": 0,
-            "flash_decode": 0}
+            "flash_decode": 0, "flash_decode_int8": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -112,7 +115,7 @@ def _lib(name: str):
             lib.flash_bwd_fused.argtypes = [P] * 12 + [I] * 8 + [Fl, I, P]
             lib.flash_bwd_fused.restype = I
         else:
-            lib.flash_decode.argtypes = [P] * 6 + [I] * 5 + [Fl, I, P]
+            lib.flash_decode.argtypes = [P] * 8 + [I] * 5 + [Fl, I, P]
             lib.flash_decode.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
@@ -234,8 +237,21 @@ def flash_fwd_dense(qf, kf, vf, *, block_q: int, block_k: int,
     return out
 
 
-def _check_decode(exe: FlashDecode, q, k_pool, v_pool):
+def _check_decode(exe: FlashDecode, q, k_pool, v_pool, k_scale=None,
+                  v_scale=None):
     sch = exe.schedule
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale come together")
+    if quant:
+        want = tuple(k_pool.shape[:2])
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(t.shape) != want or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be {want} float32, got "
+                                 f"{tuple(t.shape)} {t.dtype}")
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise ValueError(f"scaled pools must be int8, got "
+                             f"{k_pool.dtype}, {v_pool.dtype}")
     if q.ndim != 3 or k_pool.ndim != 4 or k_pool.shape != v_pool.shape \
             or q.shape[2] != k_pool.shape[3] \
             or q.shape[1] % k_pool.shape[2]:
@@ -248,35 +264,43 @@ def _check_decode(exe: FlashDecode, q, k_pool, v_pool):
                          f"{tuple(q.shape)}, pool {tuple(k_pool.shape)}")
     if q.is_cuda:
         for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                        ("table", exe.table)):
-            if t.device != q.device or not t.is_contiguous():
+                        ("table", exe.table), ("k_scale", k_scale),
+                        ("v_scale", v_scale)):
+            if t is not None and (t.device != q.device
+                                  or not t.is_contiguous()):
                 raise ValueError(f"{name} must be contiguous on {q.device}")
-        if not (q.dtype == k_pool.dtype == v_pool.dtype) \
-                or q.dtype not in _DTYPE_CODE:
+        if q.dtype not in _DTYPE_CODE or not (
+                quant or q.dtype == k_pool.dtype == v_pool.dtype):
             raise ValueError(f"the CUDA decode kernel takes float32 or "
-                             f"bfloat16 q and pools of one dtype, got "
-                             f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+                             f"bfloat16 q and pools of q's dtype (or int8 "
+                             f"pools with scales), got {q.dtype}, "
+                             f"{k_pool.dtype}, {v_pool.dtype}")
         # Page size, head dim and GQA group: plan_flash_decode holds them
         # to H100_SXM.decode_max_*, and the .cu entry refuses the rest.
     elif q.device.type != "cpu":
         raise RuntimeError(f"no decode kernel for device {q.device}")
 
 
-def flash_decode(exe: FlashDecode, q, k_pool, v_pool) -> torch.Tensor:
+def flash_decode(exe: FlashDecode, q, k_pool, v_pool, k_scale=None,
+                 v_scale=None) -> torch.Tensor:
     """One launch over the tile table ``exe`` holds (:meth:`FlashDecode.
-    update`) -> ``(S, h, hd)`` in q's dtype; an empty slot's row is 0."""
-    _check_decode(exe, q, k_pool, v_pool)
+    update`) -> ``(S, h, hd)`` in q's dtype; an empty slot's row is 0.
+    With ``k_scale``/``v_scale`` (``(pages, page_size)`` f32) the pools
+    are int8 and the launch is the KV-int8 branch."""
+    _check_decode(exe, q, k_pool, v_pool, k_scale, v_scale)
     if not q.is_cuda:
-        return flash_decode_plain(exe, q, k_pool, v_pool)
+        return flash_decode_plain(exe, q, k_pool, v_pool, k_scale, v_scale)
     S, h, hd = q.shape
     out = torch.empty_like(q)
     status = _lib("flash_decode").flash_decode(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
-        _build.ptr(out), _build.ptr(exe.table), _build.ptr(exe.bstart), S, h,
-        k_pool.shape[2], hd, k_pool.shape[1], hd ** -0.5,
-        _DTYPE_CODE[q.dtype], _build.stream_ptr(q))
-    LAUNCHES["flash_decode"] += 1
-    _build.check(status, "flash_decode")
+        _build.ptr(out), _build.ptr(exe.table), _build.ptr(exe.bstart),
+        _build.ptr(k_scale), _build.ptr(v_scale), S, h, k_pool.shape[2], hd,
+        k_pool.shape[1], hd ** -0.5, _DTYPE_CODE[q.dtype],
+        _build.stream_ptr(q))
+    name = "flash_decode" if k_scale is None else "flash_decode_int8"
+    LAUNCHES[name] += 1
+    _build.check(status, name)
     return out
 
 
@@ -414,12 +438,15 @@ def flash_fwd_dense_plain(qf, kf, vf, *, block_q: int, block_k: int,
     return out
 
 
-def flash_decode_plain(exe: FlashDecode, q, k_pool, v_pool) -> torch.Tensor:
+def flash_decode_plain(exe: FlashDecode, q, k_pool, v_pool, k_scale=None,
+                       v_scale=None) -> torch.Tensor:
     """Walk the decode table's live rows (``[0, bstart[-1])``) as the kernel
     does, all heads of a row at once: K/V of dead page slots selected to
     0, their scores to -1e30, a per-head m/l/acc carry reset at ``first``
     and drained at ``last`` through ``acc / max(l, 1e-30)``, P rounded to
-    q's dtype before the PV product."""
+    q's dtype before the PV product.  With int8 pools the K scales
+    multiply the score columns and the V scales fold into P before it is
+    rounded (both selected to 0 on dead slots)."""
     if q.is_cuda:
         disable_tf32()
     S, h, hd = q.shape
@@ -439,11 +466,15 @@ def flash_decode_plain(exe: FlashDecode, q, k_pool, v_pool) -> torch.Tensor:
         k = torch.where(live, k_pool[page].float(), 0.0)  # (P, hkv, hd)
         v = torch.where(live, v_pool[page].float(), 0.0)
         s = torch.einsum("grd,pgd->grp", qg[seq], k) * scale
+        if k_scale is not None:
+            s = s * torch.where(cols < k_len, k_scale[page], 0.0)
         s = torch.where(cols < k_len, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
+        if v_scale is not None:
+            p = p * torch.where(cols < k_len, v_scale[page], 0.0)
         acc = acc * alpha + torch.einsum("grp,pgd->grd",
                                          p.to(q.dtype).float(), v)
         m = m_new

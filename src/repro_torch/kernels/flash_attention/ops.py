@@ -14,7 +14,8 @@ Either counts one launch.  The backward family ``flash_attention_bwd``
 is ONE launch of ``flash_bwd_fused`` over the same table.  The paged
 decode family ``flash_decode`` is ONE launch of ``flash_decode`` per
 decode step, over the runtime table of the step's block tables and
-lengths (:func:`paged_decode_attention`).  Gradients
+lengths (:func:`paged_decode_attention`); KV-int8 pools ride the same
+launch with their per-token scales.  Gradients
 flow through :class:`_FlashFn` (the reference's ``_flash_vjp``): when the
 scheduled backward is legal its forward runs ``flash_fwd_fused`` with the
 LSE rows and its backward dispatches the backward descriptor; otherwise
@@ -87,19 +88,26 @@ engine.register_family("flash_attention_bwd", planner=plan_flash_bwd,
 
 
 def execute_decode(desc: FlashDecodeDescriptor, plan: FlashDecodePlan, q,
-                   k_pool, v_pool, block_tables, lengths) -> torch.Tensor:
+                   k_pool, v_pool, block_tables, lengths, *, k_scale=None,
+                   v_scale=None) -> torch.Tensor:
     """Engine executor: one planned paged decode-attention step.
 
     The kernel state is cached on the pool geometry alone; the batch
     composition (block tables and lengths) is rewritten into its device
-    tile table each call, so a churning batch re-enters the same state."""
+    tile table each call, so a churning batch re-enters the same state.
+    KV-int8 pools (``k_scale``/``v_scale``, ``(pages, page_size)`` f32)
+    ride the same launch."""
     engine.count_launches("flash_decode", 1)
+    kv_quant = k_scale is not None
     key = desc.cache_key() + ("decode", canonical_dtype(k_pool.dtype),
-                              str(q.device))
+                              kv_quant, str(q.device))
     exe = engine.build_cached(key, lambda: FlashDecode(plan.tile_schedule(),
                                                        q.device))
     exe.update(block_tables, lengths)
-    return flash_decode(exe, q.contiguous(), k_pool, v_pool)
+    if kv_quant:
+        k_scale, v_scale = k_scale.float(), v_scale.float()
+    return flash_decode(exe, q.contiguous(), k_pool, v_pool, k_scale,
+                        v_scale)
 
 
 engine.register_family("flash_decode", planner=plan_flash_decode,
@@ -113,12 +121,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     q: (S, h, hd), one query row per decode slot; k_pool/v_pool: (pages,
     page_size, hkv, hd); block_tables: (S, max_blocks) int32 page ids;
     lengths: (S,) live KV length per slot (0 = inactive: the output row is
-    zeros).  Returns (S, h, hd).  KV-int8 pools (``k_scale``/``v_scale``)
-    are not ported."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("KV-int8 decode pools are not ported")
+    zeros).  Returns (S, h, hd).  With int8 pools, ``k_scale``/``v_scale``
+    are the per-token dequant rows ``(pages, page_size)`` f32: the same
+    launch count, the scales folded into the score and PV algebra."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
     desc = FlashDecodeDescriptor.from_operands(q, k_pool, block_tables)
-    return engine.dispatch(desc, q, k_pool, v_pool, block_tables, lengths)
+    return engine.dispatch(desc, q, k_pool, v_pool, block_tables, lengths,
+                           k_scale=k_scale, v_scale=v_scale)
 
 
 def _flat_desc(causal: bool, qf, kf) -> FlashDescriptor:

@@ -1,10 +1,14 @@
-"""Wrappers around the Hopper GEMM kernels (``csrc/gemm.cu``), each beside
-its plain torch version.
+"""Wrappers around the Hopper GEMM kernels (``csrc/gemm.cu`` and
+``csrc/gemm_quant.cu``), each beside its plain torch version.
 
   * :func:`gemm_fused` -- one launch over a whole plan's tile table (the
     counterpart of the reference's ``build_fused_gemm_kernel``);
   * :func:`gemm_region` -- one launch per plan region, writing into the
-    full C (the counterpart of ``build_gemm_kernel``).
+    full C (the counterpart of ``build_gemm_kernel``);
+  * :func:`gemm_quant` -- the quantized form of ``gemm_fused``: int8 or
+    e4m3 operands with their row and column scales, or a bf16 / fp32 A
+    with an int8 / e4m3 B (W8A16), dequant fused into the epilogue (the
+    counterpart of ``build_fused_gemm_kernel(quant=)``).
 
 A wrapper runs its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; nothing falls back.  Each
@@ -17,10 +21,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.machine import H100_SXM
+from repro_torch.core.machine import FP8_DTYPE, H100_SXM
 from repro_torch.core.schedule import TileSchedule, pack_table
 from repro_torch.kernels import _build, disable_tf32
 from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
+from repro_torch.kernels.gemm.ref import ref_quant_gemm
 
 # The H100_SXM palette owns the kernel's shapes: gemm.cu instantiates its
 # (bm, bn) accumulator blockings in this order (its ``tile_by_shape``
@@ -30,9 +35,13 @@ TEMPLATE_SHAPES = tuple(itertools.product(H100_SXM.bm_candidates,
                                           H100_SXM.bn_candidates))
 K_PANEL = H100_SXM.k_panel
 
-LAUNCHES = {"gemm_fused": 0, "gemm_region": 0}
+LAUNCHES = {"gemm_fused": 0, "gemm_region": 0, "gemm_quant": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Operand codes of the quantized kernels (quant_tile.cuh's DT_*).
+QUANT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              FP8_DTYPE: 3}
+WIRE_DTYPES = (torch.int8, FP8_DTYPE)
 _EPILOGUE_CODE = {None: 0, "bias": 1, "gelu": 2, "silu": 3, "relu": 4,
                   "bias_gelu": 5, "bias_silu": 6}
 
@@ -67,21 +76,25 @@ class FusedGemm:
                                        device=self.device)
 
 
-_LIB = None
+_LIBS = {}
 
 
-def _lib():
-    """The built library, with its C signatures declared (once)."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.library("gemm")
+def _lib(name: str = "gemm"):
+    """The built library ``gemm`` or ``gemm_quant``, with its C signatures
+    declared (once)."""
+    if name not in _LIBS:
+        lib = _build.library(name)
         P, I = _build.P, _build.I
-        lib.gemm_fused.argtypes = [P] * 7 + [I] * 11 + [P]
-        lib.gemm_fused.restype = I
-        lib.gemm_region.argtypes = [P] * 5 + [I] * 16 + [P]
-        lib.gemm_region.restype = I
-        _LIB = lib
-    return _LIB
+        if name == "gemm":
+            lib.gemm_fused.argtypes = [P] * 7 + [I] * 11 + [P]
+            lib.gemm_fused.restype = I
+            lib.gemm_region.argtypes = [P] * 5 + [I] * 16 + [P]
+            lib.gemm_region.restype = I
+        else:
+            lib.gemm_quant.argtypes = [P] * 8 + [I] * 10 + [P]
+            lib.gemm_quant.restype = I
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
 def _check_operands(a, b, bias, c, out_dtype, layout, epilogue):
@@ -184,6 +197,85 @@ def gemm_region(a, b, out, region, *, layout: str = "nn",
     _build.check(status, "gemm_region")
 
 
+def _check_quant(a, b, sa, sb, bias, out_dtype, layout, epilogue):
+    """Validate what the quantized kernel takes; returns (m, n, k)."""
+    if layout not in ("nn", "nt"):
+        raise ValueError(f"layout must be nn or nt, got {layout!r}")
+    if epilogue not in _EPILOGUE_CODE:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"the quantized GEMM is unbatched: A{tuple(a.shape)} "
+                         f"B{tuple(b.shape)}")
+    m, k = a.shape
+    n, kb = (b.shape[1], b.shape[0]) if layout == "nn" else b.shape
+    if kb != k:
+        raise ValueError(f"contraction mismatch A{tuple(a.shape)} {layout} "
+                         f"B{tuple(b.shape)}")
+    if b.dtype not in WIRE_DTYPES:
+        raise ValueError(f"B must be int8 or float8_e4m3, got {b.dtype}")
+    if sa is not None:
+        if a.dtype != b.dtype:
+            raise ValueError(f"fully quantized A and B differ: {a.dtype}, "
+                             f"{b.dtype}")
+        if tuple(sa.shape) != (m,) or sa.dtype != torch.float32:
+            raise ValueError(f"sa must be ({m},) float32")
+    elif a.dtype not in _DTYPE_CODE:
+        raise ValueError(f"a weight-only A is float32 or bfloat16, got "
+                         f"{a.dtype}")
+    if tuple(sb.shape) != (n,) or sb.dtype != torch.float32:
+        raise ValueError(f"sb must be ({n},) float32")
+    if bias is not None and tuple(bias.shape) != (n,):
+        raise ValueError(f"bias has shape {tuple(bias.shape)}, expected {(n,)}")
+    if needs_bias(epilogue) and bias is None:
+        raise ValueError(f"epilogue {epilogue!r} requires a bias operand")
+    if a.is_cuda:
+        for name, t in (("a", a), ("b", b), ("sa", sa), ("sb", sb),
+                        ("bias", bias)):
+            if t is not None and (t.device != a.device
+                                  or not t.is_contiguous()):
+                raise ValueError(f"{name} must be contiguous on {a.device}")
+        if bias is not None and bias.dtype not in _DTYPE_CODE:
+            raise ValueError(f"bias must be float32 or bfloat16")
+        if out_dtype not in _DTYPE_CODE:
+            raise ValueError(f"unsupported output dtype {out_dtype}")
+    elif a.device.type != "cpu":
+        raise RuntimeError(f"no GEMM kernel for device {a.device}")
+    return m, n, k
+
+
+def gemm_quant(exe: FusedGemm, a, b, sa, sb, *, layout: str = "nn",
+               epilogue: Optional[str] = None, bias=None,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """One launch over the whole tile table of a quantized GEMM: ``a (m,
+    k)`` int8 / e4m3 with row scales ``sa (m,)`` (full quant), or bf16 /
+    fp32 with ``sa=None`` (W8A16); ``b (k, n)`` or ``(n, k)`` int8 /
+    e4m3 with column scales ``sb (n,)`` -> ``(m, n)`` in ``out_dtype``."""
+    m, n, k = _check_quant(a, b, sa, sb, bias, out_dtype, layout, epilogue)
+    s = exe.schedule
+    if (s.m, s.n, s.k) != (m, n, k):
+        raise ValueError(f"schedule is for {(s.m, s.n, s.k)}, operands "
+                         f"are {(m, n, k)}")
+    if not a.is_cuda:
+        return gemm_quant_plain(a, b, sa, sb, layout=layout,
+                                epilogue=epilogue, bias=bias,
+                                out_dtype=out_dtype)
+    if exe.table is None or exe.table.device != a.device:
+        raise ValueError(f"executor built for {exe.device}, operands on "
+                         f"{a.device}")
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    status = _lib("gemm_quant").gemm_quant(
+        _build.ptr(a), _build.ptr(b), _build.ptr(sa), _build.ptr(sb),
+        _build.ptr(bias), _build.ptr(out), _build.ptr(exe.table),
+        _build.ptr(exe.blocks), s.num_tiles, m, n, k, int(layout == "nt"),
+        QUANT_CODE[a.dtype], QUANT_CODE[b.dtype],
+        0 if bias is None else _DTYPE_CODE[bias.dtype],
+        _DTYPE_CODE[out_dtype], _EPILOGUE_CODE[epilogue],
+        _build.stream_ptr(a))
+    LAUNCHES["gemm_quant"] += 1
+    _build.check(status, "gemm_quant")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plain torch versions (the CPU path, and the card-side comparison)
 # ---------------------------------------------------------------------------
@@ -229,6 +321,18 @@ def gemm_region_plain(a, b, out, region, *, layout="nn", epilogue=None,
         acc = acc + c[:, r0:r1, c0:c1].float()
     acc = apply_epilogue(acc, epilogue, None if bias is None else bias[c0:c1])
     out[:, r0:r1, c0:c1] = acc.to(out.dtype)
+
+
+def gemm_quant_plain(a, b, sa, sb, *, layout="nn", epilogue=None, bias=None,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """The quantized kernel's arithmetic over the whole output at once
+    (every element is owned by one tile, which sums its whole K): the
+    exact-wide product (int32 for int8), the dequant factor, bias and
+    activation (:func:`~repro_torch.kernels.gemm.ref.ref_quant_gemm`)."""
+    if a.is_cuda:
+        disable_tf32()
+    return ref_quant_gemm(a, b, sa, sb, layout=layout, epilogue=epilogue,
+                          bias=bias, out_dtype=out_dtype)
 
 
 def reset_launches() -> None:

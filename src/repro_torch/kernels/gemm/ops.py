@@ -11,21 +11,31 @@ bit):
     writing its rectangle straight into the output.
 
 Both report their launch counts through ``engine.count_launches``.
+
+A quantized descriptor (``desc.quant``) runs ONE ``gemm_quant`` launch
+over the same tile table when the plan is fused; the region kernel has no
+quant form, so its non-fused lowering is the reference's ``_xla_quant_gemm``
+in torch (one exact-wide contraction, then dequant and epilogue), which
+launches no kernel of the engine.  On ``H100_SXM`` quantized plans are
+fused (:func:`~repro_torch.core.blocking.plan_gemm`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch.core import engine
 from repro_torch.core.blocking import BlockingPlan, plan_gemm
-from repro_torch.core.config import use
-from repro_torch.core.descriptor import GemmDescriptor, check_bias
+from repro_torch.core.config import get_config, use
+from repro_torch.core.descriptor import (GemmDescriptor, check_bias,
+                                         resolve_quant)
 from repro_torch.core.machine import torch_dtype
 from repro_torch.core.schedule import plan_launches
 from repro_torch.kernels.gemm.kernel import (K_PANEL, FusedGemm, gemm_fused,
-                                             gemm_region)
+                                             gemm_quant, gemm_region)
+from repro_torch.kernels.gemm.ref import ref_quant_gemm
 
 
 def _fused_executor(desc: GemmDescriptor, plan: BlockingPlan, device):
@@ -35,9 +45,15 @@ def _fused_executor(desc: GemmDescriptor, plan: BlockingPlan, device):
                                                       device))
 
 
+def _contiguous(*ts):
+    return tuple(None if t is None else t.contiguous() for t in ts)
+
+
 def execute(desc: GemmDescriptor, plan: BlockingPlan, a, b, *, bias=None,
-            c=None) -> torch.Tensor:
-    """Engine executor: run one planned (possibly batched) GEMM."""
+            c=None, sa=None, sb=None) -> torch.Tensor:
+    """Engine executor: run one planned (possibly batched) GEMM.  ``sa`` /
+    ``sb`` are a quantized descriptor's dense f32 dequant vectors (``(m,)``
+    row scales for full quant, ``(n,)`` column scales for any spec)."""
     check_bias(desc.epilogue, bias)
     if desc.edge != "mask":
         raise NotImplementedError(f"edge={desc.edge!r} is not ported; the "
@@ -48,6 +64,17 @@ def execute(desc: GemmDescriptor, plan: BlockingPlan, a, b, *, bias=None,
                                   f"H100_SXM machine model")
     fused = engine.resolve_fused(plan)
     out_dtype = torch_dtype(desc.out_dtype)
+    if desc.quant is not None:
+        a, b, sa, sb, bias = _contiguous(a, b, sa, sb, bias)
+        kw = dict(layout=desc.layout, epilogue=desc.epilogue, bias=bias,
+                  out_dtype=out_dtype)
+        if not fused:
+            # The non-fused quant lowering: no kernel of the engine.
+            engine.count_launches("gemm", 0)
+            return ref_quant_gemm(a, b, sa, sb, **kw)
+        engine.count_launches("gemm", plan_launches(plan, fused=True))
+        return gemm_quant(_fused_executor(desc, plan, a.device), a, b, sa, sb,
+                          **kw)
     a3, b3 = (a, b) if desc.batch else (a[None], b[None])
     c3 = c if c is None or desc.batch else c[None]
     a3, b3 = a3.contiguous(), b3.contiguous()
@@ -71,17 +98,49 @@ engine.register_family("gemm", planner=plan_gemm, execute=execute)
 
 def gemm(a, b, c: Optional[torch.Tensor] = None, *, layout: str = "nn",
          epilogue: Optional[str] = None, bias: Optional[torch.Tensor] = None,
-         out_dtype=None, fused: Optional[bool] = None) -> torch.Tensor:
+         out_dtype=None, fused: Optional[bool] = None,
+         quant=None) -> torch.Tensor:
     """Planned, shape-specialised (batched) GEMM via the engine.
 
     ``a``: (..., M, K); ``b``: (..., K, N) for layout "nn" or (..., N, K)
     for "nt"; optional ``c`` of shape (..., M, N).  ``fused=True/False``
     pins the single-launch or multi-launch lowering for this call.
+
+    ``quant`` selects the low-precision axis: a
+    :class:`~repro_torch.core.descriptor.QuantSpec`, a shorthand
+    (``"int8"``/``"w8a16"``/``"fp8"``), ``False`` to opt out of an
+    ambient ``config.quant``, or ``None`` to follow the config.  Wide
+    operands are quantized here at dispatch: B per output column, A per
+    row for full quant.  ``b`` may instead be a pre-quantized
+    :class:`~repro_torch.optim.compression.QuantizedTensor` (quantized
+    once at load, W8A16), whose spec then wins.
     """
+    from repro_torch.optim.compression import (QuantizedTensor, expand_scale,
+                                               quantize_operand)
+    sa = sb = None
+    if isinstance(b, QuantizedTensor):
+        # Quantized-at-load weights: always weight-only, A stays wide.
+        spec = dataclasses.replace(b.spec, weight_only=True)
+        n_axis = 1 if layout == "nn" else 0
+        if b.axis % b.ndim != n_axis:
+            raise ValueError(
+                f"QuantizedTensor b is quantized along axis {b.axis}, but "
+                f"layout {layout!r} needs output-column (axis {n_axis}) "
+                f"scales for the dequant to commute through the GEMM")
+        sb = expand_scale(b.scale, b.spec, b.shape[n_axis])
+        b = b.q
+    else:
+        spec = resolve_quant(get_config().quant if quant is None else quant)
+        if spec is not None:
+            if a.ndim != 2:
+                raise ValueError("quantized GEMM is unbatched; flatten "
+                                 "leading dims first")
+            out_dtype = out_dtype or a.dtype
+            b, sb = quantize_operand(b, spec, axis=1 if layout == "nn" else 0)
+            if not spec.weight_only:
+                a, sa = quantize_operand(a, spec, axis=0)
     desc = GemmDescriptor.from_operands(
         a, b, layout=layout, accumulate=c is not None, epilogue=epilogue,
-        out_dtype=out_dtype or a.dtype)
-    if fused is None:
-        return engine.dispatch(desc, a, b, bias=bias, c=c)
-    with use(fused="on" if fused else "off"):
-        return engine.dispatch(desc, a, b, bias=bias, c=c)
+        out_dtype=out_dtype or a.dtype, quant=spec)
+    with use(fused=None if fused is None else ("on" if fused else "off")):
+        return engine.dispatch(desc, a, b, bias=bias, c=c, sa=sa, sb=sb)

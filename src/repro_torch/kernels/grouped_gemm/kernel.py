@@ -1,5 +1,5 @@
-"""Wrappers around the Hopper grouped-GEMM kernels (``csrc/grouped.cu``),
-each beside its plain torch version.
+"""Wrappers around the Hopper grouped-GEMM kernels (``csrc/grouped.cu``
+and ``csrc/grouped_quant.cu``), each beside its plain torch version.
 
   * :func:`grouped_fused` -- one launch over the runtime tile table of a
     :class:`~repro_torch.core.schedule.GroupedTileSchedule`, one thread
@@ -9,7 +9,11 @@ each beside its plain torch version.
     to ``bm`` rows, one thread block per (row block, N block), the expert
     from ``block_expert`` (the counterpart of ``build_grouped_gemm_kernel``);
   * :func:`grouped_bwd` -- dX, dW and db in one deterministic launch over
-    the same table (the counterpart of ``build_fused_grouped_bwd_kernel``).
+    the same table (the counterpart of ``build_fused_grouped_bwd_kernel``);
+  * :func:`grouped_quant` -- the quantized form of ``grouped_fused``: int8
+    or e4m3 x and w with per-row ``sx`` and per-expert column ``sw``
+    scales, or a bf16 / fp32 x with an int8 / e4m3 w (W8A16), dequant in
+    the epilogue (the counterpart of ``build_fused_grouped_kernel(quant=)``).
 
 Operands are float32 or bfloat16 (x, w and bias in one dtype), outputs of
 the forward kernels in x's dtype; the backward takes an fp32 cotangent and
@@ -27,10 +31,13 @@ import torch
 from repro_torch.core.schedule import TILE_COMPUTE, TILE_ZERO
 from repro_torch.kernels import _build, disable_tf32
 from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
+from repro_torch.kernels.gemm.kernel import QUANT_CODE, WIRE_DTYPES
+from repro_torch.kernels.gemm.ref import quant_product
 from repro_torch.kernels.grouped_gemm.ref import (expert_offsets,
                                                   ref_grouped_gemm_bwd)
 
-LAUNCHES = {"grouped_fused": 0, "grouped_padded": 0, "grouped_bwd": 0}
+LAUNCHES = {"grouped_fused": 0, "grouped_padded": 0, "grouped_bwd": 0,
+            "grouped_quant": 0}
 
 # (bm, bn) tilings csrc/grouped.cu instantiates, in its shape order.
 SHAPES = ((16, 64), (16, 128), (64, 64), (64, 128), (128, 64), (128, 128))
@@ -39,23 +46,27 @@ _DT = {torch.float32: 0, torch.bfloat16: 1}
 _EPI = {None: 0, "bias": 1, "gelu": 2, "silu": 3, "relu": 4, "bias_gelu": 5,
         "bias_silu": 6}
 
-_LIB = None
+_LIBS = {}
 
 
-def _lib():
-    """The built ``grouped`` library, with its C signatures declared."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.library("grouped")
+def _lib(name: str = "grouped"):
+    """The built library ``grouped`` or ``grouped_quant``, with its C
+    signatures declared."""
+    if name not in _LIBS:
+        lib = _build.library(name)
         P, I = _build.P, _build.I
-        lib.grouped_fused.argtypes = [P] * 5 + [I] * 8 + [P]
-        lib.grouped_fused.restype = I
-        lib.grouped_padded.argtypes = [P] * 6 + [I] * 8 + [P]
-        lib.grouped_padded.restype = I
-        lib.grouped_bwd.argtypes = [P] * 8 + [I] * 6 + [P]
-        lib.grouped_bwd.restype = I
-        _LIB = lib
-    return _LIB
+        if name == "grouped":
+            lib.grouped_fused.argtypes = [P] * 5 + [I] * 8 + [P]
+            lib.grouped_fused.restype = I
+            lib.grouped_padded.argtypes = [P] * 6 + [I] * 8 + [P]
+            lib.grouped_padded.restype = I
+            lib.grouped_bwd.argtypes = [P] * 8 + [I] * 6 + [P]
+            lib.grouped_bwd.restype = I
+        else:
+            lib.grouped_quant.argtypes = [P] * 7 + [I] * 10 + [P]
+            lib.grouped_quant.restype = I
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
 def _check(x, w, bias, epilogue, extra=()):
@@ -183,6 +194,68 @@ def grouped_bwd(table, x, dy, w, group_sizes, *, bm: int,
     return dx, dw, db
 
 
+def _check_quant(table, x, w, sx, sw, bias, epilogue, out_dtype):
+    if x.ndim != 2 or w.ndim != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"expected x (T, K) and w (E, K, N), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    t, e, n = x.shape[0], w.shape[0], w.shape[2]
+    if w.dtype not in WIRE_DTYPES:
+        raise ValueError(f"w must be int8 or float8_e4m3, got {w.dtype}")
+    if sx is not None:
+        if x.dtype != w.dtype:
+            raise ValueError(f"fully quantized x and w differ: {x.dtype}, "
+                             f"{w.dtype}")
+        if tuple(sx.shape) != (t,) or sx.dtype != torch.float32:
+            raise ValueError(f"sx must be ({t},) float32")
+    elif x.dtype not in _DT:
+        raise ValueError(f"a weight-only x is float32 or bfloat16, got "
+                         f"{x.dtype}")
+    if tuple(sw.shape) != (e, n) or sw.dtype != torch.float32:
+        raise ValueError(f"sw must be ({e}, {n}) float32")
+    if needs_bias(epilogue) and (bias is None or
+                                 tuple(bias.shape) != (e, n)):
+        raise ValueError(f"epilogue {epilogue!r} needs an (E, N) bias")
+    if table.dtype != torch.int32:
+        raise ValueError(f"table must be int32, got {table.dtype}")
+    if x.is_cuda:
+        for name, t_ in (("x", x), ("w", w), ("sx", sx), ("sw", sw),
+                         ("bias", bias), ("table", table)):
+            if t_ is not None and (t_.device != x.device
+                                   or not t_.is_contiguous()):
+                raise ValueError(f"{name} must be contiguous on {x.device}")
+        if out_dtype not in _DT or (bias is not None
+                                    and bias.dtype not in _DT):
+            raise ValueError("output and bias must be float32 or bfloat16")
+    elif x.device.type != "cpu":
+        raise RuntimeError(f"no grouped-GEMM kernel for device {x.device}")
+
+
+def grouped_quant(table, x, w, sx, sw, bias=None, *, bm: int, bn: int,
+                  epilogue: Optional[str] = None,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """One launch over the ``(max_tiles, 5)`` int32 tile table of a
+    quantized grouped GEMM: x ``(T, K)`` int8 / e4m3 with ``sx (T,)``, or
+    bf16 / fp32 with ``sx=None`` (W8A16); w ``(E, K, N)`` int8 / e4m3 with
+    ``sw (E, N)`` -> ``(T, N)`` in ``out_dtype``."""
+    bias = bias if needs_bias(epilogue) else None
+    _check_quant(table, x, w, sx, sw, bias, epilogue, out_dtype)
+    if not x.is_cuda:
+        return grouped_quant_plain(table, x, w, sx, sw, bias,
+                                   epilogue=epilogue, out_dtype=out_dtype)
+    _check_tiles(bm, bn)
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=out_dtype,
+                      device=x.device)
+    status = _lib("grouped_quant").grouped_quant(
+        _build.ptr(x), _build.ptr(w), _build.ptr(sx), _build.ptr(sw),
+        _build.ptr(bias), _build.ptr(out), _build.ptr(table), table.shape[0],
+        x.shape[1], w.shape[2], bm, bn, QUANT_CODE[x.dtype],
+        QUANT_CODE[w.dtype], _bias_code(bias), _DT[out_dtype],
+        _EPI[epilogue], _build.stream_ptr(x))
+    LAUNCHES["grouped_quant"] += 1
+    _build.check(status, "grouped_quant")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plain torch versions (the CPU path, and the card-side comparison)
 # ---------------------------------------------------------------------------
@@ -202,6 +275,31 @@ def grouped_fused_plain(table, x, w, bias=None, *,
             out[row0:row_end] = apply_epilogue(
                 acc, epilogue, bias[e] if needs_bias(epilogue) else None
             ).to(x.dtype)
+        elif state == TILE_ZERO:
+            out[row0:row_end] = 0
+    return out
+
+
+def grouped_quant_plain(table, x, w, sx, sw, bias=None, *,
+                        epilogue: Optional[str] = None,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """The quantized kernel's arithmetic, walking the table on the host:
+    each COMPUTE row's x rows times its expert's panel in the exact-wide
+    accumulator (int32 for int8), times ``sx * sw[e]`` in fp32, the
+    epilogue with the expert's bias row; ZERO rows zeros."""
+    if x.is_cuda:
+        disable_tf32()
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=out_dtype,
+                      device=x.device)
+    for row0, row_end, _, e, state in table.tolist():
+        if state == TILE_COMPUTE:
+            factor = sw[e][None, :]
+            if sx is not None:
+                factor = sx[row0:row_end, None] * factor
+            out[row0:row_end] = apply_epilogue(
+                quant_product(x[row0:row_end], w[e]), epilogue,
+                bias[e] if needs_bias(epilogue) else None, factor
+            ).to(out_dtype)
         elif state == TILE_ZERO:
             out[row0:row_end] = 0
     return out

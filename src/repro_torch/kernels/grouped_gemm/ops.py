@@ -14,7 +14,13 @@ lowerings, resolved by ``engine.resolve_fused`` as for the dense GEMM:
     grid, gather the rows back out (the scatter and the gather are device
     torch ops, as they are jnp ops outside the kernel in the reference).
 
-Either counts one launch.  The backward family ``grouped_gemm_bwd`` is ONE
+Either counts one launch.  A quantized descriptor (``desc.quant``, from
+``grouped_gemm(quant=)`` or the ambient ``config.quant``) runs ONE
+``grouped_quant`` launch over the same table when the plan is fused, and
+otherwise the reference's ``_xla_quant_grouped`` in torch
+(:func:`~repro_torch.kernels.grouped_gemm.ref.ref_quant_grouped`, no
+kernel of the engine); the quant path is inference only.  The backward
+family ``grouped_gemm_bwd`` is ONE
 ``grouped_bwd`` launch over the same tables.  Gradients flow through
 :class:`_GroupedFn` (the reference's ``_grouped_vjp``): its forward is the
 engine dispatch; its backward peels the activation off by recomputing the
@@ -34,14 +40,19 @@ from repro_torch.core.blocking import (GroupedGemmPlan,
                                        plan_grouped_bwd)
 from repro_torch.core.config import get_config, use
 from repro_torch.core.descriptor import (GroupedGemmBwdDescriptor,
-                                         GroupedGemmDescriptor, check_bias)
+                                         GroupedGemmDescriptor, check_bias,
+                                         resolve_quant)
 from repro_torch.core.schedule import plan_launches
 from repro_torch.kernels import disable_tf32
 from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
+from repro_torch.core.machine import torch_dtype
 from repro_torch.kernels.grouped_gemm.kernel import (grouped_bwd,
                                                      grouped_fused,
-                                                     grouped_padded)
-from repro_torch.kernels.grouped_gemm.ref import expert_offsets, row_experts
+                                                     grouped_padded,
+                                                     grouped_quant)
+from repro_torch.kernels.grouped_gemm.ref import (expert_offsets,
+                                                  ref_quant_grouped,
+                                                  row_experts)
 
 
 def plan_groups(group_sizes: torch.Tensor, num_experts: int, bm: int,
@@ -104,10 +115,27 @@ def _contiguous(*ts):
 
 
 def execute(desc: GroupedGemmDescriptor, plan: GroupedGemmPlan, x, w,
-            group_sizes, *, bias=None) -> torch.Tensor:
-    """Engine executor: run one planned grouped GEMM (either lowering)."""
+            group_sizes, *, bias=None, sx=None, sw=None) -> torch.Tensor:
+    """Engine executor: run one planned grouped GEMM (either lowering).
+    ``sx``/``sw`` are a quantized descriptor's dense f32 scales: per row
+    ``(T,)`` for full quant, per expert column ``(E, N)`` for any spec."""
     check_bias(desc.epilogue, bias)
     fused = engine.resolve_fused(plan)
+    if desc.quant is not None:
+        x, w, sx, sw, bias = _contiguous(x, w, sx, sw, bias)
+        out_dtype = torch_dtype(desc.dtype)
+        if not fused:
+            # The non-fused quant lowering: no kernel of the engine (the
+            # pad/scatter kernel is wide only).
+            engine.count_launches("grouped_gemm", 0)
+            return ref_quant_grouped(x, w, group_sizes, sx, sw, bias,
+                                     epilogue=desc.epilogue,
+                                     out_dtype=out_dtype)
+        engine.count_launches("grouped_gemm", plan_launches(plan, fused=True))
+        table = plan.tile_schedule().tables(group_sizes)
+        return grouped_quant(table, x, w, sx, sw, bias, bm=plan.bm,
+                             bn=plan.bn, epilogue=desc.epilogue,
+                             out_dtype=out_dtype)
     engine.count_launches("grouped_gemm", plan_launches(plan, fused=fused))
     x, w, bias = _contiguous(x, w, bias)
     run = _execute_fused if fused else _execute_padded
@@ -219,6 +247,17 @@ class _GroupedFn(torch.autograd.Function):
         return None, dx.to(x.dtype), dw.to(w.dtype), None, db
 
 
+def _quantize_grouped_w(w, spec):
+    """Per-expert quantization of the ``(E, K, N)`` bank along output
+    columns: every expert's panel gets its own scales, expanded dense to
+    one ``(E, N)`` f32 table the kernel indexes by the table's expert
+    column."""
+    from repro_torch.optim.compression import quantize_operand
+    parts = [quantize_operand(w[e], spec, axis=1) for e in range(w.shape[0])]
+    return (torch.stack([q for q, _ in parts]),
+            torch.stack([s for _, s in parts]))
+
+
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                  *, epilogue: Optional[str] = None,
                  bias: Optional[torch.Tensor] = None,
@@ -234,19 +273,36 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     ``bm``/``bk``/``bn`` pin the tiling and ``fused=True/False`` the
     lowering for this call (pinned calls are not differentiable, as in
     the reference).  With gradients on, the default call flows through
-    :class:`_GroupedFn` onto the backward kernel.  The quantized axis is
-    not ported: ``quant`` must be None or False.
+    :class:`_GroupedFn` onto the backward kernel.
+
+    ``quant`` selects the low-precision axis (a spec or ``"int8"`` /
+    ``"w8a16"`` / ``"fp8"``; ``None`` follows ``config.quant``, ``False``
+    opts out): the bank is quantized here per expert along output
+    columns, the rows per row for full quant, and the dequant runs in the
+    epilogue.  The quant path is inference only (no backward).
     """
-    if quant not in (None, False):
-        raise NotImplementedError("the grouped GEMM quant axis is not ported")
     check_bias(epilogue, bias)
-    desc = GroupedGemmDescriptor.from_operands(x, w, epilogue=epilogue)
+    spec = resolve_quant(get_config().quant if quant is None else quant)
+    sx = sw = None
+    # The descriptor of the wide operands: desc.dtype stays the logical
+    # compute and output dtype, the spec implies the wire dtypes.
+    desc = GroupedGemmDescriptor.from_operands(x, w, epilogue=epilogue,
+                                               quant=spec)
+    if spec is not None:
+        from repro_torch.optim.compression import quantize_operand
+        w, sw = _quantize_grouped_w(w, spec)
+        if not spec.weight_only:
+            x, sx = quantize_operand(x, spec, axis=0)
     plan = None
     if bm is not None or bk is not None or bn is not None:
         # Fill unpinned knobs from the (cached) engine plan.
         auto = engine.plan_for(desc)
         plan = GroupedGemmPlan(desc, bm or auto.bm, bk or auto.bk,
                                bn or auto.bn, fused=auto.fused)
+    if spec is not None:
+        with use(fused=None if fused is None else ("on" if fused else "off")):
+            return engine.dispatch(desc, x, w, group_sizes, plan=plan,
+                                   bias=bias, sx=sx, sw=sw)
     if plan is None and fused is None:
         ops = (x, w) if bias is None else (x, w, bias)
         if torch.is_grad_enabled() and any(t.requires_grad for t in ops):

@@ -9,11 +9,19 @@ belong to no group.
     ``(T, K, N)`` tensor, so it is for small test sizes only;
   * :func:`ref_grouped_gemm_bwd` -- dX, dW and db from the pre-activation
     cotangent, expert by expert in fp32 (the plain version of the fused
-    backward kernel; its sizes on the host, so any size fits).
+    backward kernel; its sizes on the host, so any size fits);
+  * :func:`ref_quant_grouped` -- the quantized form (the reference's
+    ``_xla_quant_grouped``), expert by expert rather than through a
+    ``(T, K, N)`` gather, so any size fits.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch.kernels.epilogue import apply_epilogue
+from repro_torch.kernels.gemm.ref import quant_product
 
 
 def expert_offsets(group_sizes: torch.Tensor) -> torch.Tensor:
@@ -68,3 +76,28 @@ def ref_grouped_gemm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
         if with_db:
             db[i] = dye.sum(0)
     return dx, dw, db
+
+
+def ref_quant_grouped(x: torch.Tensor, w: torch.Tensor,
+                      group_sizes: torch.Tensor, sx: Optional[torch.Tensor],
+                      sw: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      *, epilogue: Optional[str] = None,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Quantized grouped GEMM: row r of group e gives ``epilogue(dequant(
+    x[r] @ w[e]))`` with the factor ``sx[r] * sw[e]`` (``sw[e]`` alone for
+    W8A16, ``sx=None``) applied in fp32 to the exact-wide accumulator
+    (int32 for int8); rows past ``sum(group_sizes)`` are zero."""
+    offsets = expert_offsets(group_sizes).tolist()
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=out_dtype,
+                      device=x.device)
+    for e in range(w.shape[0]):
+        r0, r1 = offsets[e], offsets[e + 1]
+        if r1 == r0:
+            continue
+        factor = sw[e].float()[None, :]
+        if sx is not None:
+            factor = sx[r0:r1].float()[:, None] * factor
+        out[r0:r1] = apply_epilogue(quant_product(x[r0:r1], w[e]), epilogue,
+                                    None if bias is None else bias[e],
+                                    factor).to(out_dtype)
+    return out

@@ -10,8 +10,13 @@ the paged decode kernel (``flash_decode``); the ``s == 1`` decode step
 against the dense cache is plain torch math (:func:`_attend`), which the
 reference also computes outside any kernel.
 
-Not ported (they raise): KV-int8 pools, cross-attention and
-sliding-window attention.
+``PageSpec(kv_quant="int8")`` stores the paged pools in int8 with a
+per-token f32 scale (the row's absmax over heads x features / 127):
+half the KV bytes of bf16.  A decode step quantizes the new token's K and
+V as it writes them; the engine's decode kernel folds the scales into its
+score and PV algebra, and the gather path dequantizes in f32 first.
+
+Not ported (they raise): cross-attention and sliding-window attention.
 """
 from __future__ import annotations
 
@@ -54,7 +59,8 @@ def init_kv_cache(batch, capacity, n_kv, head_dim, dtype, device) -> KVCache:
 class PageSpec(NamedTuple):
     """Static paged-cache geometry (the serving runtime's pool shape).
     ``max_blocks * page_size`` caps the context one block table can map.
-    ``kv_quant="int8"`` (int8 pools with per-token scales) is not ported."""
+    ``kv_quant="int8"`` stores the pools in int8 with per-token f32
+    dequant scales."""
 
     num_pages: int
     page_size: int
@@ -76,19 +82,42 @@ class PagedKVCache:
     k: torch.Tensor       # (num_pages, page_size, h_kv, hd)
     v: torch.Tensor       # (num_pages, page_size, h_kv, hd)
     tables: torch.Tensor  # (num_slots, max_blocks) int32 page ids
+    # int8 pools only: per-token f32 dequant scales, (num_pages, page_size)
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 def init_paged_kv_cache(num_slots, spec: PageSpec, n_kv, head_dim, dtype,
                         device) -> PagedKVCache:
-    if spec.kv_quant is not None:
-        raise NotImplementedError(f"kv_quant={spec.kv_quant!r} pools are not "
-                                  f"ported")
+    if spec.kv_quant not in (None, "int8"):
+        raise ValueError(f"kv_quant must be None or 'int8', got "
+                         f"{spec.kv_quant!r}")
+    quant = spec.kv_quant == "int8"
     shape = (spec.num_pages, spec.page_size, n_kv, head_dim)
+    pool_dtype = torch.int8 if quant else dtype
+
+    def scales():
+        return torch.zeros((spec.num_pages, spec.page_size),
+                           dtype=torch.float32, device=device) \
+            if quant else None
+
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=torch.zeros(shape, dtype=pool_dtype, device=device),
+        v=torch.zeros(shape, dtype=pool_dtype, device=device),
         tables=torch.zeros((num_slots, spec.max_blocks), dtype=torch.int32,
-                           device=device))
+                           device=device),
+        k_scale=scales(), v_scale=scales())
+
+
+def quantize_kv_rows(rows: torch.Tensor):
+    """Symmetric per-token int8 quantization of KV rows ``(..., hkv, hd)``:
+    each row's scale is its absmax over heads x features / 127 + 1e-12,
+    the values rounded half to even and clipped to +-127.  Returns (int8
+    values, f32 scales of shape ``rows.shape[:-2]``)."""
+    r32 = rows.float()
+    s = r32.abs().amax(dim=(-2, -1)) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(r32 / s[..., None, None]), -127, 127)
+    return q.to(torch.int8), s
 
 
 def _repeat_kv(x, n_rep: int):
@@ -190,28 +219,43 @@ def _paged_decode(cfg, cache: PagedKVCache, q, k, v, step: PagedStep, dt, g):
     """One decode step against the paged KV pool.
 
     q/k/v: (S, 1, h|hkv, hd).  The new token's K/V is written in place at
-    ``(tables[i, pos // P], pos % P)``; inactive rows leave the pools
-    unchanged (:func:`_write_token`) and their output rows are garbage the
-    scheduler ignores.  Attention runs through the engine's
+    ``(tables[i, pos // P], pos % P)`` (int8 pools: quantized per token,
+    its scales written beside it); inactive rows leave the pools and
+    scales unchanged (:func:`_write_token`) and their output rows are
+    garbage the scheduler ignores.  Attention runs through the engine's
     ``flash_decode`` family (``engine`` backend: ONE launch over the
     runtime decode table, built once per step) or the gather formulation
     (``ref_paged_decode_attention``'s math through :func:`_attend`)."""
     S = q.shape[0]
     pages, P, hkv, hd = cache.k.shape
     B = cache.tables.shape[1]
-    _write_token(cache.k, k[:, 0], step)
-    _write_token(cache.v, v[:, 0], step)
+    quant = cache.k_scale is not None
+    if quant:
+        kq, ks = quantize_kv_rows(k[:, 0])
+        vq, vs = quantize_kv_rows(v[:, 0])
+        for pool, new in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+                          (cache.v_scale, vs)):
+            _write_token(pool, new, step)
+    else:
+        _write_token(cache.k, k[:, 0], step)
+        _write_token(cache.v, v[:, 0], step)
     lengths = step.lengths
 
     if get_config().backend == "engine" and not cfg.attn_logit_softcap:
         from repro_torch.kernels.flash_attention import paged_decode_attention
         return paged_decode_attention(q[:, 0], cache.k, cache.v, cache.tables,
-                                      lengths)[:, None]
+                                      lengths, k_scale=cache.k_scale,
+                                      v_scale=cache.v_scale)[:, None]
     # Gather the block-table pages into a contiguous view (gathered column
-    # j holds absolute position j) and mask j >= length.
+    # j holds absolute position j) and mask j >= length; int8 pools are
+    # dequantized in f32 first.
     gidx = torch.clamp(cache.tables.long(), 0, pages - 1)
-    gk = _repeat_kv(cache.k[gidx].reshape(S, B * P, hkv, hd).to(dt), g)
-    gv = _repeat_kv(cache.v[gidx].reshape(S, B * P, hkv, hd).to(dt), g)
+    gk, gv = cache.k[gidx], cache.v[gidx]  # (S, B, P, hkv, hd)
+    if quant:
+        gk = gk.float() * cache.k_scale[gidx][..., None, None]
+        gv = gv.float() * cache.v_scale[gidx][..., None, None]
+    gk = _repeat_kv(gk.reshape(S, B * P, hkv, hd).to(dt), g)
+    gv = _repeat_kv(gv.reshape(S, B * P, hkv, hd).to(dt), g)
     live = torch.arange(B * P, device=q.device)[None, :] < lengths[:, None]
     return _attend(q, gk, gv, live[:, None, None, :], cfg.attn_logit_softcap)
 

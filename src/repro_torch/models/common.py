@@ -40,8 +40,20 @@ class Init:
                                            device=self.device)
 
 
-def cast_param(p: torch.Tensor, dtype) -> torch.Tensor:
-    return p if p.dtype == dtype else p.to(dtype)
+def cast_param(p, dtype):
+    """``p`` in the compute dtype.  A quantized weight
+    (:class:`~repro_torch.optim.compression.QuantizedTensor`) passes
+    through untouched: its int8 values and f32 scales are its storage,
+    and the kernel dequantizes in its epilogue."""
+    from repro_torch.optim.compression import QuantizedTensor
+    if isinstance(p, QuantizedTensor) or p.dtype == dtype:
+        return p
+    return p.to(dtype)
+
+
+def tree_cast(params, dtype):
+    """:func:`cast_param` over a dict of tensors (quantized ones pass)."""
+    return {k: cast_param(p, dtype) for k, p in params.items()}
 
 
 class Linear(nn.Module):

@@ -25,7 +25,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.attention import PagedKVCache, PageSpec
+from repro_torch.models.attention import (PagedKVCache, PageSpec,
+                                          quantize_kv_rows)
 
 
 class OutOfPages(RuntimeError):
@@ -171,7 +172,9 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
     ``PagePool.grow``/``owned_pages``); it must cover ``length``.  The
     dense prefill ran with capacity == length, so ``dense.k[0, :length]``
     is position-ordered: it is padded to whole pages and scattered into
-    the pools at the slot's pages, in place.  Returns the serving cache."""
+    the pools at the slot's pages, in place.  Into int8 pools the rows
+    (padding included) go quantized per token, with the decode write's
+    scaling, and their scales beside them.  Returns the serving cache."""
     assert len(page_ids) == pages_for(length, page_size), \
         (len(page_ids), length, page_size)
     n = len(page_ids)
@@ -181,12 +184,16 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
         _check_leaf(sv)
         if ids is None:
             ids = to_device(np.asarray(page_ids, np.int64), sv.k.device)
-        for pool, rows in ((sv.k, dv.k), (sv.v, dv.v)):
+        for pool, spool, rows in ((sv.k, sv.k_scale, dv.k),
+                                  (sv.v, sv.v_scale, dv.v)):
             rows = rows[0, :length]
             if pad:
                 rows = torch.cat([rows, rows.new_zeros((pad, *rows.shape[1:]))])
-            pool[ids] = rows.reshape(n, page_size, *rows.shape[1:]) \
-                .to(pool.dtype)
+            rows = rows.reshape(n, page_size, *rows.shape[1:])
+            if spool is None:
+                pool[ids] = rows.to(pool.dtype)
+            else:
+                pool[ids], spool[ids] = quantize_kv_rows(rows)
     return serving
 
 

@@ -61,11 +61,12 @@ def make_train_step(cfg, optimizer, *, microbatches: int = 1,
     each parameter's rank in the reference (``reference_ndims``).
     ``microbatches > 1`` splits the batch on its first axis and sums the
     microbatch gradients in bf16, dividing at the end, as the reference
-    does; the metrics are the last microbatch's.
+    does; the metrics are the last microbatch's.  ``grad_compress`` runs
+    the accumulated gradients through int8 error-feedback quantization
+    (``optim.compression.error_feedback_compress``, the compressed wire
+    format of a cross-host reduction, simulated on one device) before
+    the update; the residual is carried in ``opt_state["ef_residual"]``.
     """
-    if grad_compress:
-        raise NotImplementedError("grad_compress (int8 error-feedback "
-                                  "gradients) is not ported")
     loss_fn = make_loss_fn(cfg)
 
     def grads_of(model, names, params, batch):
@@ -94,6 +95,10 @@ def make_train_step(cfg, optimizer, *, microbatches: int = 1,
                     grads[n] = grads[n] + g[n].to(torch.bfloat16)
                 del g
             grads = {n: g / microbatches for n, g in grads.items()}
+        if grad_compress:
+            from repro_torch.optim.compression import error_feedback_compress
+            grads, opt_state["ef_residual"] = error_feedback_compress(
+                grads, opt_state.get("ef_residual"))
         metrics = {k: v.detach() for k, v in metrics.items()}
         opt_metrics = optimizer.update(
             grads, opt_state, dict(zip(names, params)), step,

@@ -140,10 +140,20 @@ def test_cache_keys_match_reference(dtype, layout, accumulate):
 
 
 def test_unported_axes_raise():
-    with pytest.raises(NotImplementedError):
-        GemmDescriptor(m=4, n=4, k=4, quant="int8")
+    """The mesh axis is still refused; the quant axis is ported, and a
+    quantized descriptor keys like the reference's (a shorthand string is
+    not a spec in either package)."""
+    from repro.core.descriptor import resolve_quant as j_resolve_quant
+    from repro_torch.core import resolve_quant
     with pytest.raises(NotImplementedError):
         GemmDescriptor(m=4, n=4, k=4, mesh=("model", 2))
+    for mode in ("int8", "w8a16", "fp8"):
+        assert GemmDescriptor(m=4, n=4, k=4, quant=resolve_quant(mode)) \
+            .cache_key() == jcore.GemmDescriptor(
+                m=4, n=4, k=4, quant=j_resolve_quant(mode)).cache_key()
+    for desc in (GemmDescriptor, jcore.GemmDescriptor):
+        with pytest.raises(ValueError, match="QuantSpec"):
+            desc(m=4, n=4, k=4, quant="int8")
 
 
 def test_h100_palette_is_the_kernel_templates():

@@ -269,10 +269,16 @@ def test_decode_wrapper_checks_shapes():
         flash_decode(exe, q, pool, torch.zeros(6, 4, 2, 4))
     with pytest.raises(ValueError):
         flash_decode(exe, torch.zeros(3, 4, 8), pool, pool)
-    with pytest.raises(NotImplementedError):
-        paged_decode_attention(q, pool, pool, torch.zeros(2, 3, dtype=torch.int32),
-                               torch.zeros(2, dtype=torch.int32),
+    # KV-int8 pools are ported: scales come in pairs, with int8 pools
+    tables = torch.zeros(2, 3, dtype=torch.int32)
+    lengths = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="together"):
+        paged_decode_attention(q, pool, pool, tables, lengths,
                                k_scale=torch.ones(6, 4))
+    with pytest.raises(ValueError, match="int8"):
+        paged_decode_attention(q, pool, pool, tables, lengths,
+                               k_scale=torch.ones(6, 4),
+                               v_scale=torch.ones(6, 4))
 
 
 @pytest.mark.gpu

@@ -135,10 +135,23 @@ def test_descriptor_from_operands_and_refusals():
         jnp.zeros((10, 8)), jnp.zeros((3, 8, 5)), epilogue="relu").cache_key()
     with pytest.raises(ValueError, match="contraction"):
         GroupedGemmDescriptor.from_operands(x, torch.zeros(3, 9, 5))
-    with pytest.raises(NotImplementedError, match="quant"):
-        GroupedGemmDescriptor(t=4, k=4, n=4, num_experts=2, quant="int8")
-    with pytest.raises(NotImplementedError, match="quant"):
-        grouped_gemm(x, w, torch.tensor([4, 4, 2]), quant="int8")
+    # The quant axis is ported: a quantized descriptor keys like the
+    # reference's, and a quantized call runs (within int8 error of wide).
+    from repro.core.descriptor import resolve_quant as j_resolve_quant
+    from repro_torch.core import resolve_quant
+    assert GroupedGemmDescriptor(
+        t=4, k=4, n=4, num_experts=2, quant=resolve_quant("int8")
+    ).cache_key() == JDesc(t=4, k=4, n=4, num_experts=2,
+                           quant=j_resolve_quant("int8")).cache_key()
+    gen = torch.Generator().manual_seed(0)
+    xr, wr = torch.randn(10, 8, generator=gen), torch.randn(3, 8, 5,
+                                                           generator=gen)
+    sizes = torch.tensor([4, 4, 2])
+    with use(device="cpu"):
+        got = grouped_gemm(xr, wr, sizes, quant="int8")
+        wide = grouped_gemm(xr, wr, sizes, quant=False)
+    assert got.shape == (10, 5)
+    assert (got - wide).abs().max() <= 5e-2 * wide.abs().max()
 
 
 @pytest.mark.parametrize("t,k,n,e,dtype,epilogue", [

@@ -105,12 +105,14 @@ def test_flash_decode_limits_match_kernel_py_and_machine():
 
 def test_flash_decode_shared_memory_fits_h100_at_the_limits():
     """The decode kernel stages the group's q rows and accumulator, one
-    page of k (rows padded by one) and v, the scores (rows padded by one)
-    and three per-head vectors, all fp32 (``smem_bytes`` in the .cu)."""
+    page of k (rows padded by one) and v, the scores (rows padded by one),
+    three per-head vectors and the page's K and V scales (KV-int8 pools),
+    all fp32 (``smem_bytes`` in the .cu)."""
     rep, page = H100_SXM.decode_max_group, H100_SXM.decode_max_page
     d = H100_SXM.decode_max_head_dim
     floats = 2 * rep * d + page * (d + 1) + page * d + rep * (page + 1) \
-        + 3 * rep
+        + 3 * rep + 2 * page
+    assert "3 * (size_t)rep + 2 * (size_t)page" in FLASH_DECODE_CU
     assert re.search(r"2 \* \(size_t\)rep \* d \+ \(size_t\)page \* \(d \+ 1\)",
                      FLASH_DECODE_CU)
     assert 4 * floats <= H100_SXM.vmem_bytes
@@ -159,8 +161,10 @@ def test_ssd_shared_memory_fits_h100_at_the_limits(q, n, p):
 
 def test_every_kernel_source_is_built():
     assert sorted(_build.sources()) == ["flash_bwd", "flash_decode",
-                                        "flash_fwd", "gemm", "grouped",
-                                        "ssd_scan", "ssd_scan_bwd"]
+                                        "flash_fwd", "gemm", "gemm_quant",
+                                        "grouped", "grouped_quant",
+                                        "ssd_scan", "ssd_scan_bwd",
+                                        "transpose"]
 
 
 def test_h100_flash_blocks_within_kernel_limits():
@@ -186,3 +190,57 @@ def test_build_dir_outside_a_checkout_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_KERNELS_DIR", installed)
     with pytest.raises(RuntimeError, match="REPRO_TORCH_BUILD_DIR"):
         _build.build_dir()
+
+
+GEMM_QUANT_CU = (KERNELS / "gemm" / "csrc" / "gemm_quant.cu").read_text()
+QUANT_TILE = (KERNELS / "gemm" / "csrc" / "quant_tile.cuh").read_text()
+GROUPED_QUANT_CU = (KERNELS / "grouped_gemm" / "csrc"
+                    / "grouped_quant.cu").read_text()
+
+
+@pytest.mark.parametrize("src,pattern,shapes", [
+    (GEMM_QUANT_CU, r"case (\d+): qtile<S, TA, TB, NT_B, (\d+), (\d+)>",
+     gemm_kernel.TEMPLATE_SHAPES),
+    (GROUPED_QUANT_CU, r"case (\d+): qtile<S, TX, TW, (\d+), (\d+)>",
+     None)])
+def test_quant_kernels_take_the_wide_palettes(src, pattern, shapes):
+    """The quantized GEMM and grouped GEMM instantiate the wide kernels'
+    (bm, bn) shapes in the same order, with the same K panel, so the same
+    plans and tile tables drive them."""
+    from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel
+    shapes = shapes or grouped_kernel.SHAPES
+    cases = re.findall(pattern, src)
+    assert [int(i) for i, _, _ in cases] == list(range(len(shapes)))
+    assert tuple((int(bm), int(bn)) for _, bm, bn in cases) == tuple(shapes)
+    for shape, (bm, bn) in enumerate(shapes):
+        assert _c_function(QUANT_TILE, "shape_bm")(shape) == bm
+        assert _c_function(QUANT_TILE, "shape_bn")(shape) == bn
+    assert _constexpr(QUANT_TILE, "BK") == H100_SXM.k_panel
+    assert '#include "../../gemm/csrc/quant_tile.cuh"' in GROUPED_QUANT_CU
+    assert '#include "quant_tile.cuh"' in GEMM_QUANT_CU
+
+
+def test_quant_dtype_codes_match_the_header():
+    from repro_torch.kernels.gemm.kernel import QUANT_CODE
+    import torch
+    codes = re.search(r"enum \{ DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, "
+                      r"DT_E4M3 = 3 \};", QUANT_TILE)
+    assert codes
+    assert [QUANT_CODE[t] for t in (torch.float32, torch.bfloat16, torch.int8,
+                                    torch.float8_e4m3fn)] == [0, 1, 2, 3]
+
+
+def test_a_shared_header_rebuilds_every_library(monkeypatch, tmp_path):
+    """A header included across families (quant_tile.cuh) is hashed into
+    every library's name, so editing it rebuilds the grouped kernels too."""
+    import shutil
+    copy = tmp_path / "kernels"
+    shutil.copytree(KERNELS, copy, ignore=shutil.ignore_patterns(
+        "*.py", "__pycache__"))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_KERNELS_DIR", copy)
+    src = copy / "grouped_gemm" / "csrc" / "grouped_quant.cu"
+    before = _build._target(src)
+    header = copy / "gemm" / "csrc" / "quant_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._target(src) != before

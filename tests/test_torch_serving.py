@@ -482,10 +482,25 @@ def test_lone_sequence_pool_exhaustion_raises(setup):
             serving.run([req])
 
 
-def test_kv_int8_pools_raise(setup):
-    _, _, _, model = setup
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        init_serving_cache(model, 2, PageSpec(4, 4, 2, kv_quant="int8"))
+def test_kv_int8_pools_are_int8_with_scales(setup):
+    """``kv_quant="int8"`` gives int8 pools and zeroed ``(pages, P)`` f32
+    scales, as the reference's ``init_paged_kv_cache``; any other
+    kv_quant is refused."""
+    jcfg, _, _, model = setup
+    spec = PageSpec(4, 4, 2, kv_quant="int8")
+    cache = init_serving_cache(model, 2, spec)
+    want = j_pages.init_serving_cache(jcfg, 2, JPageSpec(*spec))["groups"][
+        "b0"]
+    for layer in cache:
+        assert layer.k.dtype == layer.v.dtype == torch.int8
+        assert str(want.k.dtype) == "int8"
+        for s, w in ((layer.k_scale, want.k_scale),
+                     (layer.v_scale, want.v_scale)):
+            assert s.dtype == torch.float32
+            assert tuple(s.shape) == tuple(w.shape[1:]) == (4, 4)
+            assert not s.any()
+    with pytest.raises(ValueError, match="kv_quant"):
+        init_serving_cache(model, 2, PageSpec(4, 4, 2, kv_quant="int4"))
 
 
 def test_run_continuous_and_cli_on_cpu(setup, capsys, monkeypatch):

@@ -296,10 +296,33 @@ def test_host_batch_equals_reference(vocab, seq, batch, seed, branching):
     assert ds.unigram_floor_nats() == j_ds.unigram_floor_nats()
 
 
-def test_grad_compress_is_not_ported(setup):
-    _, cfg, _, _ = setup
-    with pytest.raises(NotImplementedError, match="grad_compress"):
-        make_train_step(cfg, adamw(1e-3), grad_compress=True)
+def test_grad_compress_carries_the_residual(setup):
+    """``grad_compress=True`` feeds the optimizer int8-quantized gradients
+    and keeps the quantization error in ``opt_state["ef_residual"]``:
+    applied gradient + residual is the raw gradient (plus the residual
+    carried in), leaf by leaf.  The step against the reference is in
+    tests/test_torch_quant_serving.py."""
+    jcfg, cfg, params, batch = setup
+    box, raw_box = {}, {}
+    opt = _spy(adamw(1e-3), box,
+               lambda g: {k: v.clone() for k, v in g.items()})
+    model = _port_model(cfg, params)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    state = opt.init(dict(model.named_parameters()))
+    raw = _spy(adamw(1e-3), raw_box,
+               lambda g: {k: v.clone() for k, v in g.items()})
+    make_train_step(cfg, raw)(_port_model(cfg, params),
+                              raw.init(dict(model.named_parameters())), tb, 0)
+    metrics = make_train_step(cfg, opt, grad_compress=True)(model, state, tb,
+                                                            0)
+    assert math.isfinite(float(metrics["loss"]))
+    res = state["ef_residual"]
+    assert set(res) == set(box["grads"]) == set(raw_box["grads"])
+    for name, g in box["grads"].items():
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose((g + res[name]).numpy(),
+                                   raw_box["grads"][name].float().numpy(),
+                                   atol=1e-7, rtol=1e-6, err_msg=name)
 
 
 # ---------------------------------------------------------------------------
