@@ -18,7 +18,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 192 groups with the entering states; the diag form
                 flattened)
                 and ragged cases, with errors, kernel / plain /
-                library times (CUDA events) and the bound; the flash forward
+                library times (CUDA events) and the bound; the GEMM rows
+                also on cases that drive each route of gemm.cu (every
+                epilogue, C_in, batches of 3, K < 32, decode rows 1-16
+                with K split over a cluster, rows past a palette edge, a
+                192-row table, operands TMA cannot read), each row naming
+                its route and split (a main-path bf16 row off routes A and
+                B fails), the decode rows (M <= 16) also their device time
+                and their time after an L2 flush (CUDA graphs, beside the
+                library's); the flash forward
                 also in its LSE form, the flash backward, the paged decode,
                 the SSD scan, its backward and the intra-chunk ladder, and
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
@@ -99,7 +107,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 run_with_restarts, no checkpoint: four grouped_fused (the
                 gate's pre-activation recomputed) and three grouped_bwd
                 launches a layer a step;
- 10. the ``kernels`` line, then the card's nvidia-smi line, then
+     gemm_routes -- the GEMM routes every phase took: route C (operands
+                TMA cannot read) on the main path fails;
+ 10. the ``kernels`` line (the GEMM rows with their large-M and decode
+                sums apart), then the card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
@@ -266,6 +277,15 @@ def main():
                "gemm_transpose": counts_transpose,
                "continuous_quant": counts_cont_quant,
                "serve_moe_quant": counts_moe_quant}
+    # Every wide GEMM of the main path reads TMA-legal operands: route C
+    # (loads through registers) is for operands off it.
+    routes = {p: {r: c.get(f"gemm_route_{r}", 0) for r in ("A", "B", "C",
+                                                          "fp32")}
+              for p, c in by_path.items()}
+    emit(phase="gemm_routes", by_path=routes)
+    on_c = {p: r["C"] for p, r in routes.items() if r["C"]}
+    if on_c:
+        fail(f"main-path GEMMs took route C: {on_c}")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -291,6 +311,8 @@ def main():
             "library_ms": None if None in lib else sum(lib),
             **({"library": meta[2]} if len(meta) > 2 else
                {"library": "; ".join(libs)} if libs else {}),
+            **(_gemm_split_sums(rows) if kname in ("gemm_fused",
+                                                  "gemm_region") else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -298,6 +320,28 @@ def main():
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _gemm_split_sums(rows):
+    """A GEMM row's main-path sums apart for the large-M cases and the
+    decode cases (M <= COLD_M, with their device times, warm and L2-cold),
+    so that a gain in one cannot hide a loss in the other; and the routes
+    taken."""
+    out = {}
+    for part, sel in (("large_m", lambda r: r["shape"][1] > COLD_M),
+                      ("decode", lambda r: r["shape"][1] <= COLD_M)):
+        rs = [r for r in rows if sel(r)]
+        out[part] = {key: sum(r[key] for r in rs) for key in
+                     ("ms", "library_ms", "bound_ms")
+                     + (("device_ms", "device_library_ms", "cold_ms",
+                         "cold_library_ms") if part == "decode" else ())}
+        out[part]["cases"] = len(rs)
+    routes = {}
+    for r in rows:
+        for name, n in r["routes"].items():
+            routes[name] = routes.get(name, 0) + n
+    out["routes"] = routes
+    return out
 
 
 KERNELS = {
@@ -426,6 +470,45 @@ def gemm_cases():
               ("moe_train_readout", TRAIN_BATCH * TRAIN_SEQ, mvocab, md,
                "nn", None)]
     cases = [c + ("bfloat16", False, 0, True) for c in cases]
+    # The kernel's routes off the main path: every epilogue with and
+    # without C_in, batches of 3, K below one panel and K off the ring's
+    # 6 x 32, the decode rows 1-16 (route B, split K), rows just past a
+    # palette edge (mixed tables of bm 128 / 64 beside bm 16 strips), a
+    # table of 192 rows, split K whose panels do not divide by the split,
+    # and operands TMA cannot read (route C, also the first ragged case).
+    cases += [
+        ("route_epi_silu", 256, 384, 320, "nn", "silu", "bfloat16", False,
+         0, False),
+        ("route_epi_relu_nt", 256, 384, 320, "nt", "relu", "bfloat16",
+         False, 0, False),
+        ("route_epi_bias_silu_acc", 200, 320, 256, "nn", "bias_silu",
+         "bfloat16", True, 0, False),
+        ("route_epi_gelu_acc_nt", 130, 200, 256, "nt", "gelu", "bfloat16",
+         True, 0, False),
+        ("route_batched3_bias_silu_acc_nt", 100, 200, 96, "nt", "bias_silu",
+         "bfloat16", True, 3, False),
+        ("route_batched3_nn", 100, 200, 96, "nn", None, "bfloat16", False, 3,
+         False),
+        ("route_k24", 96, 200, 24, "nn", None, "bfloat16", False, 0, False),
+        ("route_k1000_nt", 140, 260, 1000, "nt", None, "bfloat16", False, 0,
+         False),
+        ("route_m1_silu", 1, 320, 512, "nn", "silu", "bfloat16", False, 0,
+         False),
+        ("route_m8_bias_acc_nt", 8, 320, 512, "nt", "bias", "bfloat16", True,
+         0, False),
+        ("route_m16", 16, 320, 512, "nn", None, "bfloat16", False, 0, False),
+        ("route_m17_nt", 17, 320, 512, "nt", None, "bfloat16", False, 0,
+         False),
+        ("route_m65", 65, 320, 512, "nn", None, "bfloat16", False, 0, False),
+        ("route_m129_nt", 129, 320, 512, "nt", None, "bfloat16", False, 0,
+         False),
+        ("route_rows192", 1024, 3072, 256, "nn", None, "bfloat16", False, 0,
+         False),
+        ("route_decode_split_k1096_silu", 4, 1024, 1096, "nn", "silu",
+         "bfloat16", False, 0, False),
+        ("route_c_nn_n1003_silu", 65, 1003, 256, "nn", "silu", "bfloat16",
+         False, 0, False),
+    ]
     cases += [
         ("ragged_bias_gelu_acc_nt", 997, 1003, 1001, "nt", "bias_gelu",
          "bfloat16", True, 0, False),
@@ -439,9 +522,58 @@ def gemm_cases():
     return cases
 
 
+# Decode rows (M <= 16) take a few microseconds on the card, less than the
+# host takes to launch them, and in the model they read their weights from
+# HBM, not from a warm L2: their rows also time the device alone (a CUDA
+# graph of the calls), warm and after L2 has been flushed.
+COLD_M = 16
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+
+
+def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
+    """Mean device milliseconds of one call of ``fn``, from a CUDA graph of
+    ``iters`` calls replayed under CUDA events, so no host launch time is
+    counted.  With ``flush`` (a buffer larger than L2), each call follows a
+    write of the buffer, and the graph time of the writes alone is
+    subtracted: the call's time with its operands out of L2."""
+    def capture(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()  # warm: plans, allocations
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            body()
+        g.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            g.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (3 * iters)
+
+    def calls():
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            fn()
+
+    def flushes():
+        for _ in range(iters):
+            flush.zero_()
+
+    t = capture(calls)
+    return t if flush is None else t - capture(flushes)
+
+
 def run_gemm_case(torch, case, gen):
     import torch.nn.functional as F
     from repro_torch.core import GemmDescriptor, plan_gemm
+    from repro_torch.kernels.gemm import kernel as gk
     from repro_torch.kernels.gemm.kernel import (FusedGemm, gemm_fused,
                                                  gemm_fused_plain, gemm_region,
                                                  gemm_region_plain)
@@ -503,12 +635,31 @@ def run_gemm_case(torch, case, gen):
     op_ms = 2 * nbx * m * n * k / peak(dname) * 1e3
     byte_ms = nbytes / hbm() * 1e3
     lib_ms = time_ms(torch, library, 20)
+    cold = m <= COLD_M
+    if cold:
+        flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device="cuda")
+        lib_device = dict(device_library_ms=graph_ms(torch, library),
+                          cold_library_ms=graph_ms(torch, library,
+                                                   flush=flush))
+    sms = gk.sm_count(a.device)
     rows = []
     for kname, kern, plain, out_k, out_p in (
             ("gemm_fused", fused, fused_plain, None, None),
             ("gemm_region", region, region_plain, out_r, out_rp)):
+        before = dict(gk.ROUTES)
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        routes = {r: gk.ROUTES[r] - before[r] for r in gk.ROUTES
+                  if gk.ROUTES[r] != before[r]}
+        if kname == "gemm_fused":
+            splits = [gk.split_factor(exe.schedule.num_tiles * nbx, k, sms,
+                                      next(iter(routes), None))]
+        else:
+            splits = [gk.split_factor(
+                -(-r.rows // r.bm) * -(-r.cols // r.bn) * nbx, k, sms,
+                gk.choose_route(dt, k, n if layout == "nn" else k, r.bm))
+                for r in plan.regions]
         if out_k is not None:
             got, want = out_k, out_p
         max_abs, rel, nbad, tol = compare(torch, got, want, dname)
@@ -516,6 +667,7 @@ def run_gemm_case(torch, case, gen):
                    shape=[nb, m, n, k], layout=layout, epilogue=epi,
                    dtype=dname, accumulate=acc,
                    blocks=[[r.bm, r.bn] for r in plan.regions],
+                   routes=routes, splits=splits,
                    max_abs_err=max_abs, max_rel_err=rel, tolerance=tol,
                    mismatches=nbad,
                    ms=time_ms(torch, kern, 20),
@@ -523,9 +675,16 @@ def run_gemm_case(torch, case, gen):
                    library_ms=lib_ms, op_ms=op_ms, byte_ms=byte_ms,
                    bound_ms=max(op_ms, byte_ms),
                    bound_by="bytes" if byte_ms >= op_ms else "operations")
+        if cold:
+            row.update(device_ms=graph_ms(torch, kern),
+                       cold_ms=graph_ms(torch, kern, flush=flush),
+                       **lib_device)
         emit(**row)
         if nbad:
             fail(f"{kname} {label}: {nbad} elements outside atol=rtol={tol}")
+        if main_path and dname == "bfloat16" and set(routes) - {"A", "B"}:
+            fail(f"{kname} {label}: a main-path bf16 GEMM took route(s) "
+                 f"{routes}, not A or B")
         rows.append(row)
     return rows
 
@@ -1599,6 +1758,8 @@ def _read_counts():
     launches = {}
     for mod in _kernel_modules():
         launches.update(mod.LAUNCHES)
+    gk = _kernel_modules()[0]
+    launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
     return {**launches,
             "engine_transpose_launches": st.get("transpose", {})
             .get("launches", 0),

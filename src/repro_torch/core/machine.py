@@ -11,7 +11,8 @@ kernels accept rather than from a scratchpad size:
     so any GEMM is legal for the fused single-launch lowering;
   * their accumulator blockings are the shapes ``csrc/gemm.cu``
     instantiates (``bm_candidates`` x ``bn_candidates``), with a fixed
-    K panel of ``k_panel`` elements;
+    K panel of ``k_panel`` elements, K split over clusters of up to
+    ``gemm_max_cluster`` blocks;
   * the flash kernels take ``(block_q, block_k)`` from ``flash_blocks``;
   * the paged decode kernel takes pages of up to ``decode_max_page``
     slots, head dims up to ``decode_max_head_dim`` and GQA groups of up to
@@ -110,6 +111,9 @@ class MachineModel:
     stages_whole_operands: bool = True
     # Fixed K-panel depth of the kernel; None plans bk against VMEM.
     k_panel: Optional[int] = None
+    # The largest thread-block cluster the dense GEMM kernel splits one
+    # tile's K over; None: no split.
+    gemm_max_cluster: Optional[int] = None
     # Flash (block_q, block_k) shapes the kernels take; None derives them
     # from VMEM fit.
     flash_blocks: Optional[Tuple[Tuple[int, int], ...]] = None
@@ -182,6 +186,9 @@ H100_SXM = MachineModel(
     bn_candidates=(64, 128),
     stages_whole_operands=False,
     k_panel=32,
+    # 8 is the portable cluster size limit (CUDA programming guide, thread
+    # block clusters).
+    gemm_max_cluster=8,
     flash_blocks=((64, 64),),
     decode_max_page=64,
     decode_max_head_dim=128,

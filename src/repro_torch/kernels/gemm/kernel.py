@@ -12,10 +12,17 @@
 
 A wrapper runs its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; nothing falls back.  Each
-launch adds one to :data:`LAUNCHES`.
+launch adds one to :data:`LAUNCHES`, and each wide launch one to the
+route it took in :data:`ROUTES` (:func:`choose_route`): "A" (TMA ring and
+wgmma, bm 64 / 128), "B" (the same ring computed swap-AB, decode's bm
+16), "C" (bf16 operands TMA cannot take) or "fp32" (CUDA-core FMAs).
+Routes A and B split K over a thread-block cluster of
+:func:`split_factor` blocks where the plan has fewer tiles than the card
+has SMs.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Optional
 
@@ -34,8 +41,18 @@ from repro_torch.kernels.gemm.ref import ref_quant_gemm
 TEMPLATE_SHAPES = tuple(itertools.product(H100_SXM.bm_candidates,
                                           H100_SXM.bn_candidates))
 K_PANEL = H100_SXM.k_panel
+# The largest cluster gemm.cu splits one tile's K over (its MAX_CLUSTER).
+MAX_CLUSTER = H100_SXM.gemm_max_cluster
+# A split share sums at least this many K panels.
+MIN_SPLIT_PANELS = 4
+# Blocks take a region's tiles in bands of this many tile rows, a band
+# column by column (gemm.cu's RASTER_ROWS), so the blocks in flight share
+# B's column panels in L2.
+RASTER_ROWS = 8
 
 LAUNCHES = {"gemm_fused": 0, "gemm_region": 0, "gemm_quant": 0}
+ROUTES = {"A": 0, "B": 0, "C": 0, "fp32": 0}
+_ROUTE_CODE = {"A": 0, "B": 1, "C": 2, "fp32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Operand codes of the quantized kernels (quant_tile.cuh's DT_*).
@@ -58,6 +75,67 @@ def template_for(bm_e: int, bn_e: int) -> int:
     return min(fits, key=lambda i: TEMPLATE_SHAPES[i][0] * TEMPLATE_SHAPES[i][1])
 
 
+def choose_route(dtype, k: int, b_inner: int, max_bm: int,
+                 ptrs=(0, 0)) -> str:
+    """The kernel route of one call: "fp32" for fp32 operands; for bf16,
+    "C" where TMA cannot read A or B (a base ``ptrs`` not 16-byte aligned,
+    or a row -- ``k`` elements of A, ``b_inner`` of B -- that is not a
+    multiple of 16 bytes), else "B" for a decode tile table (every
+    template bm 16) and "A" otherwise."""
+    if dtype == torch.float32:
+        return "fp32"
+    if any(p % 16 for p in ptrs) or (2 * k) % 16 or (2 * b_inner) % 16:
+        return "C"
+    return "B" if max_bm <= 16 else "A"
+
+
+def _route(a, b, max_bm: int) -> str:
+    return choose_route(a.dtype, a.shape[-1], b.shape[-1], max_bm,
+                        (a.data_ptr(), b.data_ptr()))
+
+
+def split_factor(tiles: int, k: int, sms: int, route: str) -> int:
+    """Blocks one tile's K is split over (a cluster, whose leader reduces
+    and stores): enough to bring ``tiles`` (table rows x batch) up to the
+    card's ``sms``, at most :data:`MAX_CLUSTER`, each share at least
+    :data:`MIN_SPLIT_PANELS` K panels.  Routes A and B only."""
+    if route not in ("A", "B") or tiles >= sms:
+        return 1
+    panels = -(-k // K_PANEL)
+    return max(1, min(MAX_CLUSTER, sms // tiles, panels // MIN_SPLIT_PANELS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    device = torch.device(device)
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def raster_order(schedule: TileSchedule):
+    """The tile table's rows in the order gemm_fused's blocks take them:
+    each run of one block shape (a region) in bands of
+    :data:`RASTER_ROWS` tile rows, a band column by column.  The rows are
+    the schedule's own; only their order changes."""
+    out = []
+    for bid, rows in itertools.groupby(schedule.tiles, key=lambda t: t[6]):
+        band = RASTER_ROWS * schedule.blocks[bid][0]
+        out += sorted(rows, key=lambda t: (t[0] // band, t[1], t[0]))
+    return out
+
+
+def table_max_bm(schedule: TileSchedule) -> int:
+    """The largest template bm a tile table walks: a table of bm 16 alone
+    is a decode table (route B); a 128-row tile needs two warpgroups."""
+    return max(TEMPLATE_SHAPES[template_for(bm, bn)][0]
+               for bm, bn in schedule.blocks)
+
+
 class FusedGemm:
     """One plan's fused kernel state: its tile schedule, and the tile
     table and block-shape array on the plan's device (uploaded once, when
@@ -66,12 +144,13 @@ class FusedGemm:
     def __init__(self, schedule: TileSchedule, device):
         self.schedule = schedule
         self.device = torch.device(device)
-        self.table = self.blocks = None
+        self.table = self.blocks = self.max_bm = None
         if self.device.type == "cuda":  # the plain walk reads the schedule
+            self.max_bm = table_max_bm(schedule)
             blocks = [(template_for(bm, bn), bm, bn)
                       for bm, bn in schedule.blocks]
             self.table = torch.from_numpy(
-                pack_table(schedule.tiles)).to(self.device)
+                pack_table(raster_order(schedule))).to(self.device)
             self.blocks = torch.tensor(blocks, dtype=torch.int32,
                                        device=self.device)
 
@@ -86,9 +165,9 @@ def _lib(name: str = "gemm"):
         lib = _build.library(name)
         P, I = _build.P, _build.I
         if name == "gemm":
-            lib.gemm_fused.argtypes = [P] * 7 + [I] * 11 + [P]
+            lib.gemm_fused.argtypes = [P] * 7 + [I] * 14 + [P]
             lib.gemm_fused.restype = I
-            lib.gemm_region.argtypes = [P] * 5 + [I] * 16 + [P]
+            lib.gemm_region.argtypes = [P] * 5 + [I] * 18 + [P]
             lib.gemm_region.restype = I
         else:
             lib.gemm_quant.argtypes = [P] * 8 + [I] * 10 + [P]
@@ -159,12 +238,16 @@ def gemm_fused(exe: FusedGemm, a, b, *, layout: str = "nn",
                          f"{a.device}")
     out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)
     bias_dt, c_dt, out_dt = _codes(bias, c, out_dtype)
+    route = _route(a, b, exe.max_bm)
+    split = split_factor(s.num_tiles * nb, k, sm_count(a.device), route)
     status = _lib().gemm_fused(
         _build.ptr(a), _build.ptr(b), _build.ptr(bias), _build.ptr(c),
         _build.ptr(out), _build.ptr(exe.table), _build.ptr(exe.blocks),
         s.num_tiles, nb, m, n, k, int(layout == "nt"), _DTYPE_CODE[a.dtype],
-        bias_dt, c_dt, out_dt, _EPILOGUE_CODE[epilogue], _build.stream_ptr(a))
+        bias_dt, c_dt, out_dt, _EPILOGUE_CODE[epilogue], _ROUTE_CODE[route],
+        split, exe.max_bm, _build.stream_ptr(a))
     LAUNCHES["gemm_fused"] += 1
+    ROUTES[route] += 1
     _build.check(status, "gemm_fused")
     return out
 
@@ -187,13 +270,17 @@ def gemm_region(a, b, out, region, *, layout: str = "nn",
     if out.device != a.device or not out.is_contiguous():
         raise ValueError("out must be a contiguous tensor on the operands' device")
     bias_dt, c_dt, out_dt = _codes(bias, c, out.dtype)
+    route = _route(a, b, region.bm)
+    tiles = -(-region.rows // region.bm) * -(-region.cols // region.bn)
+    split = split_factor(tiles * nb, k, sm_count(a.device), route)
     status = _lib().gemm_region(
         _build.ptr(a), _build.ptr(b), _build.ptr(bias), _build.ptr(c),
         _build.ptr(out), region.row0, region.col0, region.rows, region.cols,
         region.bm, region.bn, nb, m, n, k, int(layout == "nt"),
         _DTYPE_CODE[a.dtype], bias_dt, c_dt, out_dt, _EPILOGUE_CODE[epilogue],
-        _build.stream_ptr(a))
+        _ROUTE_CODE[route], split, _build.stream_ptr(a))
     LAUNCHES["gemm_region"] += 1
+    ROUTES[route] += 1
     _build.check(status, "gemm_region")
 
 
@@ -336,6 +423,7 @@ def gemm_quant_plain(a, b, sa, sb, *, layout="nn", epilogue=None, bias=None,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 

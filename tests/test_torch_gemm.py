@@ -17,6 +17,7 @@ from repro.kernels.gemm import ref_gemm as j_ref_gemm
 from repro_torch.core import engine, matmul, plan_gemm, use
 from repro_torch.core.descriptor import EPILOGUES, GemmDescriptor
 from repro_torch.kernels.gemm import gemm, ref_gemm
+from repro_torch.kernels.gemm import kernel as gk
 from repro_torch.kernels.gemm.kernel import (FusedGemm, LAUNCHES, gemm_fused,
                                              gemm_fused_plain, gemm_region,
                                              gemm_region_plain)
@@ -209,3 +210,212 @@ def cuda_device():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     return torch.device("cuda")
 
+
+
+# ---------------------------------------------------------------------------
+# Kernel routes (kernel.py chooses; gemm.cu runs them)
+# ---------------------------------------------------------------------------
+
+# The bf16 GEMMs of the chip_smoke main path: Qwen3-0.6B (d 1024, q 2048,
+# kv 1024, ff 3072, vocab 151,936, tied nt read-out), mamba2-130m (d 768,
+# in_proj 3352, inner 1536, vocab 50,280) and phi3.5-moe (d 4096, kv 1024,
+# vocab 32,064, nn read-out), at their serving, decode and training rows.
+def _main_path_shapes():
+    shapes = []
+    for m in (1024, 4):
+        shapes += [(m, 2048, 1024, "nn"), (m, 1024, 1024, "nn"),
+                   (m, 1024, 2048, "nn"), (m, 3072, 1024, "nn"),
+                   (m, 1024, 3072, "nn")]
+    shapes += [(4, 151936, 1024, "nt"), (1024, 151936, 1024, "nt")]
+    for m in (4000, 4, 8192):
+        shapes += [(m, 3352, 768, "nn"), (m, 768, 1536, "nn")]
+    shapes += [(4, 50280, 768, "nt"), (8192, 50280, 768, "nt")]
+    for m in (1024, 4):
+        shapes += [(m, 4096, 4096, "nn"), (m, 1024, 4096, "nn")]
+    shapes += [(4, 32064, 4096, "nn"), (1024, 32064, 4096, "nn")]
+    return shapes
+
+
+@pytest.mark.parametrize("m,n,k", [(1024, 151936, 1024), (4000, 3352, 768),
+                                   (997, 1003, 1001), (4, 1024, 1024)])
+def test_raster_order_permutes_the_table_in_bands(m, n, k):
+    """The table the fused kernel walks holds the schedule's rows, each
+    once, a region's rows in bands of RASTER_ROWS tile rows taken column
+    by column."""
+    sched = plan_gemm(GemmDescriptor(m=m, n=n, k=k, in_dtype="bfloat16",
+                                     out_dtype="bfloat16")).tile_schedule()
+    order = gk.raster_order(sched)
+    assert sorted(order) == sorted(sched.tiles)
+    for prev, row in zip(order, order[1:]):
+        if prev[6] != row[6]:
+            continue
+        band = gk.RASTER_ROWS * sched.blocks[row[6]][0]
+        assert (prev[0] // band, prev[1], prev[0]) < \
+            (row[0] // band, row[1], row[0])
+
+
+@pytest.mark.parametrize("m,n,k,layout", _main_path_shapes())
+def test_main_path_shapes_take_route_a_or_b(m, n, k, layout):
+    """Every main-path bf16 GEMM is TMA-legal: decode tables (bm 16) take
+    route B, the rest route A, fused and per region alike."""
+    plan = plan_gemm(GemmDescriptor(m=m, n=n, k=k, layout=layout,
+                                    in_dtype="bfloat16",
+                                    out_dtype="bfloat16"))
+    want = "B" if m <= 16 else "A"
+    max_bm = gk.table_max_bm(plan.tile_schedule())
+    assert gk.choose_route(torch.bfloat16, k, k if layout == "nt" else n,
+                           max_bm, (256, 512)) == want
+    for r in plan.regions:
+        assert gk.choose_route(torch.bfloat16, k, k if layout == "nt" else n,
+                               r.bm) == ("B" if r.bm <= 16 else "A")
+
+
+@pytest.mark.parametrize("k,b_inner,ptrs,route", [
+    (1001, 1001, (0, 0), "C"),     # chip_smoke's ragged_bias_gelu_acc_nt
+    (1024, 1003, (0, 0), "C"),     # an nn B of 1003 columns
+    (1024, 1024, (2, 0), "C"),     # A starts 2 bytes past an alignment
+    (1024, 1024, (0, 16), "A"),
+    (24, 64, (0, 0), "A")])
+def test_route_c_takes_what_tma_cannot(k, b_inner, ptrs, route):
+    assert gk.choose_route(torch.bfloat16, k, b_inner, 128, ptrs) == route
+    assert gk.choose_route(torch.float32, k, b_inner, 128, ptrs) == "fp32"
+
+
+@pytest.mark.parametrize("tiles,k,sms,route,split", [
+    (8, 1024, 132, "B", 8),      # Qwen3 decode k / v / o / down
+    (16, 2048, 132, "B", 8),     # decode q
+    (24, 1024, 132, "B", 5),     # decode gate / up
+    (32, 4096, 132, "B", 4),     # phi3.5 decode q / o
+    (64, 1024, 132, "A", 2),     # Qwen3 prefill kv (128 x 128 tiles)
+    (1187, 1024, 132, "B", 1),   # the tied read-out at decode
+    (8, 24, 132, "B", 1),        # one K panel
+    (8, 96, 132, "B", 1),        # three panels: below a share's minimum
+    (8, 1096, 132, "B", 8),      # 35 panels over 8 blocks
+    (8, 1024, 132, "C", 1),      # route C never splits
+    (8, 1024, 132, "fp32", 1),
+    (100, 1024, 132, "A", 1)])
+def test_split_factor(tiles, k, sms, route, split):
+    assert gk.split_factor(tiles, k, sms, route) == split
+    assert 1 <= split <= gk.MAX_CLUSTER
+    if split > 1:
+        assert -(-k // gk.K_PANEL) // split >= gk.MIN_SPLIT_PANELS
+
+
+# (label, m, n, k, layout, epilogue, accumulate, nb, dtype, out dtype,
+#  route, split > 1)
+ROUTE_CASES = [
+    ("epi_silu", 256, 384, 320, "nn", "silu", False, 0, "bfloat16",
+     "bfloat16", "A", False),
+    ("epi_relu_nt", 256, 384, 320, "nt", "relu", False, 0, "bfloat16",
+     "bfloat16", "A", False),
+    ("epi_bias_silu_acc", 200, 320, 256, "nn", "bias_silu", True, 0,
+     "bfloat16", "bfloat16", "A", False),
+    ("epi_gelu_nt_acc", 130, 200, 256, "nt", "gelu", True, 0, "bfloat16",
+     "bfloat16", "A", False),
+    ("epi_bias_gelu_f32out", 70, 136, 128, "nn", "bias_gelu", True, 0,
+     "bfloat16", "float32", "A", False),
+    ("batched3_nt", 100, 200, 96, "nt", "bias_silu", True, 3, "bfloat16",
+     "bfloat16", "A", False),
+    ("batched3_nn", 100, 200, 96, "nn", None, False, 3, "bfloat16",
+     "bfloat16", "A", False),
+    ("k24", 96, 200, 24, "nn", None, False, 0, "bfloat16", "bfloat16", "A",
+     False),
+    ("k1000_nt", 140, 260, 1000, "nt", None, False, 0, "bfloat16",
+     "bfloat16", "A", True),
+    ("m1", 1, 320, 512, "nn", "silu", False, 0, "bfloat16", "bfloat16",
+     "B", True),
+    ("m8_nt_bias_acc", 8, 320, 512, "nt", "bias", True, 0, "bfloat16",
+     "bfloat16", "B", True),
+    ("m16", 16, 320, 512, "nn", None, False, 0, "bfloat16", "bfloat16", "B",
+     True),
+    ("m17", 17, 320, 512, "nt", None, False, 0, "bfloat16", "bfloat16",
+     "A", True),
+    ("m65", 65, 320, 512, "nn", None, False, 0, "bfloat16", "bfloat16",
+     "A", True),
+    ("m129", 129, 320, 512, "nt", None, False, 0, "bfloat16", "bfloat16",
+     "A", True),
+    ("rows192", 1024, 3072, 256, "nn", None, False, 0, "bfloat16",
+     "bfloat16", "A", False),
+    ("route_c_nt_k1001", 97, 103, 1001, "nt", "bias_gelu", True, 0,
+     "bfloat16", "bfloat16", "C", False),
+    ("route_c_nn_n1003", 65, 1003, 256, "nn", "silu", False, 0, "bfloat16",
+     "bfloat16", "C", False),
+    ("decode_split_k1096", 4, 1024, 1096, "nn", "silu", False, 0,
+     "bfloat16", "bfloat16", "B", True),
+    ("decode_split_nt", 4, 1024, 1024, "nt", None, False, 0, "bfloat16",
+     "bfloat16", "B", True),
+    ("f32_relu_acc", 300, 500, 129, "nn", "relu", True, 0, "float32",
+     "float32", "fp32", False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_gemm_routes_on_card(case, cuda_device):
+    """Each route against its plain version on the card: every epilogue,
+    accumulate, batches, short and ragged K, decode rows with split K,
+    mixed tables (bm 128 beside bm 16 strips), and operands TMA cannot
+    read.  ``splits``: the fused launch splits K over a cluster."""
+    (label, m, n, k, layout, epi, acc, nb, dname, oname, route,
+     splits) = case
+    dt, odt = getattr(torch, dname), getattr(torch, oname)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    nbx = max(nb, 1)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * scale).to(dt)
+
+    a = rnd(nbx, m, k)
+    b = rnd(nbx, *((k, n) if layout == "nn" else (n, k)), scale=k ** -0.5)
+    bias = rnd(n) if epi and epi.startswith("bias") else None
+    c = rnd(nbx, m, n) if acc else None
+    plan = plan_gemm(GemmDescriptor(m=m, n=n, k=k, layout=layout,
+                                    in_dtype=dname, out_dtype=oname,
+                                    epilogue=epi, accumulate=acc, batch=nb))
+    exe = FusedGemm(plan.tile_schedule(), cuda_device)
+    kw = dict(layout=layout, epilogue=epi, bias=bias, c=c)
+    before = dict(gk.ROUTES)
+    got = gemm_fused(exe, a, b, out_dtype=odt, **kw)
+    torch.cuda.synchronize()
+    taken = [r for r in gk.ROUTES if gk.ROUTES[r] != before[r]]
+    assert taken == [route]
+    want = gemm_fused_plain(exe.schedule, a, b, out_dtype=odt, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[oname],
+                               rtol=TOL[oname])
+    if splits:
+        assert gk.split_factor(exe.schedule.num_tiles * nbx, k,
+                               gk.sm_count(cuda_device), route) > 1
+    out = torch.full_like(want, float("nan"))
+    ref = torch.full_like(want, float("nan"))
+    for r in plan.regions:
+        gemm_region(a, b, out, r, **kw)
+        gemm_region_plain(a, b, ref, r, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()  # every element stored
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[oname],
+                               rtol=TOL[oname])
+
+
+@pytest.mark.gpu
+def test_gemm_route_c_unaligned_base_on_card(cuda_device):
+    """A bf16 A whose base is 2 bytes past a 16-byte boundary takes route
+    C; the result equals the aligned copy's route-A result's plain
+    version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    m, n, k = 70, 192, 256
+    store = torch.randn(m * k + 1, generator=gen,
+                        device=cuda_device).bfloat16()
+    a = store[1:].view(1, m, k)
+    b = (torch.randn(1, k, n, generator=gen, device=cuda_device)
+         * k ** -0.5).bfloat16()
+    plan = plan_gemm(GemmDescriptor(m=m, n=n, k=k, in_dtype="bfloat16",
+                                    out_dtype="bfloat16"))
+    exe = FusedGemm(plan.tile_schedule(), cuda_device)
+    before = gk.ROUTES["C"]
+    got = gemm_fused(exe, a, b, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gk.ROUTES["C"] == before + 1
+    want = gemm_fused_plain(exe.schedule, a, b, out_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)

@@ -71,6 +71,44 @@ def test_gemm_k_panel_is_machine_k_panel():
     assert _constexpr(GEMM_CU, "BK") == gemm_kernel.K_PANEL == H100_SXM.k_panel
 
 
+def test_gemm_cluster_and_raster_constants_match_kernel_py():
+    """The split-K cluster limit and the band height of the tile order are
+    gemm.cu's and kernel.py's alike (H100_SXM carries the cluster limit);
+    the bf16 block is at most two consumer warpgroups and the producer
+    warp, two blocks an SM."""
+    assert _constexpr(GEMM_CU, "MAX_CLUSTER") == gemm_kernel.MAX_CLUSTER \
+        == H100_SXM.gemm_max_cluster
+    assert _constexpr(GEMM_CU, "RASTER_ROWS") == gemm_kernel.RASTER_ROWS
+    assert (_constexpr(GEMM_CU, "WG_THREADS"),
+            _constexpr(GEMM_CU, "PRODUCER_THREADS"),
+            _constexpr(GEMM_CU, "LD_WARPGROUPS")) == (128, 32, 2)
+    assert re.search(r"__launch_bounds__\(2 \* WG_THREADS \+ "
+                     r"PRODUCER_THREADS, 2\)", GEMM_CU)
+
+
+@pytest.mark.parametrize("nwg", [1, 2])
+def test_gemm_dynamic_shared_memory_fits_h100(nwg):
+    """Each bf16 block's dynamic shared memory at STAGES stages (gemm.cu's
+    formulas) fits a block's 227 KB with two blocks an SM, holds the
+    epilogue's staged fp32 tile, and route C's block fits too."""
+    assert "return 1024 + STAGES * stage_bytes(nwg) + 2 * STAGES * 8;" \
+        in GEMM_CU
+    assert "return a_slot(nwg) + B_SLOT;" in GEMM_CU
+    assert "constexpr int a_slot(int nwg) { return nwg * 64 * ROWB; }" \
+        in GEMM_CU
+    assert "constexpr int B_SLOT = 128 * ROWB;" in GEMM_CU
+    assert "constexpr int ROWB = 2 * BK;" in GEMM_CU
+    assert "constexpr int STAGED_TILE_BYTES = 128 * (128 + 4) * 4;" in GEMM_CU
+    assert "constexpr int LD_SMEM = 1024 + STAGED_TILE_BYTES;" in GEMM_CU
+    stages, bk = _constexpr(GEMM_CU, "STAGES"), _constexpr(GEMM_CU, "BK")
+    assert 3 <= stages <= 6
+    stage = (nwg * 64 + 128) * 2 * bk
+    ring = 1024 + stages * stage + 2 * stages * 8
+    assert 2 * ring <= H100_SXM.vmem_bytes
+    assert stages * stage >= 64 * nwg * (128 + 4) * 4  # the staged tile
+    assert 1024 + 128 * (128 + 4) * 4 <= H100_SXM.vmem_bytes  # route C
+
+
 def test_flash_limits_match_kernel_py():
     assert _constexpr(FLASH_CU, "BQ_MAX") == flash_kernel.MAX_BLOCK
     assert _constexpr(FLASH_CU, "BK_MAX") == flash_kernel.MAX_BLOCK
