@@ -32,7 +32,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
                 decode) and on ragged cases with an empty expert, whose dW
-                must be exactly zero; then the transpose (fig89's panel,
+                must be exactly zero, the forwards also on cases that drive
+                the wgmma tile (every epilogue, every pinned (bm, bn),
+                groups of 1-65 rows, K 24 and 200, route C, NaN past the
+                groups' sum), each row naming its route (a main-path row
+                off route A fails), the decode rows also their device time
+                (CUDA graphs, beside torch.bmm's) and on pinned bm 16 and
+                64 tiles; then the transpose (fig89's panel,
                 Qwen3's tied table, a ragged batch read from a padded view
                 holding NaN: bit-exact), the quantized GEMM (Qwen3's seven
                 projection shapes at decode and prefill rows under W8A16,
@@ -109,8 +115,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 launches a layer a step;
      gemm_routes -- the GEMM routes every phase took: route C (operands
                 TMA cannot read) on the main path fails;
+     grouped_routes -- the same for the grouped forwards;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
-                sums apart), then the card's nvidia-smi line, then
+                sums apart, the grouped forwards' with their prefill and
+                decode sums apart), then the card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
@@ -286,6 +294,14 @@ def main():
     on_c = {p: r["C"] for p, r in routes.items() if r["C"]}
     if on_c:
         fail(f"main-path GEMMs took route C: {on_c}")
+    # Likewise every grouped forward of the main path (bf16): route A.
+    grouped_routes = {p: {r: c.get(f"grouped_route_{r}", 0)
+                          for r in ("A", "C", "fp32")}
+                      for p, c in by_path.items()}
+    emit(phase="grouped_routes", by_path=grouped_routes)
+    on_c = {p: r["C"] for p, r in grouped_routes.items() if r["C"]}
+    if on_c:
+        fail(f"main-path grouped GEMMs took route C: {on_c}")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -313,6 +329,9 @@ def main():
                {"library": "; ".join(libs)} if libs else {}),
             **(_gemm_split_sums(rows) if kname in ("gemm_fused",
                                                   "gemm_region") else {}),
+            **(_grouped_split_sums(rows) if kname in ("grouped_fused",
+                                                     "grouped_padded")
+               else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -340,6 +359,24 @@ def _gemm_split_sums(rows):
     for r in rows:
         for name, n in r["routes"].items():
             routes[name] = routes.get(name, 0) + n
+    out["routes"] = routes
+    return out
+
+
+def _grouped_split_sums(rows):
+    """A grouped forward's main-path sums apart for the prefill cases and
+    the decode cases (with their device times), and the routes taken."""
+    out = {}
+    for part in ("prefill", "decode"):
+        rs = [r for r in rows if r["stage"] == part]
+        out[part] = {key: sum(r[key] for r in rs) for key in
+                     ("ms", "library_ms", "bound_ms")
+                     + (("device_ms", "device_library_ms")
+                        if part == "decode" else ())}
+        out[part]["cases"] = len(rs)
+    routes = {}
+    for r in rows:
+        routes[r["route"]] = routes.get(r["route"], 0) + 1
     out["routes"] = routes
     return out
 
@@ -1106,16 +1143,24 @@ def _ssd_diag_composition(torch, c, b, l, x):
 
 def grouped_cases():
     """(label, group sizes, rows past their sum, K, N, epilogue, dtype,
-    pinned (bm, bn) or None for the planner's, main, backward too).
+    pinned (bm, bn) or None for the planner's, main, backward too, rows
+    past the sum hold NaN).
     phi3.5-moe-42b's expert GEMMs route uniform capacity slots: 16 groups
     of 256 rows at prefill (batch 4 x 256) and training (8 x 128), of 32
     at decode; up and gate (silu) are d 4096 -> d_ff 6400, down the
     reverse, all bf16, and training runs the backward at the prefill
     shapes.  Then ragged cases: sums below T, empty experts, groups
-    smaller than bm, K and N tails, every epilogue."""
+    smaller than bm, K and N tails, every epilogue.  Then the bf16 wgmma
+    tile off the main path: every epilogue with and without bias, every
+    (bm, bn) of SHAPES pinned, row-aware tiles (groups of 1, 17, 32, 64
+    and 65 rows on bm 128 and bm 64 tiles, an empty expert), K below one
+    panel and K off the ring's 6 x 32, route C (x rows of 200 bytes; the
+    planned N = 300 case above has weight rows of 600), NaN in the rows
+    past sum(group_sizes), and the two decode cases on the pinned bm 16
+    and bm 64 tiles beside the planner's bm 128."""
     bf, f32 = "bfloat16", "float32"
     d, ff = 4096, 6400
-    return [
+    cases = [
         ("prefill_gate_silu", [256] * 16, 0, d, ff, "silu", bf, None, True,
          True),
         ("prefill_down", [256] * 16, 0, ff, d, None, bf, None, True, True),
@@ -1135,6 +1180,38 @@ def grouped_cases():
         ("ragged_bf16_bias_silu_planned", [100, 0, 0, 250], 20, 1000, 300,
          "bias_silu", bf, None, False, True),
     ]
+    cases = [c + (False,) for c in cases]
+    from repro_torch.kernels.grouped_gemm.kernel import SHAPES
+    for epi in (None, "bias", "gelu", "silu", "relu", "bias_gelu",
+                "bias_silu"):
+        cases.append((f"tile_epi_{epi or 'none'}", [100, 0, 37, 130], 20,
+                      256, 320, epi, bf, (128, 128), False, False, False))
+    for bm, bn in SHAPES:
+        cases.append((f"tile_shape_{bm}x{bn}", [70, 17, 0, 140], 9, 160, 200,
+                      "bias_silu", bf, (bm, bn), False, False, False))
+    rows = [1, 17, 0, 32, 64, 65]
+    cases += [
+        ("tile_rows_bm128", rows, 0, 512, 256, None, bf, (128, 128), False,
+         False, False),
+        ("tile_rows_bm64_silu", rows, 0, 512, 256, "silu", bf, (64, 128),
+         False, False, False),
+        ("tile_k24_relu", [50, 90], 7, 24, 200, "relu", bf, (128, 64), False,
+         False, False),
+        ("tile_k200_gelu", [50, 0, 80], 3, 200, 136, "gelu", bf, (64, 128),
+         False, False, False),
+        ("tile_route_c_k100_bias", [60, 85], 5, 100, 160, "bias", bf,
+         (128, 64), False, False, False),
+        ("tile_nan_past_sum", [40, 0, 90], 30, 256, 192, "silu", bf,
+         (128, 128), False, False, True),
+        ("tile_nan_past_sum_bm16", [40, 0, 90], 30, 256, 192, "bias", bf,
+         (16, 128), False, False, True),
+    ]
+    for bm in (16, 64):
+        cases += [(f"decode_gate_silu_bm{bm}", [32] * 16, 0, d, ff, "silu", bf,
+                   (bm, 128), False, False, False),
+                  (f"decode_down_bm{bm}", [32] * 16, 0, ff, d, None, bf,
+                   (bm, 128), False, False, False)]
+    return cases
 
 
 def _grouped_library(torch, x, w, bias, epi, sizes):
@@ -1211,14 +1288,22 @@ def _grouped_library(torch, x, w, bias, epi, sizes):
 def run_grouped_case(torch, case, gen):
     """grouped_fused over the runtime table, grouped_padded over the padded
     layout and grouped_bwd against their plain versions; an empty expert's
-    dW and db must come back exactly zero."""
+    dW and db must come back exactly zero.  Each forward row names the
+    route it took (a main-path row off route A fails); decode rows also
+    time the device alone (CUDA graphs), beside the library's.  With NaN
+    past sum(group_sizes), grouped_fused must store zeros on those rows and
+    finite values on every other; grouped_padded, whose scatter carries
+    the NaN rows into the last expert's padding, must give NaN exactly
+    where its plain version does."""
     from repro_torch.core import (GroupedGemmDescriptor, GroupedGemmPlan,
                                   plan_grouped)
+    from repro_torch.kernels.grouped_gemm import kernel as grk
     from repro_torch.kernels.grouped_gemm.kernel import (
         grouped_bwd, grouped_bwd_plain, grouped_fused, grouped_fused_plain,
         grouped_padded, grouped_padded_plain)
     from repro_torch.kernels.grouped_gemm.ops import plan_groups, scatter_rows
-    label, sizes, extra, k, n, epi, dname, tiles, main_path, bwd = case
+    (label, sizes, extra, k, n, epi, dname, tiles, main_path, bwd,
+     nan_tail) = case
     dt = getattr(torch, dname)
     e, total = len(sizes), sum(sizes)
     t = total + extra
@@ -1229,6 +1314,8 @@ def run_grouped_case(torch, case, gen):
                 * scale).to(dt)
 
     x, w = rnd(t, k), rnd(e, k, n, scale=k ** -0.5)
+    if nan_tail:
+        x[total:] = float("nan")
     bias = rnd(e, n) if biased else None
     gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
     desc = GroupedGemmDescriptor(t=t, k=k, n=n, num_experts=e, dtype=dname,
@@ -1250,10 +1337,16 @@ def run_grouped_case(torch, case, gen):
     flops = 2 * total * k * n
     op_ms, byte_ms = flops / peak(dname) * 1e3, nbytes / hbm() * 1e3
     lib_ms = time_ms(torch, lib_fwd, 5)
-    base = dict(phase="kernel", case=label, main_path=main_path,
+    stage = label.split("_")[0] if main_path else None
+    # Decode rows: a few hundred microseconds of weight reads each; the
+    # device time of the kernel alone and of the library's call alone.
+    decode = label.startswith("decode")
+    if decode:
+        lib_device_ms = graph_ms(torch, lib_fwd, iters=5)
+    base = dict(phase="kernel", case=label, main_path=main_path, stage=stage,
                 group_sizes=sizes, rows=t, k=k, n=n, epilogue=epi,
                 dtype=dname, blocks=[plan.bm, plan.bk, plan.bn],
-                library=lib_name)
+                library=lib_name, nan_past_sum=nan_tail)
     rows = []
     for kname, kern, plain in (
             ("grouped_fused", lambda: grouped_fused(table, x, w, bias, **kw),
@@ -1262,19 +1355,44 @@ def run_grouped_case(torch, case, gen):
              lambda: grouped_padded(xp, w, block_expert, nrows, bias, **kw),
              lambda: grouped_padded_plain(xp, w, block_expert, nrows, bias,
                                           bm=plan.bm, epilogue=epi))):
+        before = dict(grk.ROUTES)
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        routes = {r: grk.ROUTES[r] - before[r] for r in grk.ROUTES
+                  if grk.ROUTES[r] != before[r]}
+        route = next(iter(routes)) if len(routes) == 1 else routes
+        extra_cols = {}
+        if nan_tail and kname == "grouped_padded":
+            # The NaN rows reach the padded output (and its plain version)
+            # only through the scatter: they must agree on where.
+            finite = torch.isfinite(want.float())
+            if not torch.equal(torch.isfinite(got.float()), finite):
+                fail(f"{kname} {label}: NaN where the plain version has "
+                     f"none, or the reverse")
+            extra_cols["nan_rows"] = int((~finite).any(1).sum().item())
+            got, want = got[finite.all(1)], want[finite.all(1)]
+        if nan_tail and kname == "grouped_fused" and \
+                int(torch.count_nonzero(got[total:])) != 0:
+            fail(f"{kname} {label}: rows past sum(group_sizes) are not "
+                 f"exactly zero")
         max_abs, rel, nbad, tol = compare(torch, got, want, dname)
-        row = dict(base, kernel=kname, max_abs_err=max_abs, max_rel_err=rel,
-                   tolerance=tol, mismatches=nbad,
+        row = dict(base, kernel=kname, route=route, max_abs_err=max_abs,
+                   max_rel_err=rel, tolerance=tol, mismatches=nbad,
                    ms=time_ms(torch, kern, 5),
                    plain_ms=time_ms(torch, plain, 2),
                    library_ms=lib_ms, op_ms=op_ms, byte_ms=byte_ms,
                    bound_ms=max(op_ms, byte_ms),
-                   bound_by="bytes" if byte_ms >= op_ms else "operations")
+                   bound_by="bytes" if byte_ms >= op_ms else "operations",
+                   **extra_cols)
+        if decode:
+            row.update(device_ms=graph_ms(torch, kern, iters=5),
+                       device_library_ms=lib_device_ms)
         emit(**row)
         if nbad:
             fail(f"{kname} {label}: {nbad} elements outside atol=rtol={tol}")
+        if main_path and route != "A":
+            fail(f"{kname} {label}: a main-path grouped GEMM took route "
+                 f"{route}, not A")
         rows.append(row)
     if not bwd:
         return rows
@@ -1758,8 +1876,9 @@ def _read_counts():
     launches = {}
     for mod in _kernel_modules():
         launches.update(mod.LAUNCHES)
-    gk = _kernel_modules()[0]
+    gk, grk = _kernel_modules()[0], _kernel_modules()[3]
     launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
+    launches.update({f"grouped_route_{r}": n for r, n in grk.ROUTES.items()})
     return {**launches,
             "engine_transpose_launches": st.get("transpose", {})
             .get("launches", 0),
@@ -1888,7 +2007,8 @@ def phase_serve_off(torch, model, prompts, logits_auto):
 
 def _device_profile(torch, fn, steps: int):
     """``fn()`` run ``steps`` times under torch.profiler: wall time against
-    device time per step, and the kernels that take it."""
+    device time per step, the kernels that take it, and every kernel of
+    the port's own sources (``port``, whatever its rank)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1912,7 +2032,11 @@ def _device_profile(torch, fn, steps: int):
                 device_busy_share=device_ms / (wall * 1e3 / steps) if rows
                 else "not measured",
                 top=[[name[:80], us / 1e3 / steps, n // steps]
-                     for us, name, n in rows[:12]])
+                     for us, name, n in rows[:12]],
+                port=[[name[:80], us / 1e3 / steps, n // steps]
+                      for us, name, n in rows
+                      if name.startswith(("void (anonymous namespace)::",
+                                          "(anonymous namespace)::"))])
 
 
 def phase_profile(torch, model, prompts, steps: int = 2, name="profile"):

@@ -50,7 +50,9 @@
 //       is not usable there: it copies 4, 8 or 16 bytes from an address
 //       aligned to that size, and such rows start on 2-byte boundaries.
 // Every route stages the finished fp32 tile in the ring's shared memory
-// and stores rows of eight owned columns with 16-byte accesses.  Blocks
+// and stores rows of eight owned columns with 16-byte accesses.  The bf16
+// tile itself (the ring, routes A/B and C, the epilogue, the tensor maps)
+// lives in wgmma_tile.cuh, which the grouped GEMM's forward shares.  Blocks
 // take tiles in bands of RASTER_ROWS tile rows, a band column by column,
 // so the blocks in flight share B's panels in L2 (a read-out's B is read
 // from HBM about once, not once per tile row).
@@ -65,64 +67,23 @@
 #include <stdint.h>
 #include <type_traits>
 
-#include "gemm_sm90.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
+// The bf16 tile (its ring, routes, epilogue and tensor maps) is
+// wgmma_tile.cuh's, shared with the grouped GEMM's forward.
+using namespace wgt;
+
 constexpr int NT = 128;       // threads per block of the fp32 route
-constexpr int BK = 32;        // K panel (H100_SXM.k_panel)
 constexpr int MAX_CLUSTER = 8;  // split-K blocks (H100_SXM.gemm_max_cluster)
-constexpr int WG_THREADS = 128;       // one consumer warpgroup
-constexpr int PRODUCER_THREADS = 32;  // the TMA producer warp
-constexpr int LD_WARPGROUPS = 2;      // route C's warpgroups, every shape
 constexpr int SMEM_BYTES = 2 * BK * (128 + 4) * 4;  // fp32 route, static
-// A ring stage holds one K panel: K-major rows of ROWB = 64 bytes.
-constexpr int ROWB = 2 * BK;
-constexpr int ABOX = 64;  // rows of one A box for bm >= 64
 // A region's windows are taken in bands of RASTER_ROWS tile rows, a band
 // column by column (the fused table comes in that order from kernel.py),
 // so the blocks in flight share B's column panels in L2.
 constexpr int RASTER_ROWS = 8;
-// The TMA ring: STAGES stages of an A slot (64 rows a consumer warpgroup)
-// and a B slot (128 rows or columns), each on a 1024-byte boundary, with
-// 1024 bytes of alignment slack in front and two mbarriers a stage
-// behind.  Six 16 KB stages keep 96 KB of loads in flight a block, and
-// two blocks fit an SM.
-constexpr int STAGES = 6;
-constexpr int B_SLOT = 128 * ROWB;
-__host__ __device__ constexpr int a_slot(int nwg) { return nwg * 64 * ROWB; }
-__host__ __device__ constexpr int stage_bytes(int nwg) {
-  return a_slot(nwg) + B_SLOT;
-}
-__host__ __device__ constexpr int ring_bytes(int nwg) {
-  return 1024 + STAGES * stage_bytes(nwg) + 2 * STAGES * 8;
-}
-// The epilogue stages the fp32 tile, [BM][BN + 4], in the ring; route C's
-// block holds that tile, which outgrows its two stages.
-constexpr int STAGED_TILE_BYTES = 128 * (128 + 4) * 4;
-static_assert(STAGES * stage_bytes(2) >= STAGED_TILE_BYTES &&
-                  STAGES * stage_bytes(1) >= 64 * (128 + 4) * 4,
-              "the staged tile fits the ring");
-static_assert(2 * stage_bytes(LD_WARPGROUPS) <= STAGED_TILE_BYTES,
-              "route C's two stages fit its block");
-constexpr int LD_SMEM = 1024 + STAGED_TILE_BYTES;
 
-enum { EPI_NONE = 0, EPI_BIAS, EPI_GELU, EPI_SILU, EPI_RELU, EPI_BIAS_GELU,
-       EPI_BIAS_SILU };
-enum { DT_F32 = 0, DT_BF16 = 1 };
 enum { ROUTE_A = 0, ROUTE_B = 1, ROUTE_C = 2 };
-
-struct GemmArgs {
-  const void* a;
-  const void* b;
-  const void* bias;  // (n,) or null
-  const void* c;     // (nb, m, n) accumulate input or null
-  void* out;         // (nb, m, n)
-  int m, n, k;
-  int nt;            // 1: B is (n, k); 0: B is (k, n)
-  int bias_dtype, c_dtype, out_dtype;
-  int epi;
-};
 
 // Where a block's tile comes from: a row of the fused kernel's tile table,
 // or one window of a region's grid.  `split` blocks (a cluster) share a
@@ -133,52 +94,6 @@ struct TileSrc {
   int shape, row0, col0, rows, cols, tiles_r, tiles_c;  // the region
   int split, nwg;
 };
-
-// The TMA tensor maps of one call: A in 16-row boxes (bm 16 tiles), A in
-// ABOX-row boxes (bm 64 / 128), B.
-struct Maps {
-  const CUtensorMap* a16;
-  const CUtensorMap* a;
-  const CUtensorMap* b;
-};
-
-// One block's tile: the window's origin, the owned rectangle, the batch.
-struct Tile {
-  GemmArgs g;
-  int batch, orow, ocol, r0, r1, c0, c1;
-  int rank, split, nwg;
-  unsigned char* smem;
-};
-
-__device__ __forceinline__ float load_f(const void* p, int dtype, int64_t i) {
-  return dtype == DT_BF16
-             ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-             : reinterpret_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_f(void* p, int dtype, int64_t i,
-                                        float v) {
-  if (dtype == DT_BF16)
-    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
-  else
-    reinterpret_cast<float*>(p)[i] = v;
-}
-
-__device__ __forceinline__ float epilogue(float x, const GemmArgs& g,
-                                          int col) {
-  const int e = g.epi;
-  if (e == EPI_BIAS || e == EPI_BIAS_GELU || e == EPI_BIAS_SILU)
-    x += load_f(g.bias, g.bias_dtype, col);
-  if (e == EPI_GELU || e == EPI_BIAS_GELU) {
-    const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
-    x = 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
-  } else if (e == EPI_SILU || e == EPI_BIAS_SILU) {
-    x = x / (1.f + expf(-x));
-  } else if (e == EPI_RELU) {
-    x = fmaxf(x, 0.f);
-  }
-  return x;
-}
 
 // C_in joins the fp32 accumulator before bias and activation (ref_gemm's
 // order).
@@ -195,60 +110,6 @@ __device__ __forceinline__ void finish(const GemmArgs& g, int batch, int r,
   if (r < r0 || r >= r1 || c < c0 || c >= c1) return;
   const int64_t o = (int64_t)batch * g.m * g.n + (int64_t)r * g.n + c;
   store_f(g.out, g.out_dtype, o, finish_value(g, o, c, acc));
-}
-
-// Eight neighbouring fp32 values from p[i..i+8) of a dtype: 16-byte loads
-// where the address allows, else element by element (n < 8 valid).
-__device__ __forceinline__ void load8(const void* p, int dtype, int64_t i,
-                                      int n, float v[8]) {
-  const int esize = dtype == DT_BF16 ? 2 : 4;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(p) + (uintptr_t)i * esize;
-  if (n == 8 && addr % 16 == 0) {
-    if (dtype == DT_BF16) {
-      const uint4 u = *reinterpret_cast<const uint4*>(addr);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        v[2 * e] = f.x;
-        v[2 * e + 1] = f.y;
-      }
-    } else {
-      const float4 a = reinterpret_cast<const float4*>(addr)[0];
-      const float4 b = reinterpret_cast<const float4*>(addr)[1];
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    }
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    if (e < n) v[e] = load_f(p, dtype, i + e);
-}
-
-// Stores v[lo..hi) to p[i + lo .. i + hi): one or two 16-byte stores when
-// all eight are stored and the address allows, else element by element.
-__device__ __forceinline__ void store8(void* p, int dtype, int64_t i, int lo,
-                                       int hi, const float v[8]) {
-  const int esize = dtype == DT_BF16 ? 2 : 4;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(p) + (uintptr_t)i * esize;
-  if (lo == 0 && hi == 8 && addr % 16 == 0) {
-    if (dtype == DT_BF16) {
-      uint4 u;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-      *reinterpret_cast<uint4*>(addr) = u;
-    } else {
-      reinterpret_cast<float4*>(addr)[0] = make_float4(v[0], v[1], v[2], v[3]);
-      reinterpret_cast<float4*>(addr)[1] = make_float4(v[4], v[5], v[6], v[7]);
-    }
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    if (e >= lo && e < hi) store_f(p, dtype, i + e, v[e]);
 }
 
 // ---------------------------------------------------------------------------
@@ -324,357 +185,6 @@ struct F32Route {
   }
 };
 
-// ---------------------------------------------------------------------------
-// bf16: the wgmma tile, shared by routes A, B (TMA ring) and C (loads
-// through registers).
-// ---------------------------------------------------------------------------
-
-// One consumer warpgroup's share of a BM x BN tile.  bm >= 64: warpgroup w
-// owns rows [64 w, 64 w + 64) and all BN columns (BN / 2 fp32 registers a
-// thread).  bm 16 (swap-AB): warpgroup w owns the 64-column halves h = w,
-// w + nwg, ... of the window's weight columns (8 registers a half).
-template <int BM, int BN>
-struct Acc {
-  static constexpr bool SWAP = BM == 16;
-  static constexpr int HALVES = BN / 64;
-  static constexpr int N = SWAP ? 8 * HALVES : BN / 2;
-  float d[N];
-};
-
-// Consumer warpgroups with work: bm / 64 for route A, the halves (at most
-// nwg) for the swap-AB tile.
-template <int BM, int BN>
-__device__ __forceinline__ int active_wgs(int nwg) {
-  return BM == 16 ? min(nwg, BN / 64) : BM / 64;
-}
-
-// The products of one stage: BK / 16 k-steps.  `a` and `b` are the
-// shared-memory addresses of the stage's A and B slots.
-template <int BM, int BN>
-__device__ __forceinline__ void panel_mma(Acc<BM, BN>& acc, uint32_t a,
-                                          uint32_t b, int wg, int nwg,
-                                          int nt) {
-  using namespace sm90;
-  if constexpr (BM == 16) {
-#pragma unroll
-    for (int hh = 0; hh < Acc<BM, BN>::HALVES; ++hh) {
-      const int h = wg + hh * nwg;
-      if (h >= Acc<BM, BN>::HALVES) continue;
-      float* d = acc.d + 8 * hh;
-      const uint32_t w = b + h * 64 * ROWB;
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        const uint64_t act = desc_k64(a + ks * 32);
-        if (nt)
-          wgmma_n16<0, 0>(d, desc_k64(w + ks * 32), act);
-        else
-          wgmma_n16<1, 0>(d, desc_mn128(w + ks * 2048), act);
-      }
-    }
-  } else {
-    const uint32_t arow = a + wg * 64 * ROWB;
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      const uint64_t da = desc_k64(arow + ks * 32);
-      if constexpr (BN == 64) {
-        if (nt) wgmma_n64<0, 0>(acc.d, da, desc_k64(b + ks * 32));
-        else    wgmma_n64<0, 1>(acc.d, da, desc_mn128(b + ks * 2048));
-      } else {
-        if (nt) wgmma_n128<0, 0>(acc.d, da, desc_k64(b + ks * 32));
-        else    wgmma_n128<0, 1>(acc.d, da, desc_mn128(b + ks * 2048));
-      }
-    }
-  }
-}
-
-// The split-K reduction (partial sums into the cluster leader, in rank
-// order) and the epilogue from the registers.  Every thread of the block
-// calls it: the cluster barriers count them all.
-template <int BM, int BN>
-__device__ __forceinline__ void finish_tile(Acc<BM, BN>& acc, const Tile& t,
-                                            bool consumer) {
-  using namespace sm90;
-  constexpr int N = Acc<BM, BN>::N;
-  const int wg = threadIdx.x / WG_THREADS;
-  const int nact = WG_THREADS * active_wgs<BM, BN>(t.nwg);
-  const int ct = threadIdx.x;  // consumer thread index, < nact
-  __syncwarp();  // the cluster barrier is .aligned
-  if (t.split > 1) {
-    // The ring is free once every consumer's products are done; the
-    // partial sums reuse it.
-    if (consumer) {
-      bar_sync(1, nact);
-      fence_proxy_async();
-      if (t.rank != 0) {
-        float* red = reinterpret_cast<float*>(t.smem);
-#pragma unroll
-        for (int i = 0; i < N; ++i) red[i * nact + ct] = acc.d[i];
-      }
-    }
-    cluster_sync();
-    if (consumer && t.rank == 0) {
-      const uint32_t red = smem_u32(t.smem);
-      for (int peer = 1; peer < t.split; ++peer) {
-        const uint32_t remote = map_rank(red, peer);
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          acc.d[i] += ld_dsmem(remote + 4u * (uint32_t)(i * nact + ct));
-      }
-    }
-    cluster_sync();  // the peers' buffers stay alive until read
-  }
-  if (!consumer || t.rank != 0) return;
-  // Stage the fp32 tile in the (free) ring as [BM][BN + 4], row by row.
-  constexpr int LD = BN + 4;
-  float* st = reinterpret_cast<float*>(t.smem);
-  if (t.split == 1) {
-    bar_sync(1, nact);  // every consumer's products are done
-    fence_proxy_async();
-  }
-  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4;
-  const int qr = 16 * w + lane / 4, qc = 2 * (lane % 4);
-  if constexpr (BM == 16) {
-    // C^T fragments: rows are weight columns, columns are activation rows.
-#pragma unroll
-    for (int hh = 0; hh < Acc<BM, BN>::HALVES; ++hh) {
-      const int h = wg + hh * t.nwg;
-      if (h >= Acc<BM, BN>::HALVES) continue;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            st[(8 * j + qc + c) * LD + 64 * h + qr + 8 * i] =
-                acc.d[8 * hh + 4 * j + 2 * i + c];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<float2*>(st + (64 * wg + qr + 8 * i) * LD + 8 * j +
-                                   qc) =
-            make_float2(acc.d[4 * j + 2 * i], acc.d[4 * j + 2 * i + 1]);
-  }
-  bar_sync(1, nact);
-
-  // Rows of eight columns: C_in, bias, activation and the cast, stored
-  // where the tile owns them.
-  const GemmArgs& g = t.g;
-  for (int q = ct; q < BM * BN / 8; q += nact) {
-    const int lr = q / (BN / 8), lc = q % (BN / 8) * 8;
-    const int r = t.orow + lr, c = t.ocol + lc;
-    if (r < t.r0 || r >= t.r1) continue;
-    const int lo = max(t.c0 - c, 0), hi = min(t.c1 - c, 8);
-    if (lo >= hi) continue;
-    float v[8];
-    const float4 a = *reinterpret_cast<const float4*>(st + lr * LD + lc);
-    const float4 b = *reinterpret_cast<const float4*>(st + lr * LD + lc + 4);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    const int64_t o = ((int64_t)t.batch * g.m + r) * g.n + c;
-    const int n = min(g.n - c, 8);
-    if (g.c) {
-      float cin[8] = {};
-      load8(g.c, g.c_dtype, o, n, cin);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += cin[e];
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = epilogue(v[e], g, min(c + e, g.n - 1));
-    store8(g.out, g.out_dtype, o, lo, hi, v);
-  }
-}
-
-// Routes A and B: the TMA ring.  Block = nwg consumer warpgroups and one
-// producer warp (the last).  Each block sums the panels [p0, p1) of its
-// split-K share.
-struct TmaRoute {
-  template <int BM, int BN>
-  static __device__ __forceinline__ void run(const Tile& t, const Maps& m) {
-    using namespace sm90;
-    const GemmArgs& g = t.g;
-    const int steps = (g.k + BK - 1) / BK;
-    const int p0 = (int)((int64_t)t.rank * steps / t.split);
-    const int p1 = (int)((int64_t)(t.rank + 1) * steps / t.split);
-    constexpr int S = STAGES;
-    const uint32_t base = smem_u32(t.smem);
-    const uint32_t stage = stage_bytes(t.nwg);
-    const uint32_t bars = base + S * stage;  // full[s], then empty[s]
-    const int wg = threadIdx.x / WG_THREADS;
-    const int nact = active_wgs<BM, BN>(t.nwg);
-    if (threadIdx.x == 0) {
-      for (int s = 0; s < S; ++s) {
-        mbar_init(bars + 8 * s, 1);
-        mbar_init(bars + 8 * (S + s), 4 * nact);
-      }
-      mbar_init_fence();
-    }
-    __syncthreads();
-
-    Acc<BM, BN> acc;
-#pragma unroll
-    for (int i = 0; i < Acc<BM, BN>::N; ++i) acc.d[i] = 0.f;
-    const bool consumer = wg < nact;
-    if (wg == t.nwg) {
-      // Producer: one thread keeps up to S stages in flight.  Boxes wholly
-      // past the last row or column are not loaded: their slot rows only
-      // reach outputs past the matrix, which are never stored.
-      if (threadIdx.x % 32 == 0) {
-        constexpr int AROWS = BM == 16 ? 16 : ABOX;
-        const CUtensorMap* mapa = BM == 16 ? m.a16 : m.a;
-        const int abox = min(BM / AROWS, (g.m - t.orow + AROWS - 1) / AROWS);
-        const int bbox = min(BN / 64, (g.n - t.ocol + 63) / 64);
-        const uint32_t bytes = (abox * AROWS + bbox * 64) * ROWB;
-        int s = 0;
-        uint32_t phase = 0;
-        for (int p = p0; p < p1; ++p) {
-          mbar_wait(bars + 8 * (S + s), phase ^ 1);
-          const uint32_t full = bars + 8 * s;
-          const uint32_t a = base + s * stage, b = a + a_slot(t.nwg);
-          mbar_expect_tx(full, bytes);
-          for (int i = 0; i < abox; ++i)
-            tma_load_3d(a + AROWS * ROWB * i, mapa, full, p * BK,
-                        t.orow + AROWS * i, t.batch);
-          for (int h = 0; h < bbox; ++h) {
-            if (g.nt)
-              tma_load_3d(b + 64 * ROWB * h, m.b, full, p * BK,
-                          t.ocol + 64 * h, t.batch);
-            else
-              tma_load_3d(b + 64 * ROWB * h, m.b, full, t.ocol + 64 * h,
-                          p * BK, t.batch);
-          }
-          if (++s == S) { s = 0; phase ^= 1; }
-        }
-      }
-    } else if (consumer) {
-      int s = 0, prev = -1;
-      uint32_t phase = 0;
-      for (int p = p0; p < p1; ++p) {
-        mbar_wait(bars + 8 * s, phase);
-        __syncwarp();  // wgmma is .aligned: the warp reconverges first
-        const uint32_t a = base + s * stage;
-        fence_regs(acc.d);
-        wgmma_fence();
-        panel_mma<BM, BN>(acc, a, a + a_slot(t.nwg), wg, t.nwg, g.nt);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done
-        fence_regs(acc.d);
-        if (prev >= 0 && threadIdx.x % 32 == 0)
-          mbar_arrive(bars + 8 * (S + prev));
-        prev = s;
-        if (++s == S) { s = 0; phase ^= 1; }
-      }
-      wgmma_wait<0>();
-      fence_regs(acc.d);
-    }
-    finish_tile<BM, BN>(acc, t, consumer);
-  }
-};
-
-// Route C: every thread loads pairs of neighbouring elements of the next
-// stage into registers while the current one is multiplied, then writes
-// them in the swizzled layouts TMA would have written.
-struct LdRoute {
-  template <int BM, int BN>
-  static __device__ __forceinline__ void run(const Tile& t, const Maps&) {
-    using namespace sm90;
-    constexpr int THREADS = LD_WARPGROUPS * WG_THREADS;
-    constexpr int PER = (BM + BN) * BK / 2 / THREADS;  // pairs a thread
-    static_assert((BM + BN) * BK / 2 % THREADS == 0, "stage split");
-    const GemmArgs& g = t.g;
-    const unsigned short* A = reinterpret_cast<const unsigned short*>(g.a) +
-                              (int64_t)t.batch * g.m * g.k;
-    const unsigned short* B = reinterpret_cast<const unsigned short*>(g.b) +
-                              (int64_t)t.batch * g.k * g.n;
-    const uint32_t base = smem_u32(t.smem);
-    const uint32_t stage = stage_bytes(LD_WARPGROUPS);
-    const int wg = threadIdx.x / WG_THREADS;
-    const bool consumer = wg < active_wgs<BM, BN>(LD_WARPGROUPS);
-    const int steps = (g.k + BK - 1) / BK;
-    uint32_t v[PER];
-
-    // Pair e covers elements 2e and 2e + 1 of the stage's A (BM x BK),
-    // then B (BN x BK for "nt", BK x BN for "nn"), fastest dimension last.
-    auto load = [&](int p) {
-      const int k0 = p * BK;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int e = 2 * (threadIdx.x + i * THREADS);
-        int r, c, rows, cols;
-        const unsigned short* src;
-        if (e < BM * BK) {
-          r = t.orow + e / BK; c = k0 + e % BK; rows = g.m; cols = g.k;
-          src = A;
-        } else if (g.nt) {
-          const int f = e - BM * BK;
-          r = t.ocol + f / BK; c = k0 + f % BK; rows = g.n; cols = g.k;
-          src = B;
-        } else {
-          const int f = e - BM * BK;
-          r = k0 + f / BN; c = t.ocol + f % BN; rows = g.k; cols = g.n;
-          src = B;
-        }
-        const unsigned short* row = src + (int64_t)r * cols;
-        const bool in = r < rows;
-        const uint32_t lo = in && c < cols ? row[c] : 0u;
-        const uint32_t hi = in && c + 1 < cols ? row[c + 1] : 0u;
-        v[i] = lo | hi << 16;
-      }
-    };
-    auto store = [&](int s) {
-      unsigned char* a = t.smem + s * stage;
-      unsigned char* b = a + a_slot(LD_WARPGROUPS);
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int e = 2 * (threadIdx.x + i * THREADS);
-        uint32_t off;
-        unsigned char* dst;
-        if (e < BM * BK || g.nt) {  // K-major rows of ROWB bytes
-          const int f = e < BM * BK ? e : e - BM * BK;
-          const int r = f / BK, kk = f % BK;
-          off = r * ROWB +
-                (((kk >> 3) ^ ((r * ROWB >> 7) & (ROWB / 16 - 1))) << 4) +
-                (kk & 7) * 2;
-          dst = e < BM * BK ? a : b;
-        } else {  // MN-major, 128-byte swizzle, 64-column chunks
-          const int f = e - BM * BK, kk = f / BN, cc = f % BN;
-          off = (cc >> 6) * (BK * 128) + kk * 128 +
-                ((((cc & 63) >> 3) ^ (kk & 7)) << 4) + (cc & 7) * 2;
-          dst = b;
-        }
-        *reinterpret_cast<uint32_t*>(dst + off) = v[i];
-      }
-      fence_proxy_async();
-    };
-
-    Acc<BM, BN> acc;
-#pragma unroll
-    for (int i = 0; i < Acc<BM, BN>::N; ++i) acc.d[i] = 0.f;
-    load(0);
-    store(0);
-    __syncthreads();
-    for (int p = 0; p < steps; ++p) {
-      const int s = p & 1;
-      if (p + 1 < steps) load(p + 1);
-      if (consumer) {
-        const uint32_t a = base + s * stage;
-        fence_regs(acc.d);
-        wgmma_fence();
-        panel_mma<BM, BN>(acc, a, a + a_slot(LD_WARPGROUPS), wg,
-                          LD_WARPGROUPS, g.nt);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc.d);
-      }
-      if (p + 1 < steps) store(s ^ 1);
-      __syncthreads();
-    }
-    finish_tile<BM, BN>(acc, t, consumer);
-  }
-};
-
 template <typename T, int BM, int BN>
 __device__ __forceinline__ void tile(const Tile& t, const Maps& m) {
   if constexpr (std::is_same<T, F32Route>::value)
@@ -715,7 +225,8 @@ __device__ __forceinline__ void tile_by_shape(int shape, const Tile& t,
 // blockIdx.y is the batch; a cluster's blocks are consecutive in x.
 __device__ __forceinline__ int resolve_tile(const TileSrc& src, Tile& t) {
   const int tile = blockIdx.x / src.split;
-  t.batch = blockIdx.y;
+  t.batch = t.bbatch = blockIdx.y;
+  t.live = ALL_ROWS;
   t.split = src.split;
   t.nwg = src.nwg;
   t.rank = src.split > 1 ? (int)sm90::cluster_rank() : 0;
@@ -763,56 +274,8 @@ gemm_f32_kernel(const __grid_constant__ GemmArgs g, const TileSrc src) {
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps, launch configuration.
+// Host side: launch configuration.
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the CUDA runtime's entry-point
-// query, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess)
-      return nullptr;
-#endif
-    if (q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D bf16 map over (inner, outer, batch) with a (box0, box1, 1) box.
-// The extents are the logical ones: TMA fills zeros past them.
-bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
-              uint64_t outer, uint64_t batch, uint32_t box0, uint32_t box1,
-              CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode || reinterpret_cast<uintptr_t>(ptr) % 16 || (inner * 2) % 16)
-    return false;
-  const cuuint64_t dims[3] = {inner, outer, batch};
-  const cuuint64_t strides[2] = {inner * 2, inner * outer * 2};
-  const cuuint32_t box[3] = {box0, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // Consumer warpgroups of a launch: two when a tile of bm 128 is in it
 // (or on route C, which always runs two), else one.

@@ -4,7 +4,8 @@ and ``csrc/grouped_quant.cu``), each beside its plain torch version.
   * :func:`grouped_fused` -- one launch over the runtime tile table of a
     :class:`~repro_torch.core.schedule.GroupedTileSchedule`, one thread
     block per (table row, N block) (the counterpart of the reference's
-    ``build_fused_grouped_kernel``);
+    ``build_fused_grouped_kernel``); a bf16 block loads and multiplies only
+    the 64-row boxes of its tile that hold owned rows;
   * :func:`grouped_padded` -- the pad/scatter lowering over groups padded
     to ``bm`` rows, one thread block per (row block, N block), the expert
     from ``block_expert`` (the counterpart of ``build_grouped_gemm_kernel``);
@@ -20,7 +21,11 @@ the forward kernels in x's dtype; the backward takes an fp32 cotangent and
 returns fp32 gradients.  The kernels take the ``(bm, bn)`` tilings of
 :data:`SHAPES` with a K panel of 32 (``H100_SXM.grouped_blocks``).  A
 wrapper runs its plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
+launches the kernel or raises.  Each launch adds one to :data:`LAUNCHES`,
+and each forward launch of ``grouped_fused`` / ``grouped_padded`` one to
+the route it took in :data:`ROUTES` (:func:`choose_route`): "A" (the TMA
+ring and wgmma tile), "C" (bf16 operands TMA cannot take, loaded through
+registers into the same tile) or "fp32" (CUDA-core FMAs).
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ from repro_torch.kernels.grouped_gemm.ref import (expert_offsets,
 
 LAUNCHES = {"grouped_fused": 0, "grouped_padded": 0, "grouped_bwd": 0,
             "grouped_quant": 0}
+ROUTES = {"A": 0, "C": 0, "fp32": 0}
+_ROUTE_CODE = {"A": 0, "C": 2, "fp32": 0}
 
 # (bm, bn) tilings csrc/grouped.cu instantiates, in its shape order.
 SHAPES = ((16, 64), (16, 128), (64, 64), (64, 128), (128, 64), (128, 128))
@@ -56,9 +63,9 @@ def _lib(name: str = "grouped"):
         lib = _build.library(name)
         P, I = _build.P, _build.I
         if name == "grouped":
-            lib.grouped_fused.argtypes = [P] * 5 + [I] * 8 + [P]
+            lib.grouped_fused.argtypes = [P] * 5 + [I] * 11 + [P]
             lib.grouped_fused.restype = I
-            lib.grouped_padded.argtypes = [P] * 6 + [I] * 8 + [P]
+            lib.grouped_padded.argtypes = [P] * 6 + [I] * 10 + [P]
             lib.grouped_padded.restype = I
             lib.grouped_bwd.argtypes = [P] * 8 + [I] * 6 + [P]
             lib.grouped_bwd.restype = I
@@ -110,6 +117,23 @@ def _bias_code(bias) -> int:
     return _DT[bias.dtype] if bias is not None else 0
 
 
+def choose_route(dtype, k: int, n: int, ptrs=(0, 0)) -> str:
+    """The forward kernel's route for one call: "fp32" for fp32 operands;
+    for bf16 "C" where TMA cannot read x or w (a base ``ptrs`` not 16-byte
+    aligned, or a row -- ``k`` elements of x, ``n`` of w -- that is not a
+    multiple of 16 bytes), else "A"."""
+    if dtype == torch.float32:
+        return "fp32"
+    if any(p % 16 for p in ptrs) or (2 * k) % 16 or (2 * n) % 16:
+        return "C"
+    return "A"
+
+
+def _route(x, w) -> str:
+    return choose_route(x.dtype, x.shape[1], w.shape[2],
+                        (x.data_ptr(), w.data_ptr()))
+
+
 def grouped_fused(table, x, w, bias=None, *, bm: int, bn: int,
                   epilogue: Optional[str] = None) -> torch.Tensor:
     """One launch over the ``(max_tiles, 5)`` int32 tile table -> ``(T, N)``
@@ -122,11 +146,14 @@ def grouped_fused(table, x, w, bias=None, *, bm: int, bn: int,
     out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
                       device=x.device)
     bias = bias if needs_bias(epilogue) else None
+    route = _route(x, w)
     status = _lib().grouped_fused(
         _build.ptr(x), _build.ptr(w), _build.ptr(bias), _build.ptr(out),
-        _build.ptr(table), table.shape[0], x.shape[1], w.shape[2], bm, bn,
-        _DT[x.dtype], _bias_code(bias), _EPI[epilogue], _build.stream_ptr(x))
+        _build.ptr(table), table.shape[0], x.shape[0], x.shape[1],
+        w.shape[2], w.shape[0], bm, bn, _DT[x.dtype], _bias_code(bias),
+        _EPI[epilogue], _ROUTE_CODE[route], _build.stream_ptr(x))
     LAUNCHES["grouped_fused"] += 1
+    ROUTES[route] += 1
     _build.check(status, "grouped_fused")
     return out
 
@@ -150,12 +177,15 @@ def grouped_padded(x_padded, w, block_expert, nrows, bias=None, *, bm: int,
     out = torch.empty((t_pad, w.shape[2]), dtype=x_padded.dtype,
                       device=x_padded.device)
     bias = bias if needs_bias(epilogue) else None
+    route = _route(x_padded, w)
     status = _lib().grouped_padded(
         _build.ptr(x_padded), _build.ptr(w), _build.ptr(bias),
         _build.ptr(out), _build.ptr(block_expert), _build.ptr(nrows), t_pad,
-        x_padded.shape[1], w.shape[2], bm, bn, _DT[x_padded.dtype],
-        _bias_code(bias), _EPI[epilogue], _build.stream_ptr(x_padded))
+        x_padded.shape[1], w.shape[2], w.shape[0], bm, bn,
+        _DT[x_padded.dtype], _bias_code(bias), _EPI[epilogue],
+        _ROUTE_CODE[route], _build.stream_ptr(x_padded))
     LAUNCHES["grouped_padded"] += 1
+    ROUTES[route] += 1
     _build.check(status, "grouped_padded")
     return out
 
@@ -339,5 +369,6 @@ def grouped_bwd_plain(table, x, dy, w, group_sizes, *,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0

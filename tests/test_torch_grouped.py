@@ -389,6 +389,47 @@ def test_kernel_shapes_are_the_machine_blocks():
 
 
 # ---------------------------------------------------------------------------
+# the forward kernels' routes (kernel.py chooses; grouped.cu runs them)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,k,n", FULL_WIDTH)
+def test_main_path_shapes_take_route_a(t, k, n):
+    """phi3.5-moe's four full-width expert GEMMs (bf16, 16-byte aligned
+    tensors from the allocator) take the TMA ring, whatever the tiling."""
+    assert grouped_kernel.choose_route(torch.bfloat16, k, n,
+                                       (1 << 20, 1 << 21)) == "A"
+    x = torch.zeros((t, 8), dtype=torch.bfloat16)
+    w = torch.zeros((2, 8, 16), dtype=torch.bfloat16)
+    assert grouped_kernel._route(x, w) == "A"
+
+
+@pytest.mark.parametrize("k,n,ptrs,route", [
+    (1000, 300, (0, 0), "C"),    # a 600-byte weight row (chip_smoke's
+                                 # ragged_bf16_bias_silu_planned)
+    (100, 160, (0, 0), "C"),     # a 200-byte x row
+    (4096, 6400, (2, 0), "C"),   # x 2 bytes past a 16-byte boundary
+    (4096, 6400, (0, 8), "C"),   # w 8 bytes past one
+    (24, 200, (0, 16), "A"),     # K below one panel: TMA zero-fills it
+    (96, 160, (0, 0), "A")])
+def test_route_c_takes_what_tma_cannot(k, n, ptrs, route):
+    assert grouped_kernel.choose_route(torch.bfloat16, k, n, ptrs) == route
+    assert grouped_kernel.choose_route(torch.float32, k, n, ptrs) == "fp32"
+
+
+def test_cpu_wrappers_count_no_route():
+    """The CPU path runs the plain versions: no launch, no route."""
+    sizes, x, w, _ = _case([8, 8], 0, kdim=16, n=16)
+    xt, wt = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    table = GroupedTileSchedule(t=16, k=16, n=16, num_experts=2, bm=16,
+                                bk=16, bn=16).tables(torch.from_numpy(sizes))
+    before = dict(grouped_kernel.ROUTES)
+    grouped_fused(table, xt, wt, bm=16, bn=64)
+    assert grouped_kernel.ROUTES == before
+    grouped_kernel.reset_launches()
+    assert set(grouped_kernel.ROUTES.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
 # the kernels on the card
 # ---------------------------------------------------------------------------
 
@@ -399,33 +440,87 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (dtype, epilogue, bm, bn, group sizes, rows past their sum, K, N, rows
+#  past the sum hold NaN, route): the first three are the original cases
+#  (K 100: bf16 takes route C); then the wgmma tile as chip_smoke.py drives it:
+#  every epilogue, every pinned (bm, bn), row-aware tiles (groups of 1, 17,
+#  32, 64 and 65 rows, an empty expert), K below a panel and K off the
+#  ring's 6 x 32, route C, NaN past the groups' sum.
+_TILE_SIZES = [100, 0, 37, 130]
+_ROWS = [1, 17, 0, 32, 64, 65]
+CARD_CASES = [
+    pytest.param(torch.float32, "bias_silu", 16, 64, [37, 0, 201, 70], 4,
+                 100, 70, False, "fp32", id="dtype0-bias_silu-16-64"),
+    pytest.param(torch.float32, None, 64, 128, [37, 0, 201, 70], 4, 100, 70,
+                 False, "fp32", id="dtype1-None-64-128"),
+    pytest.param(torch.bfloat16, "gelu", 128, 128, [37, 0, 201, 70], 4, 100,
+                 70, False, "C", id="dtype2-gelu-128-128"),
+    *[pytest.param(torch.bfloat16, epi, 128, 128, _TILE_SIZES, 20, 256, 320,
+                   False, "A", id=f"tile_epi_{epi}") for epi in EPILOGUES],
+    *[pytest.param(torch.bfloat16, "bias_silu", bm, bn, [70, 17, 0, 140], 9,
+                   160, 200, False, "A", id=f"tile_shape_{bm}x{bn}")
+      for bm, bn in grouped_kernel.SHAPES],
+    pytest.param(torch.bfloat16, None, 128, 128, _ROWS, 0, 512, 256, False,
+                 "A", id="tile_rows_bm128"),
+    pytest.param(torch.bfloat16, "silu", 64, 128, _ROWS, 0, 512, 256, False,
+                 "A", id="tile_rows_bm64"),
+    pytest.param(torch.bfloat16, "relu", 128, 64, [50, 90], 7, 24, 200, False,
+                 "A", id="tile_k24"),
+    pytest.param(torch.bfloat16, "gelu", 64, 128, [50, 0, 80], 3, 200, 136,
+                 False, "A", id="tile_k200"),
+    pytest.param(torch.bfloat16, "bias", 128, 64, [60, 85], 5, 100, 160,
+                 False, "C", id="tile_route_c_k100"),
+    pytest.param(torch.bfloat16, "bias_silu", 128, 128, [100, 0, 0, 250], 20,
+                 1000, 300, False, "C", id="tile_route_c_n300"),
+    pytest.param(torch.bfloat16, "silu", 128, 128, [40, 0, 90], 30, 256, 192,
+                 True, "A", id="tile_nan_past_sum"),
+    pytest.param(torch.bfloat16, "bias", 16, 128, [40, 0, 90], 30, 256, 192,
+                 True, "A", id="tile_nan_past_sum_bm16"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,epilogue,bm,bn", [
-    (torch.float32, "bias_silu", 16, 64), (torch.float32, None, 64, 128),
-    (torch.bfloat16, "gelu", 128, 128)])
-def test_forward_kernels_on_card(cuda_device, dtype, epilogue, bm, bn):
-    sizes, x, w, bias = _case([37, 0, 201, 70], 4)
+@pytest.mark.parametrize(
+    "dtype,epilogue,bm,bn,sizes,t_extra,k,n,nan_tail,route", CARD_CASES)
+def test_forward_kernels_on_card(cuda_device, dtype, epilogue, bm, bn, sizes,
+                                 t_extra, k, n, nan_tail, route):
+    """Both forwards against their plain versions, one launch each on the
+    route choose_route names.  With NaN in the rows past sum(sizes), the
+    fused kernel stores zeros there and finite values everywhere; the
+    padded one, whose scatter carries those rows into the last group's
+    padding, has NaN exactly where its plain version does."""
+    sizes, x, w, bias = _case(sizes, t_extra, kdim=k, n=n)
     xt, wt, bt = (torch.from_numpy(a).to(cuda_device, dtype)
                   for a in (x, w, bias))
+    total = int(sizes.sum())
+    if nan_tail:
+        xt[total:] = float("nan")
     st = torch.from_numpy(sizes).to(cuda_device)
+    e = len(sizes)
     b = bt if epilogue and "bias" in epilogue else None
-    sched = GroupedTileSchedule(t=x.shape[0], k=100, n=70, num_experts=4,
-                                bm=bm, bk=32, bn=min(bn, 70))
+    sched = GroupedTileSchedule(t=x.shape[0], k=k, n=n, num_experts=e,
+                                bm=min(bm, x.shape[0]), bk=min(32, k),
+                                bn=min(bn, n))
     table = sched.tables(st)
-    n0 = dict(LAUNCHES)
+    n0, r0 = dict(LAUNCHES), dict(grouped_kernel.ROUTES)
     got = grouped_fused(table, xt, wt, b, bm=bm, bn=bn, epilogue=epilogue)
-    t_pad = -(-x.shape[0] // bm) * bm + 4 * bm
-    offs, be, nr = plan_groups(st, 4, bm, t_pad)
+    t_pad = -(-x.shape[0] // bm) * bm + e * bm
+    offs, be, nr = plan_groups(st, e, bm, t_pad)
     xp, _ = scatter_rows(xt, st, offs, bm, t_pad)
     padded = grouped_padded(xp, wt, be, nr, b, bm=bm, bn=bn,
                             epilogue=epilogue)
     torch.cuda.synchronize()
     assert LAUNCHES["grouped_fused"] == n0["grouped_fused"] + 1
     assert LAUNCHES["grouped_padded"] == n0["grouped_padded"] + 1
+    assert grouped_kernel.ROUTES[route] == r0[route] + 2
     tol = dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else F32
-    torch.testing.assert_close(
-        got.float(), grouped_fused_plain(table, xt, wt, b,
-                                         epilogue=epilogue).float(), **tol)
-    torch.testing.assert_close(
-        padded.float(), grouped_padded_plain(xp, wt, be, nr, b, bm=bm,
-                                             epilogue=epilogue).float(), **tol)
+    want = grouped_fused_plain(table, xt, wt, b, epilogue=epilogue)
+    assert torch.isfinite(got).all()
+    if nan_tail:
+        assert not bool(got[total:].any())
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    want_p = grouped_padded_plain(xp, wt, be, nr, b, bm=bm,
+                                  epilogue=epilogue)
+    assert torch.equal(torch.isfinite(padded), torch.isfinite(want_p))
+    torch.testing.assert_close(padded.float(), want_p.float(),
+                               equal_nan=True, **tol)

@@ -17,7 +17,11 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
 
 KERNELS = Path(gemm_kernel.__file__).resolve().parents[1]
-GEMM_CU = (KERNELS / "gemm" / "csrc" / "gemm.cu").read_text()
+# gemm.cu with the header that holds its bf16 tile (the ring's constants
+# and formulas), which the grouped GEMM's forward includes too.
+WGMMA_TILE = (KERNELS / "gemm" / "csrc" / "wgmma_tile.cuh").read_text()
+GEMM_CU = (KERNELS / "gemm" / "csrc" / "gemm.cu").read_text() + WGMMA_TILE
+GROUPED_CU = (KERNELS / "grouped_gemm" / "csrc" / "grouped.cu").read_text()
 FLASH_CU = (KERNELS / "flash_attention" / "csrc" / "flash_fwd.cu").read_text()
 FLASH_BWD_CU = (KERNELS / "flash_attention" / "csrc"
                 / "flash_bwd.cu").read_text()
@@ -106,6 +110,72 @@ def test_gemm_dynamic_shared_memory_fits_h100(nwg):
     ring = 1024 + stages * stage + 2 * stages * 8
     assert 2 * ring <= H100_SXM.vmem_bytes
     assert stages * stage >= 64 * nwg * (128 + 4) * 4  # the staged tile
+    assert 1024 + 128 * (128 + 4) * 4 <= H100_SXM.vmem_bytes  # route C
+
+
+def test_the_wgmma_tile_header_is_shared():
+    """gemm.cu and grouped.cu include one bf16 tile header, so the grouped
+    forward's ring, routes and epilogue are the dense GEMM's."""
+    assert '#include "wgmma_tile.cuh"' in GEMM_CU
+    assert '#include "../../gemm/csrc/wgmma_tile.cuh"' in GROUPED_CU
+    assert '#include "gemm_sm90.cuh"' in WGMMA_TILE
+
+
+def test_grouped_wgmma_constants_match_kernel_py_and_machine():
+    """grouped.cu's bf16 forward: the header's K panel is grouped.cu's BK
+    and every H100_SXM.grouped_blocks bk; each bm of kernel.SHAPES is one
+    16-row A box or whole A boxes of ABOX rows, one consumer warpgroup per
+    box (route A) beside the producer warp, within the launch bounds of
+    two blocks an SM; route C runs LD_WARPGROUPS warpgroups."""
+    from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel
+    bk = _constexpr(WGMMA_TILE, "BK")
+    assert bk == _constexpr(GROUPED_CU, "BK") == H100_SXM.k_panel
+    assert {b[1] for b in H100_SXM.grouped_blocks} == {bk}
+    abox = _constexpr(WGMMA_TILE, "ABOX")
+    wg, prod = (_constexpr(WGMMA_TILE, "WG_THREADS"),
+                _constexpr(WGMMA_TILE, "PRODUCER_THREADS"))
+    assert (abox, wg, prod) == (64, 128, 32)
+    assert "src.nwg = bm > 64 ? 2 : 1;" in GROUPED_CU
+    assert "src.nwg = wgt::LD_WARPGROUPS;" in GROUPED_CU
+    assert re.search(r"__launch_bounds__\(2 \* wgt::WG_THREADS \+ "
+                     r"wgt::PRODUCER_THREADS,\s+2\)", GROUPED_CU)
+    for bm, _ in grouped_kernel.SHAPES:
+        nwg = 2 if bm > 64 else 1
+        assert bm == 16 or bm == nwg * abox
+        assert nwg * wg + prod <= 2 * wg + prod
+    assert _constexpr(WGMMA_TILE, "LD_WARPGROUPS") * wg <= 2 * wg + prod
+
+
+def test_grouped_wgmma_switch_order_is_shapes():
+    """The bf16 tile routines are instantiated once per (route, shape), in
+    kernel.SHAPES order: six shapes on each of the two routes."""
+    from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel
+    cases = re.findall(r"case (\d+): R::template run<(\d+), (\d+)>",
+                       GROUPED_CU)
+    assert [int(i) for i, _, _ in cases] == \
+        list(range(len(grouped_kernel.SHAPES)))
+    assert tuple((int(bm), int(bn)) for _, bm, bn in cases) == \
+        grouped_kernel.SHAPES
+    assert len(re.findall(r"launch_wgmma<wgt::(\w+)>", GROUPED_CU)) == 2
+
+
+@pytest.mark.parametrize("bm,bn", [(16, 64), (16, 128), (64, 64), (64, 128),
+                                   (128, 64), (128, 128)])
+def test_grouped_wgmma_shared_memory_fits_h100(bm, bn):
+    """Each bf16 shape's dynamic shared memory at STAGES stages (the
+    header's formulas, grouped.cu's warpgroups) fits a block's 232,448
+    bytes twice, so two blocks share an SM, and its ring holds the staged
+    fp32 tile; route C's block fits too."""
+    from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel
+    assert (bm, bn) in grouped_kernel.SHAPES
+    assert "tma ? wgt::ring_bytes(src.nwg) : wgt::LD_SMEM" in GROUPED_CU
+    assert "tma ? wgt::ring_bytes(2) : wgt::LD_SMEM" in GROUPED_CU
+    stages, bk = _constexpr(WGMMA_TILE, "STAGES"), _constexpr(WGMMA_TILE,
+                                                               "BK")
+    nwg = 2 if bm > 64 else 1
+    ring = 1024 + stages * (nwg * 64 + 128) * 2 * bk + 2 * stages * 8
+    assert 2 * ring <= H100_SXM.vmem_bytes
+    assert stages * (nwg * 64 + 128) * 2 * bk >= bm * (bn + 4) * 4
     assert 1024 + 128 * (128 + 4) * 4 <= H100_SXM.vmem_bytes  # route C
 
 
