@@ -26,8 +26,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 its route and split (a main-path bf16 row off routes A and
                 B fails), the decode rows (M <= 16) also their device time
                 and their time after an L2 flush (CUDA graphs, beside the
-                library's); the flash forward
-                also in its LSE form, the flash backward, the paged decode,
+                library's); the flash forwards (fused and dense) on the
+                main-path shapes and on cases that drive each route of
+                flash_fwd.cu (ragged causal and non-causal bf16, heads of
+                very different magnitude, d 36: route C, fp32), each row
+                naming its route (a main-path bf16 row off route A fails)
+                and its device time beside SDPA's (CUDA graphs); the
+                forward also in its LSE form, the flash backward, the paged decode,
                 the SSD scan, its backward and the intra-chunk ladder, and
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
@@ -56,6 +61,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 which runs the region GEMM and the dense-grid flash kernel;
   6. profile -- torch.profiler over two full-width decode steps: wall time
                 against device time, and the kernels that take it;
+     prefill_profile -- the same over one full-width prefill (batch 4 x
+                256);
      continuous -- full-width Qwen3-0.6B through ``run_continuous``: a
                 Poisson trace of 12 requests (prompts 96-256, 16-48 new
                 tokens) over 8 slots and a 96-page pool of 16-token pages,
@@ -116,9 +123,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      gemm_routes -- the GEMM routes every phase took: route C (operands
                 TMA cannot read) on the main path fails;
      grouped_routes -- the same for the grouped forwards;
+     flash_routes -- the same for the flash forwards: a route other than A
+                (TMA ring and wgmma) on the main path fails;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
-                decode sums apart), then the card's nvidia-smi line, then
+                decode sums apart, the flash forwards' with their device
+                times and every case's route, ``flash_routes``), then the
+                card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
@@ -250,6 +261,7 @@ def main():
     counts_on, model, prompts, logits = phase_serve(torch)
     counts_off = phase_serve_off(torch, model, prompts, logits)
     phase_profile(torch, model, prompts)
+    phase_prefill_profile(torch, model, prompts)
     counts_cont, wide_cont = phase_continuous(torch, model)
     # Quantizes the serving model in place: the last phase to use it.
     counts_cont_quant = phase_continuous_quant(torch, model, wide_cont)
@@ -302,6 +314,15 @@ def main():
     on_c = {p: r["C"] for p, r in grouped_routes.items() if r["C"]}
     if on_c:
         fail(f"main-path grouped GEMMs took route C: {on_c}")
+    # Every flash forward of the main path is bf16 with TMA-legal operands:
+    # route A (TMA-fed ring, wgmma).
+    flash_routes = {p: {r: c.get(f"flash_route_{r}", 0)
+                        for r in ("A", "C", "fp32")}
+                    for p, c in by_path.items()}
+    emit(phase="flash_routes", by_path=flash_routes)
+    off_a = {p: r for p, r in flash_routes.items() if r["C"] or r["fp32"]}
+    if off_a:
+        fail(f"main-path flash forwards left route A: {off_a}")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -332,6 +353,8 @@ def main():
             **(_grouped_split_sums(rows) if kname in ("grouped_fused",
                                                      "grouped_padded")
                else {}),
+            **(_flash_sums(rows, [r for r in results if r["kernel"] == kname])
+               if kname in ("flash_fwd_fused", "flash_fwd_dense") else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -379,6 +402,14 @@ def _grouped_split_sums(rows):
         routes[r["route"]] = routes.get(r["route"], 0) + 1
     out["routes"] = routes
     return out
+
+
+def _flash_sums(rows, all_rows):
+    """A flash forward's main-path device times (CUDA graphs) beside SDPA's,
+    and the route every case took (``flash_routes``, off-path cases too)."""
+    return {"device_ms": sum(r["device_ms"] for r in rows),
+            "device_library_ms": sum(r["device_library_ms"] for r in rows),
+            "flash_routes": {r["case"]: r["route"] for r in all_rows}}
 
 
 KERNELS = {
@@ -726,33 +757,73 @@ def run_gemm_case(torch, case, gen):
     return rows
 
 
+# Per-head scales of the heads_magnitude case: neighbouring heads that
+# differ by orders of magnitude, so that a window that read across a
+# head's end (a map over BH * s rows, or a Q box past sq) would show.
+HEAD_SCALES = (1.0, 1e3, 1e-3, 30.0)
+
+
 def flash_cases():
-    """(label, bh, sq, sk, d, causal, dtype, main)."""
+    """(label, bh, sq, sk, d, causal, dtype, main, head_scales): the
+    main-path shapes (route A), then ragged bf16 cases on route A, a bf16
+    head dim whose rows TMA cannot read (d 36: route C) and fp32 cases."""
     return [("prefill_causal", BATCH * 16, PROMPT, PROMPT, 128, True,
-             "bfloat16", True),
+             "bfloat16", True, None),
             ("moe_prefill_causal", BATCH * 32, PROMPT, PROMPT, 128, True,
-             "bfloat16", True),
-            ("ragged_causal_100", 8, 100, 100, 128, True, "bfloat16", False),
+             "bfloat16", True, None),
+            ("ragged_causal_100", 8, 100, 100, 128, True, "bfloat16", False,
+             None),
+            ("ragged_noncausal_130x70_bf16", 6, 130, 70, 64, False,
+             "bfloat16", False, None),
+            ("heads_magnitude_100", len(HEAD_SCALES), 100, 100, 128, True,
+             "bfloat16", False, HEAD_SCALES),
+            ("route_c_causal_d36", 8, 100, 100, 36, True, "bfloat16", False,
+             None),
             ("ragged_noncausal_130x70", 6, 130, 70, 64, False, "float32",
-             False),
-            ("f32_causal_d16", 8, 100, 100, 16, True, "float32", False)]
+             False, None),
+            ("f32_causal_d16", 8, 100, 100, 16, True, "float32", False,
+             None)]
+
+
+def _flash_route(torch, kname, fn, want, main_path, dname, label):
+    """Runs ``fn`` once and returns its output and the flash route it took;
+    fails unless that is the route choose_route names (``want``), and a
+    main-path bf16 case off route A."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    before = dict(fk.ROUTES)
+    out = fn()
+    torch.cuda.synchronize()
+    taken = {r: fk.ROUTES[r] - before[r] for r in fk.ROUTES
+             if fk.ROUTES[r] != before[r]}
+    if taken != {want: 1}:
+        fail(f"{kname} {label}: routes {taken}, expected one launch on {want}")
+    if main_path and dname == "bfloat16" and want != "A":
+        fail(f"{kname} {label}: a main-path bf16 case took route {want}")
+    return out, want
 
 
 def run_flash_case(torch, case, gen):
     import torch.nn.functional as F
     from repro_torch.core import FlashDescriptor, plan_flash
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.kernel import (
         FusedFlash, flash_fwd_dense, flash_fwd_dense_plain, flash_fwd_fused,
         flash_fwd_fused_plain)
-    label, bh, sq, sk, d, causal, dname, main_path = case
+    label, bh, sq, sk, d, causal, dname, main_path, head_scales = case
     dt = getattr(torch, dname)
-    q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda").to(dt)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
                for s in (sq, sk, sk))
+    if head_scales is not None:
+        scale = torch.tensor(head_scales, device="cuda")[:, None, None]
+        k, v = k * scale.sqrt(), v * scale
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     desc = FlashDescriptor(batch_heads=bh, sq=sq, sk=sk, d=d, causal=causal,
                            dtype=dname)
     plan = plan_flash(desc)
     exe = FusedFlash(plan.tile_schedule(), "cuda")
     bq, bk = min(plan.block_q, sq), min(plan.block_k, sk)
+    want_route = fk.choose_route(dt, d, (q.data_ptr(), k.data_ptr(),
+                                         v.data_ptr()))
 
     def library():
         return F.scaled_dot_product_attention(q[None], k[None], v[None],
@@ -761,6 +832,7 @@ def run_flash_case(torch, case, gen):
     op_ms = desc.flops / peak(dname) * 1e3
     byte_ms = (desc.in_bytes + desc.out_bytes) / hbm() * 1e3
     lib_ms = time_ms(torch, library, 20)
+    lib_device_ms = graph_ms(torch, library)
     rows = []
     for kname, kern, plain in (
             ("flash_fwd_fused", lambda: flash_fwd_fused(exe, q, k, v),
@@ -770,16 +842,21 @@ def run_flash_case(torch, case, gen):
                                      causal=causal),
              lambda: flash_fwd_dense_plain(q, k, v, block_q=bq, block_k=bk,
                                            causal=causal))):
-        got, want = kern(), plain()
+        got, route = _flash_route(torch, kname, kern, want_route, main_path,
+                                  dname, label)
+        want = plain()
         torch.cuda.synchronize()
         max_abs, rel, nbad, tol = compare(torch, got, want, dname)
         row = dict(phase="kernel", kernel=kname, case=label, main_path=main_path,
                    shape=[bh, sq, sk, d], causal=causal, dtype=dname,
-                   blocks=[bq, bk], max_abs_err=max_abs, max_rel_err=rel,
+                   blocks=[bq, bk], route=route, head_scales=head_scales,
+                   max_abs_err=max_abs, max_rel_err=rel,
                    tolerance=tol, mismatches=nbad,
                    ms=time_ms(torch, kern, 20),
                    plain_ms=time_ms(torch, plain, 2),
-                   library_ms=lib_ms, op_ms=op_ms, byte_ms=byte_ms,
+                   device_ms=graph_ms(torch, kern),
+                   library_ms=lib_ms, device_library_ms=lib_device_ms,
+                   op_ms=op_ms, byte_ms=byte_ms,
                    bound_ms=max(op_ms, byte_ms),
                    bound_by="bytes" if byte_ms >= op_ms else "operations")
         emit(**row)
@@ -809,6 +886,7 @@ def run_flash_bwd_case(torch, case, gen):
     import torch.nn.functional as F
     from repro_torch.core import (FlashBwdDescriptor, FlashDescriptor,
                                   plan_flash_bwd)
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.kernel import (
         FusedFlash, flash_bwd_fused, flash_bwd_fused_plain, flash_fwd_fused,
         flash_fwd_fused_plain)
@@ -824,12 +902,13 @@ def run_flash_bwd_case(torch, case, gen):
     exe = FusedFlash(plan.tile_schedule(), "cuda")
     rows = []
 
-    def row(kname, errs, tol, ms, plain_ms, lib_ms, nbytes, flops):
+    def row(kname, errs, tol, ms, plain_ms, lib_ms, nbytes, flops, **extra):
         op_ms = flops / peak(dname) * 1e3
         byte_ms = nbytes / hbm() * 1e3
         r = dict(phase="kernel", kernel=kname, case=label,
                  main_path=main_path, shape=[bh, sq, sk, d], causal=causal,
                  dtype=dname, blocks=[exe.schedule.bq, exe.schedule.bk],
+                 **extra,
                  max_abs_err=max(e[0] for e in errs.values()),
                  errors={n: e[0] for n, e in errs.items()},
                  max_rel_err=max(e[1] for e in errs.values()), tolerance=tol,
@@ -853,19 +932,29 @@ def run_flash_bwd_case(torch, case, gen):
                 bad)
 
     # Forward with the LSE rows.
-    o, lse = flash_fwd_fused(exe, q, k, v, return_lse=True)
+    def fwd():
+        return flash_fwd_fused(exe, q, k, v, return_lse=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=causal)
+
+    (o, lse), route = _flash_route(
+        torch, "flash_fwd_fused", fwd,
+        fk.choose_route(dt, d, (q.data_ptr(), k.data_ptr(), v.data_ptr())),
+        main_path, dname, label)
     o_p, lse_p = flash_fwd_fused_plain(exe.schedule, q, k, v, return_lse=True)
     torch.cuda.synchronize()
-    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[None], k[None], v[None], is_causal=causal), 20)
+    lib_fwd = time_ms(torch, sdpa, 20)
     row("flash_fwd_fused", {"o": errors(o, o_p, TOL[dname]),
                             "lse": errors(lse, lse_p, LSE_TOL)},
         {"o": TOL[dname], "lse": LSE_TOL},
-        time_ms(torch, lambda: flash_fwd_fused(exe, q, k, v, return_lse=True),
-                20),
+        time_ms(torch, fwd, 20),
         time_ms(torch, lambda: flash_fwd_fused_plain(
             exe.schedule, q, k, v, return_lse=True), 2),
-        lib_fwd, desc.in_bytes + desc.out_bytes + bh * sq * 4, desc.flops)
+        lib_fwd, desc.in_bytes + desc.out_bytes + bh * sq * 4, desc.flops,
+        route=route, device_ms=graph_ms(torch, fwd),
+        device_library_ms=graph_ms(torch, sdpa))
 
     # Backward, on the kernel's own o and lse.
     got = flash_bwd_fused(exe, q, k, v, o, do, lse)
@@ -1876,9 +1965,10 @@ def _read_counts():
     launches = {}
     for mod in _kernel_modules():
         launches.update(mod.LAUNCHES)
-    gk, grk = _kernel_modules()[0], _kernel_modules()[3]
+    gk, fk, _, grk, _ = _kernel_modules()
     launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
     launches.update({f"grouped_route_{r}": n for r, n in grk.ROUTES.items()})
+    launches.update({f"flash_route_{r}": n for r, n in fk.ROUTES.items()})
     return {**launches,
             "engine_transpose_launches": st.get("transpose", {})
             .get("launches", 0),
@@ -2058,6 +2148,22 @@ def phase_profile(torch, model, prompts, steps: int = 2, name="profile"):
         step()  # warm
         emit(phase=name, decode_steps=steps,
              **_device_profile(torch, step, steps))
+
+
+def phase_prefill_profile(torch, model, prompts):
+    """One full-width Qwen3 prefill (batch 4 x 256, fused="auto") under
+    torch.profiler: where prefill time goes, wall against device."""
+    from repro_torch.core import use
+    from repro_torch.runtime.steps import make_prefill_step
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        prefill = make_prefill_step(model, PROMPT + GEN)
+
+        def step():
+            prefill({"tokens": prompts})
+
+        step()  # warm
+        emit(phase="prefill_profile", batch=BATCH, prompt=PROMPT,
+             **_device_profile(torch, step, 1))
 
 
 def phase_continuous(torch, model):

@@ -23,7 +23,11 @@ torch version.
 Operands are ``(BH, s, d)``, or for decode ``q (S, h, hd)`` against
 ``(pages, page_size, hkv, hd)`` pools.  A wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.  Each
-launch adds one to :data:`LAUNCHES`.
+launch adds one to :data:`LAUNCHES`, and each forward launch one to the
+route it took in :data:`ROUTES` (:func:`choose_route`): "A" (bf16 operands
+TMA can read: a ring of K/V windows fed by TMA, ``wgmma`` for QK^T and PV,
+the online softmax in registers), "C" (bf16 operands TMA cannot read) or
+"fp32" (both CUDA-core FMAs, never TF32).
 """
 from __future__ import annotations
 
@@ -45,8 +49,38 @@ MAX_HEAD_DIM = 128
 
 LAUNCHES = {"flash_fwd_fused": 0, "flash_fwd_dense": 0, "flash_bwd_fused": 0,
             "flash_decode": 0, "flash_decode_int8": 0}
+ROUTES = {"A": 0, "C": 0, "fp32": 0}
+# flash_fwd.cu's ROUTE_A / ROUTE_C; fp32 ignores the code.
+_ROUTE_CODE = {"A": 0, "C": 1, "fp32": 1}
+
+# Route A's K/V ring (flash_fwd.cu's STAGES) and its block's dynamic shared
+# memory (TC_SMEM): 1024 bytes of alignment slack, Q (MAX_HEAD_DIM / 32
+# TMA boxes of 64 rows x 64 bytes), RING_STAGES stages of K and V, two
+# 64 x 64 bf16 P buffers, and 8-byte mbarriers (Q, and a full and an empty
+# one a stage).  tests/test_torch_kernel_sources.py holds the .cu to these.
+RING_STAGES = 2
+_Q_BYTES = MAX_HEAD_DIM // 32 * 64 * 64
+RING_SMEM_BYTES = (1024 + _Q_BYTES + RING_STAGES * 2 * _Q_BYTES
+                   + 2 * MAX_BLOCK * MAX_BLOCK * 2 + 8 * (1 + 2 * RING_STAGES))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def choose_route(dtype, d: int, ptrs=(0, 0, 0)) -> str:
+    """The forward kernels' route for one call: "fp32" for fp32 operands;
+    for bf16 "C" where TMA cannot read q, k or v (a base ``ptrs`` not
+    16-byte aligned, or a row of ``2 d`` bytes that is not a multiple of
+    16), else "A"."""
+    if dtype == torch.float32:
+        return "fp32"
+    if any(p % 16 for p in ptrs) or (2 * d) % 16:
+        return "C"
+    return "A"
+
+
+def _route(qf, kf, vf) -> str:
+    return choose_route(qf.dtype, qf.shape[2],
+                        tuple(t.data_ptr() for t in (qf, kf, vf)))
 
 
 class FusedFlash:
@@ -107,9 +141,9 @@ def _lib(name: str):
         lib = _build.library(name)
         P, I, Fl = _build.P, _build.I, _build.F
         if name == "flash_fwd":
-            lib.flash_fwd_fused.argtypes = [P] * 7 + [I] * 8 + [Fl, I, P]
+            lib.flash_fwd_fused.argtypes = [P] * 7 + [I] * 8 + [Fl, I, I, P]
             lib.flash_fwd_fused.restype = I
-            lib.flash_fwd_dense.argtypes = [P] * 4 + [I] * 7 + [Fl, I, P]
+            lib.flash_fwd_dense.argtypes = [P] * 4 + [I] * 7 + [Fl, I, I, P]
             lib.flash_fwd_dense.restype = I
         elif name == "flash_bwd":
             lib.flash_bwd_fused.argtypes = [P] * 12 + [I] * 8 + [Fl, I, P]
@@ -169,12 +203,15 @@ def flash_fwd_fused(exe: FusedFlash, qf, kf, vf, *, return_lse: bool = False):
     out = torch.empty_like(qf)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=qf.device) \
         if return_lse else None
+    route = _route(qf, kf, vf)
     status = _lib("flash_fwd").flash_fwd_fused(
         _build.ptr(qf), _build.ptr(kf), _build.ptr(vf), _build.ptr(out),
         _build.ptr(lse), _build.ptr(exe.table), _build.ptr(exe.q_index),
         s.num_q_blocks, bh, sq, s.sk, d, s.bq, s.bk, int(s.causal),
-        d ** -0.5, _DTYPE_CODE[qf.dtype], _build.stream_ptr(qf))
+        d ** -0.5, _DTYPE_CODE[qf.dtype], _ROUTE_CODE[route],
+        _build.stream_ptr(qf))
     LAUNCHES["flash_fwd_fused"] += 1
+    ROUTES[route] += 1
     _build.check(status, "flash_fwd_fused")
     return (out, lse) if return_lse else out
 
@@ -228,11 +265,13 @@ def flash_fwd_dense(qf, kf, vf, *, block_q: int, block_k: int,
         return flash_fwd_dense_plain(qf, kf, vf, block_q=bq, block_k=bk,
                                      causal=causal)
     out = torch.empty_like(qf)
+    route = _route(qf, kf, vf)
     status = _lib("flash_fwd").flash_fwd_dense(
         _build.ptr(qf), _build.ptr(kf), _build.ptr(vf), _build.ptr(out), bh,
         sq, sk, d, bq, bk, int(causal), d ** -0.5, _DTYPE_CODE[qf.dtype],
-        _build.stream_ptr(qf))
+        _ROUTE_CODE[route], _build.stream_ptr(qf))
     LAUNCHES["flash_fwd_dense"] += 1
+    ROUTES[route] += 1
     _build.check(status, "flash_fwd_dense")
     return out
 
@@ -485,5 +524,6 @@ def flash_decode_plain(exe: FlashDecode, q, k_pool, v_pool, k_scale=None,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0

@@ -186,6 +186,48 @@ def test_flash_limits_match_kernel_py():
     assert _constexpr(FLASH_CU, "NEG_INF") == flash_kernel.NEG_INF
 
 
+def test_flash_fwd_includes_the_gemm_building_blocks():
+    """Route A's TMA, mbarrier and wgmma PTX are the dense GEMM's, and its
+    tensor-map encoder is the shared tile header's."""
+    assert '#include "../../gemm/csrc/gemm_sm90.cuh"' in FLASH_CU
+    assert '#include "../../gemm/csrc/wgmma_tile.cuh"' in FLASH_CU
+    assert "wgt::make_map(" in FLASH_CU
+
+
+def test_flash_fwd_routes_match_kernel_py():
+    """flash_fwd.cu's route codes are kernel.py's; fp32 runs CUDA cores
+    whatever the code."""
+    assert "enum { ROUTE_A = 0, ROUTE_C = 1 };" in FLASH_CU
+    assert flash_kernel._ROUTE_CODE["A"] == 0
+    assert flash_kernel._ROUTE_CODE["C"] == 1
+    assert set(flash_kernel.ROUTES) == {"A", "C", "fp32"}
+
+
+def test_flash_fwd_ring_matches_kernel_py_and_fits_two_blocks():
+    """Route A's ring stages and dynamic shared memory (flash_fwd.cu's
+    STAGES and TC_SMEM) are kernel.py's RING_STAGES and RING_SMEM_BYTES:
+    1024 bytes of slack, Q's D_MAX / 32 boxes of 4096 bytes, STAGES stages
+    of K and V, two 64 x 64 bf16 P buffers and the mbarriers.  At least
+    two stages keep the next window's loads in flight, and two blocks fit
+    the 232,448 bytes a block may take."""
+    stages = _constexpr(FLASH_CU, "STAGES")
+    assert stages == flash_kernel.RING_STAGES >= 2
+    box = _constexpr(FLASH_CU, "BOX")
+    assert box == 64 * 64
+    assert "constexpr int Q_BYTES = D_MAX / 32 * BOX;" in FLASH_CU
+    assert "constexpr int KV_BYTES = 2 * D_MAX / 32 * BOX;" in FLASH_CU
+    assert "constexpr int P_BYTES = BQ_MAX * BK_MAX * 2;" in FLASH_CU
+    assert re.search(r"constexpr int TC_SMEM =\s+1024 \+ Q_BYTES \+ STAGES "
+                     r"\* KV_BYTES \+ 2 \* P_BYTES \+ 8 \* \(1 \+ 2 \* "
+                     r"STAGES\);", FLASH_CU)
+    d, b = flash_kernel.MAX_HEAD_DIM, flash_kernel.MAX_BLOCK
+    smem = (1024 + d // 32 * box + stages * 2 * d // 32 * box + 2 * b * b * 2
+            + 8 * (1 + 2 * stages))
+    assert smem == flash_kernel.RING_SMEM_BYTES == 99368
+    assert 2 * smem <= H100_SXM.vmem_bytes == 232448
+    assert re.search(r"__launch_bounds__\(TC_THREADS, 2\)", FLASH_CU)
+
+
 def test_flash_bwd_limits_match_kernel_py():
     assert _constexpr(FLASH_BWD_CU, "BQ_MAX") == flash_kernel.MAX_BLOCK
     assert _constexpr(FLASH_BWD_CU, "BK_MAX") == flash_kernel.MAX_BLOCK
