@@ -48,7 +48,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 holding NaN: bit-exact), the quantized GEMM (Qwen3's seven
                 projection shapes at decode and prefill rows under W8A16,
                 int8 and fp8), paged decode over KV-int8 pools and the
-                quantized grouped GEMM (phi3.5-moe's expert shapes, int8);
+                quantized grouped GEMM (phi3.5-moe's expert shapes, int8),
+                each quantized row naming its route (a main-path row off
+                routes A and B fails) and the decode rows their device time
+                and their time after an L2 flush (CUDA graphs, beside the
+                library's);
      gemm_transpose -- §IV-C: gemm(a, b, layout="nt") against the two passes
                 gemm(a, transpose(b)) at fig89's shape and Qwen3's tied
                 read-out; one transpose launch a two-pass call;
@@ -125,10 +129,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      grouped_routes -- the same for the grouped forwards;
      flash_routes -- the same for the flash forwards: a route other than A
                 (TMA ring and wgmma) on the main path fails;
+     quant_routes -- the routes of gemm_quant and grouped_quant in every
+                phase: a quantized call of continuous_quant or
+                serve_moe_quant, or a main-path quant kernel row, off
+                routes A and B (route C or fp32) fails;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash forwards' with their device
-                times and every case's route, ``flash_routes``), then the
+                times and every case's route, ``flash_routes``, the
+                quantized GEMMs' with their prefill and decode sums apart),
+                then the
                 card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
 
@@ -323,6 +333,27 @@ def main():
     off_a = {p: r for p, r in flash_routes.items() if r["C"] or r["fp32"]}
     if off_a:
         fail(f"main-path flash forwards left route A: {off_a}")
+    # The quantized GEMMs of the quantized serving paths, and every
+    # main-path quant kernel row: routes A and B (TMA ring, wgmma) only.
+    quant_routes = {p: {f"{fam}_{r}": c.get(f"{fam}_route_{r}", 0)
+                        for fam in ("gemm_quant", "grouped_quant")
+                        for r in ("A", "B", "C", "fp32")}
+                    for p, c in by_path.items()}
+    rows_off = {r["case"]: r["route"] for r in results
+                if r["kernel"] in ("gemm_quant", "grouped_quant")
+                and r["main_path"] and r["route"] not in ("A", "B")}
+    emit(phase="quant_routes", by_path=quant_routes,
+         kernel_rows={r["kernel"] + ":" + r["case"]: r["route"]
+                      for r in results
+                      if r["kernel"] in ("gemm_quant", "grouped_quant")})
+    off_ab = {p: {k: n for k, n in r.items() if n and k.split("_")[-1]
+                  in ("C", "fp32")}
+              for p, r in quant_routes.items()
+              if p in ("continuous_quant", "serve_moe_quant")}
+    off_ab = {p: r for p, r in off_ab.items() if r}
+    if off_ab or rows_off:
+        fail(f"main-path quant GEMMs left routes A and B: {off_ab} "
+             f"{rows_off}")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -355,6 +386,8 @@ def main():
                else {}),
             **(_flash_sums(rows, [r for r in results if r["kernel"] == kname])
                if kname in ("flash_fwd_fused", "flash_fwd_dense") else {}),
+            **(_quant_split_sums(rows) if kname in ("gemm_quant",
+                                                   "grouped_quant") else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -396,6 +429,26 @@ def _grouped_split_sums(rows):
                      ("ms", "library_ms", "bound_ms")
                      + (("device_ms", "device_library_ms")
                         if part == "decode" else ())}
+        out[part]["cases"] = len(rs)
+    routes = {}
+    for r in rows:
+        routes[r["route"]] = routes.get(r["route"], 0) + 1
+    out["routes"] = routes
+    return out
+
+
+def _quant_split_sums(rows):
+    """A quantized GEMM's main-path sums apart for its decode cases (with
+    their device times, warm and L2-cold, beside the library's) and its
+    prefill cases, and the routes taken."""
+    out = {}
+    for part in ("prefill", "decode"):
+        rs = [r for r in rows if r["stage"] == part]
+        keys = ("ms", "library_ms", "bound_ms") + (
+            ("device_ms", "device_library_ms", "cold_ms", "cold_library_ms")
+            if part == "decode" else ())
+        out[part] = {key: sum(r[key] for r in rs) for key in keys
+                     if all(r.get(key) is not None for r in rs)}
         out[part]["cases"] = len(rs)
     routes = {}
     for r in rows:
@@ -1694,6 +1747,7 @@ def run_gemm_quant_case(torch, case, gen):
     """gemm_quant over the plan's tile table against its plain version on
     the same quantized operands."""
     from repro_torch.core import GemmDescriptor, plan_gemm, resolve_quant
+    from repro_torch.kernels.gemm import kernel as gk
     from repro_torch.kernels.gemm.kernel import (FusedGemm, gemm_quant,
                                                  gemm_quant_plain)
     from repro_torch.optim.compression import quantize_operand
@@ -1725,8 +1779,12 @@ def run_gemm_quant_case(torch, case, gen):
     def plain():
         return gemm_quant_plain(aq, bq, sa, sb, **kw)
 
+    before = dict(gk.QUANT_ROUTES)
     got, want = kern(), plain()
     torch.cuda.synchronize()
+    route = _route_taken(gk.QUANT_ROUTES, before)
+    split = gk.split_factor(exe.schedule.num_tiles, k,
+                            gk.sm_count(a.device), route)
     tol = QUANT_I8_TOL if mode == "int8" else TOL[odt]
     max_abs, rel, nbad, tol = compare(torch, got, want, odt, tol)
     lib_name, lib = _quant_gemm_library(torch, mode, a, aq, bq, sa, sb, epi,
@@ -1735,20 +1793,47 @@ def run_gemm_quant_case(torch, case, gen):
     nbytes = (m * k * aq.element_size() + k * n + 4 * n
               + (4 * m if sa is not None else 0) + m * n * got.element_size()
               + (4 * n if bias is not None else 0))
+    stage = "decode" if m <= COLD_M else "prefill"
     row = dict(phase="kernel", kernel="gemm_quant", case=label,
-               main_path=main_path, mode=mode, shape=[m, n, k],
+               main_path=main_path, stage=stage, mode=mode, shape=[m, n, k],
                layout=layout, epilogue=epi, a_dtype=adt, out_dtype=odt,
-               blocks=[[r.bm, r.bn] for r in plan.regions],
+               blocks=[[r.bm, r.bn] for r in plan.regions], route=route,
+               split=split, tiles=exe.schedule.num_tiles,
                max_abs_err=max_abs, max_rel_err=rel, tolerance=tol,
                mismatches=nbad, ms=time_ms(torch, kern, 20),
                plain_ms=time_ms(torch, plain, 2),
                library_ms=time_ms(torch, lib, 20) if lib else None,
                library=lib_name or "none runs on these operands",
                **bound(nbytes, 2 * m * n * k, compute))
+    if stage == "decode" and lib:
+        row.update(_device_and_cold(torch, kern, lib))
     emit(**row)
     if nbad:
         fail(f"gemm_quant {label}: {nbad} elements outside atol=rtol={tol}")
+    if main_path and route not in ("A", "B"):
+        fail(f"gemm_quant {label}: a main-path row took route {route}, "
+             f"not A or B")
     return [row]
+
+
+def _route_taken(routes, before):
+    """The one route a single launch added to a ``QUANT_ROUTES`` count."""
+    taken = [r for r in routes if routes[r] != before[r]]
+    if len(taken) != 1:
+        fail(f"expected one counted route, got {taken}")
+    return taken[0]
+
+
+def _device_and_cold(torch, kern, lib):
+    """Device milliseconds of the kernel and of the library's call, warm
+    (CUDA graphs, no host launch time) and after an L2 flush (operands out
+    of L2, as a decode step finds a layer's weights)."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    return dict(device_ms=graph_ms(torch, kern),
+                cold_ms=graph_ms(torch, kern, flush=flush),
+                device_library_ms=graph_ms(torch, lib),
+                cold_library_ms=graph_ms(torch, lib, flush=flush))
 
 
 def run_decode_int8_case(torch, gen):
@@ -1849,6 +1934,7 @@ def run_grouped_quant_case(torch, case, gen):
     dequantized operands."""
     from repro_torch.core import (GroupedGemmDescriptor, plan_grouped,
                                   resolve_quant)
+    from repro_torch.kernels.grouped_gemm import kernel as grk
     from repro_torch.kernels.grouped_gemm.kernel import (grouped_quant,
                                                          grouped_quant_plain)
     from repro_torch.kernels.grouped_gemm.ops import _quantize_grouped_w
@@ -1883,8 +1969,10 @@ def run_grouped_quant_case(torch, case, gen):
         return grouped_quant_plain(table, xq, wq, sx, sw, bias, epilogue=epi,
                                    out_dtype=out_dt)
 
+    before = dict(grk.QUANT_ROUTES)
     got, want = kern(), plain()
     torch.cuda.synchronize()
+    route = _route_taken(grk.QUANT_ROUTES, before)
     tol = QUANT_I8_TOL if mode == "int8" else TOL[odt]
     max_abs, rel, nbad, tol = compare(torch, got, want, odt, tol)
     x_deq = x if sx is None else (xq.float() * sx[:, None]).to(x.dtype)
@@ -1897,20 +1985,28 @@ def run_grouped_quant_case(torch, case, gen):
               + (4 * total if sx is not None else 0)
               + t * n * got.element_size() + (4 * touched * n if biased
                                               else 0))
+    stage = label.split("_")[0] if main_path else None
     row = dict(phase="kernel", kernel="grouped_quant", case=label,
-               main_path=main_path, mode=mode, group_sizes=sizes, rows=t,
-               k=k, n=n, epilogue=epi, x_dtype=xdt, out_dtype=odt,
-               blocks=[plan.bm, plan.bk, plan.bn], max_abs_err=max_abs,
-               max_rel_err=rel, tolerance=tol, mismatches=nbad,
-               ms=time_ms(torch, kern, 5), plain_ms=time_ms(torch, plain, 2),
+               main_path=main_path, stage=stage, mode=mode,
+               group_sizes=sizes, rows=t, k=k, n=n, epilogue=epi,
+               x_dtype=xdt, out_dtype=odt,
+               blocks=[plan.bm, plan.bk, plan.bn], route=route,
+               max_abs_err=max_abs, max_rel_err=rel, tolerance=tol,
+               mismatches=nbad, ms=time_ms(torch, kern, 5),
+               plain_ms=time_ms(torch, plain, 2),
                library_ms=time_ms(torch, lib_fwd, 5),
                library=lib_name + " on the dequantized operands",
                **bound(nbytes, 2 * total * k * n,
                        QUANT_COMPUTE.get(mode, xdt)))
+    if stage == "decode":
+        row.update(_device_and_cold(torch, kern, lib_fwd))
     emit(**row)
     if nbad:
         fail(f"grouped_quant {label}: {nbad} elements outside atol=rtol="
              f"{tol}")
+    if main_path and route not in ("A", "B"):
+        fail(f"grouped_quant {label}: a main-path row took route {route}, "
+             f"not A or B")
     return [row]
 
 
@@ -1969,6 +2065,10 @@ def _read_counts():
     launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
     launches.update({f"grouped_route_{r}": n for r, n in grk.ROUTES.items()})
     launches.update({f"flash_route_{r}": n for r, n in fk.ROUTES.items()})
+    launches.update({f"gemm_quant_route_{r}": n
+                     for r, n in gk.QUANT_ROUTES.items()})
+    launches.update({f"grouped_quant_route_{r}": n
+                     for r, n in grk.QUANT_ROUTES.items()})
     return {**launches,
             "engine_transpose_launches": st.get("transpose", {})
             .get("launches", 0),

@@ -3,13 +3,14 @@ accumulator.
 
 The CUDA kernels apply the same tail in ``epilogue()`` of
 ``kernels/gemm/csrc/gemm.cu`` (and the quantized kernels' epilogue in
-``kernels/gemm/csrc/quant_tile.cuh``); this is its plain torch form, used
-by every plain version and by the ``torch`` backend.  ``dequant`` is the
-quant axis's f32 factor (``sa * sb`` for a fully quantized product, the
-column scales alone for W8A16), applied to the accumulator (int32 for
-int8 operands) in f32 before bias and activation.  ``gelu`` is the tanh
-approximation (the reference's ``jax.nn.gelu`` default), ``silu`` is
-``x * sigmoid(x)``, ``relu`` is ``max(x, 0)``.
+``kernels/gemm/csrc/quant_sm90.cuh`` and ``quant_tile.cuh``); this is
+its plain torch form, used by every plain version and by the ``torch``
+backend.  ``dequant`` is the quant axis's f32 factor (``sa * sb`` for a
+fully quantized product, the column scales alone for W8A16), applied to
+the accumulator (int32 for int8 operands) in f32 before bias and
+activation.  ``gelu`` is the tanh approximation (the reference's
+``jax.nn.gelu`` default), ``silu`` is ``x * sigmoid(x)``, ``relu`` is
+``max(x, 0)``.
 """
 from __future__ import annotations
 

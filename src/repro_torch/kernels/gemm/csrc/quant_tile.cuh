@@ -1,12 +1,15 @@
 // Quantized tile products for Hopper (sm_90a), shared by the quantized
 // dense GEMM (gemm_quant.cu) and the quantized grouped GEMM
-// (../../grouped_gemm/csrc/grouped_quant.cu).
+// (../../grouped_gemm/csrc/grouped_quant.cu) on their route C (operands
+// TMA cannot read: a base not 16-byte aligned, or a row not a multiple of
+// 16 bytes) and their fp32 route (W8A16 with fp32 activations).  Routes A
+// and B, which every main-path call takes, are quant_sm90.cuh's TMA ring.
 //
 // A tile computes C[BM x BN] = sum_k A(r, k) B(k, c) over a reduction of
 // length kdim, reading its operands through loaders la(r, k) / lb(k, c)
 // that mask their own row / column edges and return the staged type (the
 // tile masks the reduction edge), and hands every element, converted to
-// float, to st(r, c, v).  Three routes, by the staged type:
+// float, to st(r, c, v).  Three tiles, by the staged type:
 //   * int8 x int8 (full int8 quant): the tensor cores through wmma with
 //     signed char fragments and int32 accumulators.  The sums are exact:
 //     at K = 3072 they reach ~5e7, past the 2^24 where an fp32 sum of
@@ -24,9 +27,9 @@
 //     TF32).
 // The dequant factor, bias and activation are the caller's, in st.
 //
-// No cp.async/TMA pipeline, no wgmma and no persistence: one K panel of
-// BK at a time, element-wise loads with bounds checks, as the wide
-// kernels of gemm.cu.
+// One K panel of BK at a time, element-wise loads with bounds checks: the
+// loads of a row that is not a multiple of 16 bytes are what route C is
+// for.
 
 #pragma once
 

@@ -8,7 +8,9 @@
   * :func:`gemm_quant` -- the quantized form of ``gemm_fused``: int8 or
     e4m3 operands with their row and column scales, or a bf16 / fp32 A
     with an int8 / e4m3 B (W8A16), dequant fused into the epilogue (the
-    counterpart of ``build_fused_gemm_kernel(quant=)``).
+    counterpart of ``build_fused_gemm_kernel(quant=)``).  Each launch adds
+    one to the route it took in :data:`QUANT_ROUTES`
+    (:func:`choose_quant_route`), apart from the wide :data:`ROUTES`.
 
 A wrapper runs its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; nothing falls back.  Each
@@ -53,6 +55,10 @@ RASTER_ROWS = 8
 LAUNCHES = {"gemm_fused": 0, "gemm_region": 0, "gemm_quant": 0}
 ROUTES = {"A": 0, "B": 0, "C": 0, "fp32": 0}
 _ROUTE_CODE = {"A": 0, "B": 1, "C": 2, "fp32": 0}
+# gemm_quant's routes (gemm_quant.cu's ROUTE_*), counted apart from the
+# wide GEMM's so that those keep their meaning.
+QUANT_ROUTES = {"A": 0, "B": 0, "C": 0, "fp32": 0}
+QUANT_ROUTE_CODE = {"A": 0, "B": 1, "C": 2, "fp32": 3}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Operand codes of the quantized kernels (quant_tile.cuh's DT_*).
@@ -85,6 +91,25 @@ def choose_route(dtype, k: int, b_inner: int, max_bm: int,
     if dtype == torch.float32:
         return "fp32"
     if any(p % 16 for p in ptrs) or (2 * k) % 16 or (2 * b_inner) % 16:
+        return "C"
+    return "B" if max_bm <= 16 else "A"
+
+
+def choose_quant_route(a_dtype, b_dtype, k: int, n: int, layout: str,
+                       max_bm: int, ptrs=(0, 0)) -> str:
+    """The quantized kernel's route of one call: "fp32" for an fp32 A
+    (W8A16); "C" where TMA cannot read A or B (a base ``ptrs`` not 16-byte
+    aligned, or a row -- ``k`` elements of A, ``n`` bytes of an "nn" B,
+    ``k`` of an "nt" B -- that is not a multiple of 16 bytes); else "B"
+    for a decode tile table (every template bm 16) and "A" otherwise.
+    ``b_dtype`` is the 8-bit weight's (one byte an element)."""
+    if b_dtype not in WIRE_DTYPES:
+        raise ValueError(f"B must be int8 or float8_e4m3, got {b_dtype}")
+    if a_dtype == torch.float32:
+        return "fp32"
+    b_inner = n if layout == "nn" else k
+    if any(p % 16 for p in ptrs) or (k * a_dtype.itemsize) % 16 \
+            or b_inner % 16:
         return "C"
     return "B" if max_bm <= 16 else "A"
 
@@ -170,7 +195,7 @@ def _lib(name: str = "gemm"):
             lib.gemm_region.argtypes = [P] * 5 + [I] * 18 + [P]
             lib.gemm_region.restype = I
         else:
-            lib.gemm_quant.argtypes = [P] * 8 + [I] * 10 + [P]
+            lib.gemm_quant.argtypes = [P] * 8 + [I] * 13 + [P]
             lib.gemm_quant.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
@@ -350,6 +375,9 @@ def gemm_quant(exe: FusedGemm, a, b, sa, sb, *, layout: str = "nn",
         raise ValueError(f"executor built for {exe.device}, operands on "
                          f"{a.device}")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    route = choose_quant_route(a.dtype, b.dtype, k, n, layout, exe.max_bm,
+                               (a.data_ptr(), b.data_ptr()))
+    split = split_factor(s.num_tiles, k, sm_count(a.device), route)
     status = _lib("gemm_quant").gemm_quant(
         _build.ptr(a), _build.ptr(b), _build.ptr(sa), _build.ptr(sb),
         _build.ptr(bias), _build.ptr(out), _build.ptr(exe.table),
@@ -357,8 +385,9 @@ def gemm_quant(exe: FusedGemm, a, b, sa, sb, *, layout: str = "nn",
         QUANT_CODE[a.dtype], QUANT_CODE[b.dtype],
         0 if bias is None else _DTYPE_CODE[bias.dtype],
         _DTYPE_CODE[out_dtype], _EPILOGUE_CODE[epilogue],
-        _build.stream_ptr(a))
+        QUANT_ROUTE_CODE[route], split, exe.max_bm, _build.stream_ptr(a))
     LAUNCHES["gemm_quant"] += 1
+    QUANT_ROUTES[route] += 1
     _build.check(status, "gemm_quant")
     return out
 
@@ -423,7 +452,7 @@ def gemm_quant_plain(a, b, sa, sb, *, layout="nn", epilogue=None, bias=None,
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, QUANT_ROUTES):
         for name in counts:
             counts[name] = 0
 

@@ -14,7 +14,9 @@ and ``csrc/grouped_quant.cu``), each beside its plain torch version.
   * :func:`grouped_quant` -- the quantized form of ``grouped_fused``: int8
     or e4m3 x and w with per-row ``sx`` and per-expert column ``sw``
     scales, or a bf16 / fp32 x with an int8 / e4m3 w (W8A16), dequant in
-    the epilogue (the counterpart of ``build_fused_grouped_kernel(quant=)``).
+    the epilogue (the counterpart of ``build_fused_grouped_kernel(quant=)``);
+    each launch adds one to the route it took in :data:`QUANT_ROUTES`
+    (:func:`choose_quant_route`), apart from the wide :data:`ROUTES`.
 
 Operands are float32 or bfloat16 (x, w and bias in one dtype), outputs of
 the forward kernels in x's dtype; the backward takes an fp32 cotangent and
@@ -36,7 +38,10 @@ import torch
 from repro_torch.core.schedule import TILE_COMPUTE, TILE_ZERO
 from repro_torch.kernels import _build, disable_tf32
 from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
-from repro_torch.kernels.gemm.kernel import QUANT_CODE, WIRE_DTYPES
+from repro_torch.kernels.gemm.kernel import (QUANT_CODE, QUANT_ROUTE_CODE,
+                                             WIRE_DTYPES,
+                                             choose_quant_route as
+                                             _gemm_quant_route)
 from repro_torch.kernels.gemm.ref import quant_product
 from repro_torch.kernels.grouped_gemm.ref import (expert_offsets,
                                                   ref_grouped_gemm_bwd)
@@ -45,6 +50,9 @@ LAUNCHES = {"grouped_fused": 0, "grouped_padded": 0, "grouped_bwd": 0,
             "grouped_quant": 0}
 ROUTES = {"A": 0, "C": 0, "fp32": 0}
 _ROUTE_CODE = {"A": 0, "C": 2, "fp32": 0}
+# grouped_quant's routes (grouped_quant.cu's ROUTE_*, gemm_quant's codes),
+# counted apart from the wide forward's.
+QUANT_ROUTES = {"A": 0, "B": 0, "C": 0, "fp32": 0}
 
 # (bm, bn) tilings csrc/grouped.cu instantiates, in its shape order.
 SHAPES = ((16, 64), (16, 128), (64, 64), (64, 128), (128, 64), (128, 128))
@@ -70,7 +78,7 @@ def _lib(name: str = "grouped"):
             lib.grouped_bwd.argtypes = [P] * 8 + [I] * 6 + [P]
             lib.grouped_bwd.restype = I
         else:
-            lib.grouped_quant.argtypes = [P] * 7 + [I] * 10 + [P]
+            lib.grouped_quant.argtypes = [P] * 7 + [I] * 13 + [P]
             lib.grouped_quant.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
@@ -127,6 +135,16 @@ def choose_route(dtype, k: int, n: int, ptrs=(0, 0)) -> str:
     if any(p % 16 for p in ptrs) or (2 * k) % 16 or (2 * n) % 16:
         return "C"
     return "A"
+
+
+def choose_quant_route(x_dtype, w_dtype, k: int, n: int, bm: int,
+                       ptrs=(0, 0)) -> str:
+    """grouped_quant's route for one call: "fp32" for an fp32 x (W8A16);
+    "C" where TMA cannot read x or the bank (a base ``ptrs`` not 16-byte
+    aligned, or a row -- ``k`` elements of x, ``n`` bytes of w -- that is
+    not a multiple of 16 bytes); else "B" for bm 16 tiles (swap-AB) and
+    "A" otherwise.  The bank is (E, K, N): the dense GEMM's "nn" rule."""
+    return _gemm_quant_route(x_dtype, w_dtype, k, n, "nn", bm, ptrs)
 
 
 def _route(x, w) -> str:
@@ -275,13 +293,17 @@ def grouped_quant(table, x, w, sx, sw, bias=None, *, bm: int, bn: int,
     _check_tiles(bm, bn)
     out = torch.empty((x.shape[0], w.shape[2]), dtype=out_dtype,
                       device=x.device)
+    route = choose_quant_route(x.dtype, w.dtype, x.shape[1], w.shape[2], bm,
+                               (x.data_ptr(), w.data_ptr()))
     status = _lib("grouped_quant").grouped_quant(
         _build.ptr(x), _build.ptr(w), _build.ptr(sx), _build.ptr(sw),
         _build.ptr(bias), _build.ptr(out), _build.ptr(table), table.shape[0],
-        x.shape[1], w.shape[2], bm, bn, QUANT_CODE[x.dtype],
-        QUANT_CODE[w.dtype], _bias_code(bias), _DT[out_dtype],
-        _EPI[epilogue], _build.stream_ptr(x))
+        x.shape[0], x.shape[1], w.shape[2], w.shape[0], bm, bn,
+        QUANT_CODE[x.dtype], QUANT_CODE[w.dtype], _bias_code(bias),
+        _DT[out_dtype], _EPI[epilogue], QUANT_ROUTE_CODE[route],
+        _build.stream_ptr(x))
     LAUNCHES["grouped_quant"] += 1
+    QUANT_ROUTES[route] += 1
     _build.check(status, "grouped_quant")
     return out
 
@@ -369,6 +391,6 @@ def grouped_bwd_plain(table, x, dy, w, group_sizes, *,
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, QUANT_ROUTES):
         for name in counts:
             counts[name] = 0

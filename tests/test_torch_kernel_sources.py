@@ -346,6 +346,7 @@ GEMM_QUANT_CU = (KERNELS / "gemm" / "csrc" / "gemm_quant.cu").read_text()
 QUANT_TILE = (KERNELS / "gemm" / "csrc" / "quant_tile.cuh").read_text()
 GROUPED_QUANT_CU = (KERNELS / "grouped_gemm" / "csrc"
                     / "grouped_quant.cu").read_text()
+QUANT_SM90 = (KERNELS / "gemm" / "csrc" / "quant_sm90.cuh").read_text()
 
 
 @pytest.mark.parametrize("src,pattern,shapes", [
@@ -356,18 +357,65 @@ GROUPED_QUANT_CU = (KERNELS / "grouped_gemm" / "csrc"
 def test_quant_kernels_take_the_wide_palettes(src, pattern, shapes):
     """The quantized GEMM and grouped GEMM instantiate the wide kernels'
     (bm, bn) shapes in the same order, with the same K panel, so the same
-    plans and tile tables drive them."""
+    plans and tile tables drive them: route C's wmma tile (quant_tile.cuh)
+    and the wgmma ring of routes A and B (quant_sm90.cuh) alike."""
     from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel
     shapes = shapes or grouped_kernel.SHAPES
-    cases = re.findall(pattern, src)
-    assert [int(i) for i, _, _ in cases] == list(range(len(shapes)))
-    assert tuple((int(bm), int(bn)) for _, bm, bn in cases) == tuple(shapes)
+    for text, pat in ((src, pattern),
+                      (QUANT_SM90, r"case (\d+): R::template run<(\d+), "
+                                   r"(\d+)>")):
+        cases = re.findall(pat, text)
+        assert [int(i) for i, _, _ in cases] == list(range(len(shapes)))
+        assert tuple((int(bm), int(bn)) for _, bm, bn in cases) == \
+            tuple(shapes)
+    assert "qwg::run_by_shape<qwg::Ring<" in src
     for shape, (bm, bn) in enumerate(shapes):
         assert _c_function(QUANT_TILE, "shape_bm")(shape) == bm
         assert _c_function(QUANT_TILE, "shape_bn")(shape) == bn
     assert _constexpr(QUANT_TILE, "BK") == H100_SXM.k_panel
     assert '#include "../../gemm/csrc/quant_tile.cuh"' in GROUPED_QUANT_CU
     assert '#include "quant_tile.cuh"' in GEMM_QUANT_CU
+    assert '#include "../../gemm/csrc/quant_sm90.cuh"' in GROUPED_QUANT_CU
+    assert '#include "quant_sm90.cuh"' in GEMM_QUANT_CU
+
+
+def test_quant_route_codes_and_cluster_match_kernel_py():
+    """gemm_quant.cu's and grouped_quant.cu's route codes are kernel.py's
+    QUANT_ROUTE_CODE, and the dense quant GEMM splits K over at most the
+    wide GEMM's cluster."""
+    from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel
+    enum = ("enum { ROUTE_A = 0, ROUTE_B = 1, ROUTE_C = 2, ROUTE_F32 = 3 };")
+    assert enum in GEMM_QUANT_CU and enum in GROUPED_QUANT_CU
+    want = {"A": 0, "B": 1, "C": 2, "fp32": 3}
+    assert gemm_kernel.QUANT_ROUTE_CODE == want
+    assert grouped_kernel.QUANT_ROUTE_CODE == want
+    assert _constexpr(GEMM_QUANT_CU, "MAX_CLUSTER") == gemm_kernel.MAX_CLUSTER
+    for src in (GEMM_QUANT_CU, GROUPED_QUANT_CU):
+        assert re.search(r"__launch_bounds__\(2 \* qwg::WG_THREADS \+ "
+                         r"qwg::PRODUCER_THREADS,\s+2\)", src)
+
+
+@pytest.mark.parametrize("pair", ["bf16_s8", "bf16_e4m3", "s8_s8",
+                                  "e4m3_e4m3"])
+@pytest.mark.parametrize("nwg", [1, 2])
+def test_quant_ring_fits_two_blocks_an_sm(pair, nwg):
+    """Each staged pair's ring (quant_sm90.cuh's formulas: A's compute and
+    raw slots, B's compute and raw slots, QSTAGES stages) fits a block's
+    shared memory twice, and holds the staged fp32 tile and the split-K
+    partials of its warpgroups."""
+    assert "return a_slot(nwg) + a_raw(nwg) + B_SLOT + B_RAW;" in QUANT_SM90
+    assert "return 1024 + QSTAGES * stage_bytes(nwg) + 2 * QSTAGES * 8;" \
+        in QUANT_SM90
+    assert "static constexpr int BK = S8 ? 64 : 32;" in QUANT_SM90
+    stages = _constexpr(QUANT_SM90, "QSTAGES")
+    s8, widen_a = pair == "s8_s8", pair == "e4m3_e4m3"
+    bk = 64 if s8 else 32
+    stage = (nwg * 64 * 64 + (nwg * 64 * 32 if widen_a else 0) + 128 * 64
+             + 2 * bk * 64)
+    ring = 1024 + stages * stage + 2 * stages * 8
+    assert 2 * ring <= H100_SXM.vmem_bytes
+    assert stages * stage >= 64 * nwg * (128 + 4) * 4  # the staged tile
+    assert stages * stage >= 4 * 64 * nwg * 128 // 2  # split partials
 
 
 def test_quant_dtype_codes_match_the_header():
