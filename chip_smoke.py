@@ -32,7 +32,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 very different magnitude, d 36: route C, fp32), each row
                 naming its route (a main-path bf16 row off route A fails)
                 and its device time beside SDPA's (CUDA graphs); the
-                forward also in its LSE form, the flash backward, the paged decode,
+                forward also in its LSE form, the flash backward (the
+                training shapes, route A's ragged and clamped edges in bf16,
+                d 36 on route C, fp32; each row naming its route, a
+                main-path row off route A failing, and its device time
+                beside SDPA's autograd backward), the paged decode,
                 the SSD scan, its backward and the intra-chunk ladder, and
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
@@ -127,15 +131,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      gemm_routes -- the GEMM routes every phase took: route C (operands
                 TMA cannot read) on the main path fails;
      grouped_routes -- the same for the grouped forwards;
-     flash_routes -- the same for the flash forwards: a route other than A
-                (TMA ring and wgmma) on the main path fails;
+     flash_routes -- the same for the flash forwards and backwards: a route
+                other than A on the main path (a forward, a train or
+                train_moe backward, a main-path flash_bwd_fused row) fails;
      quant_routes -- the routes of gemm_quant and grouped_quant in every
                 phase: a quantized call of continuous_quant or
                 serve_moe_quant, or a main-path quant kernel row, off
                 routes A and B (route C or fp32) fails;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
-                decode sums apart, the flash forwards' with their device
+                decode sums apart, the flash kernels' with their device
                 times and every case's route, ``flash_routes``, the
                 quantized GEMMs' with their prefill and decode sums apart),
                 then the
@@ -324,15 +329,24 @@ def main():
     on_c = {p: r["C"] for p, r in grouped_routes.items() if r["C"]}
     if on_c:
         fail(f"main-path grouped GEMMs took route C: {on_c}")
-    # Every flash forward of the main path is bf16 with TMA-legal operands:
-    # route A (TMA-fed ring, wgmma).
+    # Every flash forward and backward of the main path is bf16 with
+    # TMA-legal operands: route A (TMA-fed ring, wgmma).  (A main-path
+    # kernel row off route A has failed in its case already.)
     flash_routes = {p: {r: c.get(f"flash_route_{r}", 0)
                         for r in ("A", "C", "fp32")}
                     for p, c in by_path.items()}
-    emit(phase="flash_routes", by_path=flash_routes)
-    off_a = {p: r for p, r in flash_routes.items() if r["C"] or r["fp32"]}
+    bwd_routes = {p: {r: c.get(f"flash_bwd_route_{r}", 0)
+                      for r in ("A", "C", "fp32")}
+                  for p, c in by_path.items()}
+    emit(phase="flash_routes", by_path=flash_routes, bwd_by_path=bwd_routes,
+         bwd_kernel_rows={r["case"]: r["route"] for r in results
+                          if r["kernel"] == "flash_bwd_fused"})
+    off_a = {f"{p} {kind}": r
+             for kind, counts in (("forward", flash_routes),
+                                  ("backward", bwd_routes))
+             for p, r in counts.items() if r["C"] or r["fp32"]}
     if off_a:
-        fail(f"main-path flash forwards left route A: {off_a}")
+        fail(f"main-path flash kernels left route A: {off_a}")
     # The quantized GEMMs of the quantized serving paths, and every
     # main-path quant kernel row: routes A and B (TMA ring, wgmma) only.
     quant_routes = {p: {f"{fam}_{r}": c.get(f"{fam}_route_{r}", 0)
@@ -385,7 +399,8 @@ def main():
                                                      "grouped_padded")
                else {}),
             **(_flash_sums(rows, [r for r in results if r["kernel"] == kname])
-               if kname in ("flash_fwd_fused", "flash_fwd_dense") else {}),
+               if kname in ("flash_fwd_fused", "flash_fwd_dense",
+                            "flash_bwd_fused") else {}),
             **(_quant_split_sums(rows) if kname in ("gemm_quant",
                                                    "grouped_quant") else {}),
             "cases": len(rows)})
@@ -458,8 +473,9 @@ def _quant_split_sums(rows):
 
 
 def _flash_sums(rows, all_rows):
-    """A flash forward's main-path device times (CUDA graphs) beside SDPA's,
-    and the route every case took (``flash_routes``, off-path cases too)."""
+    """A flash kernel's main-path device times (CUDA graphs) beside SDPA's
+    (its autograd backward for flash_bwd_fused), and the route every case
+    took (``flash_routes``, off-path cases too)."""
     return {"device_ms": sum(r["device_ms"] for r in rows),
             "device_library_ms": sum(r["device_library_ms"] for r in rows),
             "flash_routes": {r["case"]: r["route"] for r in all_rows}}
@@ -651,20 +667,22 @@ COLD_M = 16
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
-def graph_ms(torch, fn, iters: int = 20, flush=None) -> float:
+def graph_ms(torch, fn, iters: int = 20, flush=None, stream=None) -> float:
     """Mean device milliseconds of one call of ``fn``, from a CUDA graph of
     ``iters`` calls replayed under CUDA events, so no host launch time is
     counted.  With ``flush`` (a buffer larger than L2), each call follows a
     write of the buffer, and the graph time of the writes alone is
-    subtracted: the call's time with its operands out of L2."""
+    subtracted: the call's time with its operands out of L2.  With
+    ``stream``, the warm-up and the capture run on it (an autograd backward
+    runs on the stream of its forward, which must be the capturing one)."""
     def capture(body):
-        side = torch.cuda.Stream()
+        side = stream or torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             body()  # warm: plans, allocations
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with torch.cuda.graph(g, stream=stream):
             body()
         g.replay()
         torch.cuda.synchronize()
@@ -838,16 +856,19 @@ def flash_cases():
              None)]
 
 
-def _flash_route(torch, kname, fn, want, main_path, dname, label):
-    """Runs ``fn`` once and returns its output and the flash route it took;
-    fails unless that is the route choose_route names (``want``), and a
-    main-path bf16 case off route A."""
+def _flash_route(torch, kname, fn, want, main_path, dname, label,
+                 routes=None):
+    """Runs ``fn`` once and returns its output and the flash route it took
+    (counted in ``routes``, the forwards' ``ROUTES`` unless given); fails
+    unless that is the route choose_route names (``want``), and a main-path
+    bf16 case off route A."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    before = dict(fk.ROUTES)
+    routes = fk.ROUTES if routes is None else routes
+    before = dict(routes)
     out = fn()
     torch.cuda.synchronize()
-    taken = {r: fk.ROUTES[r] - before[r] for r in fk.ROUTES
-             if fk.ROUTES[r] != before[r]}
+    taken = {r: routes[r] - before[r] for r in routes
+             if routes[r] != before[r]}
     if taken != {want: 1}:
         fail(f"{kname} {label}: routes {taken}, expected one launch on {want}")
     if main_path and dname == "bfloat16" and want != "A":
@@ -921,12 +942,20 @@ def run_flash_case(torch, case, gen):
 
 def flash_bwd_cases():
     """(label, bh, sq, sk, d, causal, dtype, main): the training shapes
-    (batch 8 x 16 heads of Qwen3, 8 x 32 of phi3.5-moe, sequence 128) and
-    ragged fp32 cases."""
+    (batch 8 x 16 heads of Qwen3, 8 x 32 of phi3.5-moe, sequence 128),
+    route A's edges in bf16 (ragged non-causal windows with sk > sq at d
+    96, a clamped causal case), a bf16 head dim whose rows TMA cannot read
+    (d 36: route C) and ragged fp32 cases."""
     return [("train_causal", TRAIN_BATCH * 16, TRAIN_SEQ, TRAIN_SEQ, 128,
              True, "bfloat16", True),
             ("moe_train_causal", TRAIN_BATCH * 32, TRAIN_SEQ, TRAIN_SEQ,
              128, True, "bfloat16", True),
+            ("ragged_noncausal_100x130_d96", 6, 100, 130, 96, False,
+             "bfloat16", False),
+            ("clamped_causal_100", 8, 100, 100, 128, True, "bfloat16",
+             False),
+            ("route_c_causal_d36", 8, 100, 100, 36, True, "bfloat16",
+             False),
             ("ragged_f32_causal_100x130", 6, 100, 130, 64, True, "float32",
              False),
             ("ragged_f32_noncausal_130x70", 6, 130, 70, 96, False, "float32",
@@ -1009,22 +1038,43 @@ def run_flash_bwd_case(torch, case, gen):
         route=route, device_ms=graph_ms(torch, fwd),
         device_library_ms=graph_ms(torch, sdpa))
 
-    # Backward, on the kernel's own o and lse.
-    got = flash_bwd_fused(exe, q, k, v, o, do, lse)
+    # Backward, on the kernel's own o and lse: one launch on the route
+    # choose_route names for its five operands (route A on the main path).
+    def bwd():
+        return flash_bwd_fused(exe, q, k, v, o, do, lse)
+
+    got, bwd_route = _flash_route(
+        torch, "flash_bwd_fused", bwd,
+        fk.choose_route(dt, d, tuple(t.data_ptr() for t in (q, k, v, o, do))),
+        main_path, dname, label, fk.BWD_ROUTES)
     want = flash_bwd_fused_plain(exe.schedule, q, k, v, o, do, lse)
     torch.cuda.synchronize()
     qs, ks, vs = (t.detach()[None].requires_grad_(True) for t in (q, k, v))
     out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        out, (qs, ks, vs), do[None], retain_graph=True), 20)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qs, ks, vs), do[None],
+                                   retain_graph=True)
+
+    # For its device time, SDPA's forward runs on a stream of its own, from
+    # leaves first used there, and the graph captures the backward alone on
+    # that stream.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach()[None].requires_grad_(True) for t in (q, k, v)]
+        out_side = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    torch.cuda.current_stream().wait_stream(side)
     row("flash_bwd_fused",
         {n: errors(g, w, BWD_TOL) for n, g, w in zip(("dq", "dk", "dv"),
                                                       got, want)},
-        BWD_TOL,
-        time_ms(torch, lambda: flash_bwd_fused(exe, q, k, v, o, do, lse), 20),
+        BWD_TOL, time_ms(torch, bwd, 20),
         time_ms(torch, lambda: flash_bwd_fused_plain(exe.schedule, q, k, v,
                                                      o, do, lse), 2),
-        lib_bwd, bdesc.in_bytes + bdesc.out_bytes, bdesc.flops)
+        time_ms(torch, sdpa_bwd, 20), bdesc.in_bytes + bdesc.out_bytes,
+        bdesc.flops, route=bwd_route, device_ms=graph_ms(torch, bwd),
+        device_library_ms=graph_ms(torch, lambda: torch.autograd.grad(
+            out_side, leaves, do[None], retain_graph=True), stream=side))
     return rows
 
 
@@ -2065,6 +2115,8 @@ def _read_counts():
     launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
     launches.update({f"grouped_route_{r}": n for r, n in grk.ROUTES.items()})
     launches.update({f"flash_route_{r}": n for r, n in fk.ROUTES.items()})
+    launches.update({f"flash_bwd_route_{r}": n
+                     for r, n in fk.BWD_ROUTES.items()})
     launches.update({f"gemm_quant_route_{r}": n
                      for r, n in gk.QUANT_ROUTES.items()})
     launches.update({f"grouped_quant_route_{r}": n

@@ -21,27 +21,62 @@
 // whole-staged outputs.  Here thread blocks run in parallel, so the grid is
 // (k-block, batch-head): each block walks the table rows that touch its
 // k-block (FlashTileSchedule.k_block_index, CSR), keeps its k/v window and
-// fp32 dK/dV accumulators in shared memory for the whole walk, and stores
-// only the rows [k0, k_end) it owns -- no two blocks own a dK/dV row, so
-// those stores need no atomics.  A k-block no query reaches (causal, sk > sq)
-// stores zeros.  D is recomputed per tile from the dO and O windows (the
-// block loads dO anyway), in place of the reference's first-tile scratch.
-// dQ rows are shared between k-blocks: each block atomicAdds its dS K into
-// the owned rows of a caller-zeroed fp32 (BH, sq, d) buffer, so dQ's sum
-// order changes from run to run (fp32 rounding differences only).
+// fp32 dK/dV accumulators for the whole walk, and stores only the rows
+// [k0, k_end) it owns -- no two blocks own a dK/dV row, so those stores
+// need no atomics.  A k-block no query reaches (causal, sk > sq) stores
+// zeros.  D is recomputed per tile from the dO and O windows, in place of
+// the reference's first-tile scratch.  dQ rows are shared between
+// k-blocks: each block atomically adds its dS K into the owned rows of a
+// caller-zeroed fp32 (BH, sq, d) buffer, so dQ's sum order changes from run
+// to run (fp32 rounding differences only).
 //
 // What bounds it on the H100 at the training shape (BH = 128 = batch 8 x 16
 // heads, sq = sk = 128, d = 128, causal, bf16): 0.34 GFLOP of useful work
 // against 42 MB of operands and gradients (dK/dV in fp32), ~8 flop/byte,
 // below the ~295 flop/byte ridge: bytes bound it (12.5 us at 3.35 TB/s).
-// The simple design: every tile product in fp32 on CUDA cores from shared
-// memory (q, k, v and dO windows upcast on load, rows padded against bank
-// conflicts), 256 threads, one block per SM (210 KB at 64 x 64 x 128).
-// Tensor-core products, TMA pipelining and a deterministic dQ are later work.
+// The routes (chosen per call in kernel.py, which counts them):
+//   (A) bf16 operands TMA can read (16-byte aligned bases of q, k, v, o and
+//       dO, rows of 2d bytes a multiple of 16): one consumer warpgroup holds
+//       a 64-key block, keys in wgmma's M, and a producer warp loads K and V
+//       once and keeps a ring of STAGES (Q, dO, O) windows in flight by TMA,
+//       completed on mbarriers.  Every window is staged once, as K-major
+//       panels of 32 columns in the 64-byte swizzle (3-D tensor maps over
+//       (BH, s, d) with each head's own extent, so TMA zero-fills rows past
+//       a head's end and columns past d), and read both ways: K-major where
+//       d is the product's depth, MN-major (desc_mn64) where rows are.
+//       The five products, all m64nNk16 bf16 wgmma with fp32 sums:
+//         S^T  = K Q^T     A K,    B Q   (K-major)
+//         dP^T = V dO^T    A V,    B dO  (K-major)
+//         dV  += P^T dO    A P^T   (K-major), B dO (MN-major)
+//         dK  += dS^T Q    A dS^T  (K-major), B Q  (MN-major)
+//         dQ   = dS K      A dS^T  (MN-major), B K (MN-major), 64 columns
+//                          at a time, added to dQ by paired fp32 atomics
+//       P and dS are fp32; one bf16 rounding would cost them 8 bits and
+//       break the 1e-3 agreement with the fp32 plain version, so each is
+//       written as two bf16 panels, hi = bf16(x) and lo = bf16(x - hi)
+//       (about 2^-16 relative), and each of their products runs twice.
+//       Q, K, V and dO are bf16 already and go in exactly.  The masks,
+//       exp, the split and dS run on the accumulator registers; a thread's
+//       columns are q rows, whose LSE and D are staged per tile in shared
+//       memory (D from the staged dO and O while S^T and dP^T run).  dK
+//       and dV stay in registers for the whole walk.  About 162 KB of
+//       shared memory a block at d > 64 (one block an SM), about 98 KB at
+//       d <= 64 (two).
+//   (C) bf16 operands TMA cannot read, and fp32 operands (never TF32): the
+//       simple design, every tile product in fp32 on CUDA cores from shared
+//       memory (q, k, v and dO windows upcast on load, rows padded against
+//       bank conflicts), 256 threads, one block per SM (210 KB at
+//       64 x 64 x 128).
+// The PTX building blocks are the dense GEMM's (gemm_sm90.cuh), the tensor
+// map encoder is wgmma_tile.cuh's.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "../../gemm/csrc/gemm_sm90.cuh"
+#include "../../gemm/csrc/wgmma_tile.cuh"
 
 namespace {
 
@@ -50,6 +85,8 @@ constexpr int BQ_MAX = 64;
 constexpr int BK_MAX = 64;
 constexpr int D_MAX = 128;
 constexpr int PAD = 1;  // floats of padding per staged row
+
+enum { ROUTE_A = 0, ROUTE_C = 1 };
 
 struct BwdArgs {
   const void* q;     // (BH, sq, d)
@@ -67,6 +104,10 @@ struct BwdArgs {
   int sq, sk, d, bq, bk, causal;
   float scale;
 };
+
+// ---------------------------------------------------------------------------
+// Route C (and fp32): CUDA-core FMAs from tiles staged in shared memory.
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -227,26 +268,416 @@ size_t smem_bytes(int bq, int bk, int d) {
                           2 * (size_t)bq);
 }
 
+// ---------------------------------------------------------------------------
+// Route A: TMA-fed Q/dO/O ring, wgmma for all five tile products.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 128;              // the consumer warpgroup
+constexpr int TC_THREADS = WG_THREADS + 32;  // + the TMA producer warp
+constexpr int STAGES = 2;                    // (Q, dO, O) windows in flight
+// One TMA box: 64 rows of 64 bytes (32 bf16 columns, K-major, 64-byte
+// swizzle), 4096 bytes on a 1024-byte boundary.
+constexpr int BOX = 4096;
+constexpr int T_BYTES = BQ_MAX * BK_MAX * 2;     // a bf16 P or dS panel pair
+// Shared memory of a route-A block at head dim DN (64 or 128): 1024 bytes
+// of alignment slack, the K and V windows, STAGES stages of Q, dO and O,
+// the P and dS hi / lo panel pairs, the LSE and D of a tile's q rows, and
+// the K/V barrier with a full and an empty barrier a stage.
+template <int DN>
+constexpr int tc_smem() {
+  return 1024 + 2 * (DN / 32 * BOX) + STAGES * 3 * (DN / 32 * BOX) +
+         4 * T_BYTES + 2 * BQ_MAX * 4 + 8 * (1 + 2 * STAGES);
+}
+constexpr int TC_SMEM = tc_smem<D_MAX>();
+static_assert(TC_SMEM <= 232448, "a route-A block fits the SM");
+static_assert(2 * tc_smem<64>() <= 232448, "two d <= 64 blocks share an SM");
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  const uint32_t a = sm90::smem_u32(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
+
+template <int DN, int TA, int TB>
+__device__ __forceinline__ void wgmma_nd(float* d, uint64_t da, uint64_t db) {
+  if constexpr (DN == 128)
+    sm90::wgmma_n128<TA, TB>(d, da, db);
+  else
+    sm90::wgmma_n64<TA, TB>(d, da, db);
+}
+
+// The dot product of two 16-byte runs of 8 bf16.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, w.x, fmaf(u.y, w.y, acc));
+  }
+  return acc;
+}
+
+// Two fp32 values as hi = bf16(x) and lo = bf16(x - hi), each a bf16 pair.
+__device__ __forceinline__ void store_split(unsigned char* hi,
+                                            unsigned char* lo, float x0,
+                                            float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(hi) = h;
+  *reinterpret_cast<__nv_bfloat162*>(lo) =
+      __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+}
+
+// dst[0] += x0 and dst[1] += x1 as one vector atomic (sm_90): half the
+// atomic instructions of two scalar adds.
+__device__ __forceinline__ void red_add2(float* dst, float x0, float x1) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};\n" ::"l"(dst),
+               "f"(x0), "f"(x1)
+               : "memory");
+}
+
+// Writes a thread's 64 x 64 accumulator tile (register 4 j + 2 i + c:
+// row r0 + 8 i, column 8 j + c0 + c) as its hi and lo panel pairs: K-major
+// rows of 64 bytes, columns 0-31 in the first panel and 32-63 in the
+// second, the 16-byte chunk index XORed with bits 1-2 of the row (the
+// 64-byte swizzle the descriptors assume).
+__device__ __forceinline__ void store_tile(unsigned char* hi, const float* x,
+                                           int r0, int c0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      const int off = (j / 4) * BOX + r * 64 +
+                      (((j % 4) ^ ((r >> 1) & 3)) << 4) + c0 * 2;
+      store_split(hi + off, hi + T_BYTES + off, x[4 * j + 2 * i],
+                  x[4 * j + 2 * i + 1]);
+    }
+}
+
+template <int DN>
+__global__ void __launch_bounds__(TC_THREADS, DN == 64 ? 2 : 1)
+flash_bwd_wgmma(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const __grid_constant__ CUtensorMap mo,
+                const __grid_constant__ CUtensorMap mdo,
+                const __grid_constant__ BwdArgs f) {
+  using namespace sm90;
+  constexpr int QP = DN / 32;  // 32-column panels of a window
+  constexpr int W = QP * BOX;  // a window's bytes
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = base, v_s = k_s + W, ring = v_s + W;
+  const uint32_t p_s = ring + STAGES * 3 * W;  // P hi, P lo, dS hi, dS lo
+  const uint32_t ds_s = p_s + 2 * T_BYTES;
+  float* lse_s = reinterpret_cast<float*>(smem + (p_s - base) + 4 * T_BYTES);
+  float* d_s = lse_s + BQ_MAX;
+  const uint32_t bars = p_s + 4 * T_BYTES + 2 * BQ_MAX * 4;  // kv, full, empty
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+
+  const int kb = blockIdx.x, bh = blockIdx.y;
+  const int k0 = kb * f.bk, k_end = min(k0 + f.bk, f.sk);
+  const int ks = min(k0, f.sk - f.bk);
+  const int n0 = f.koff[kb], n = f.koff[kb + 1] - n0;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG_THREADS) {
+    // Producer: K and V once, then each visited tile's Q, dO and O windows
+    // into the next free stage, up to STAGES tiles ahead of the consumers.
+    // A block with no tile loads nothing.
+    if (threadIdx.x == WG_THREADS && n > 0) {
+      mbar_expect_tx(bars, 2 * W);
+      for (int p = 0; p < QP; ++p) {
+        tma_load_3d(k_s + p * BOX, &mk, bars, 32 * p, ks, bh);
+        tma_load_3d(v_s + p * BOX, &mv, bars, 32 * p, ks, bh);
+      }
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n; ++t) {
+        const int qs = f.table[(int64_t)f.krows[n0 + t] * 8 + 2];
+        mbar_wait(empty(s), phase ^ 1);
+        const uint32_t q = ring + s * 3 * W;
+        mbar_expect_tx(full(s), 3 * W);
+        for (int p = 0; p < QP; ++p) {
+          tma_load_3d(q + p * BOX, &mq, full(s), 32 * p, qs, bh);
+          tma_load_3d(q + W + p * BOX, &mdo, full(s), 32 * p, qs, bh);
+          tma_load_3d(q + 2 * W + p * BOX, &mo, full(s), 32 * p, qs, bh);
+        }
+        if (++s == STAGES) { s = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // Consumers.  wgmma's accumulator layout: register 4 j + 2 i + c holds
+  // row r0 + 8 i, column 8 j + c0 + c.  In S^T, dP^T, dK and dV the rows are
+  // the window's keys; in S^T and dP^T the columns are its q rows.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int64_t head = (int64_t)bh * f.sq;
+  const float* LSE = f.lse + head;
+  float* dQ = f.dq + head * f.d;
+  float dk[DN / 2], dv[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) dk[i] = dv[i] = 0.f;
+  int kpos[2];
+  bool kok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = ks + r0 + 8 * i;
+    kok[i] = kpos[i] >= k0 && kpos[i] < k_end;
+  }
+  if (n > 0) mbar_wait(bars, 0);
+  int st = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < n; ++t) {
+    const int* row = f.table + (int64_t)f.krows[n0 + t] * 8;
+    const int q0 = row[0], q_end = row[1], qs = row[2];
+    const uint32_t q = ring + st * 3 * W, dO = q + W, o = dO + W;
+    mbar_wait(full(st), phase);
+    __syncwarp();  // wgmma is .aligned: the warp reconverges first
+
+    // S^T = K Q^T and dP^T = V dO^T: d in QP panels of two k-steps each.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < QP; ++p)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma_n64<0, 0>(s, desc_k64(k_s + p * BOX + 32 * h),
+                        desc_k64(q + p * BOX + 32 * h));
+    wgmma_commit();
+#pragma unroll
+    for (int p = 0; p < QP; ++p)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        wgmma_n64<0, 0>(dp, desc_k64(v_s + p * BOX + 32 * h),
+                        desc_k64(dO + p * BOX + 32 * h));
+    wgmma_commit();
+
+    // While they run: the LSE and D = rowsum(dO . O) of the window's q
+    // rows, two threads a row, each over half of the row's panels (columns
+    // past d and rows past sq arrived as zeros).
+    {
+      const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+      const unsigned char* ob = smem + (o - base);
+      const unsigned char* gb = smem + (dO - base);
+      float acc = 0.f;
+#pragma unroll
+      for (int p = half * QP / 2; p < (half + 1) * QP / 2; ++p)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int off = p * BOX + r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+          acc += dot8(*reinterpret_cast<const uint4*>(ob + off),
+                      *reinterpret_cast<const uint4*>(gb + off));
+        }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        d_s[r] = acc;
+        lse_s[r] = qs + r < f.sq ? LSE[qs + r] : 0.f;
+      }
+    }
+    bar_sync(1, WG_THREADS);  // lse_s and d_s are written
+
+    // P^T = exp(S^T scale - lse) where valid, else 0, in place of S^T.
+    wgmma_wait<1>();
+    fence_regs(s);
+    uint32_t vmask = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qc = 8 * j + c0 + c, qpos = qs + qc;
+        const bool qok = qpos >= q0 && qpos < q_end;
+        const float l = lse_s[qc];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + c;
+          const bool ok = kok[i] && qok && (!f.causal || kpos[i] <= qpos);
+          s[idx] = ok ? expf(s[idx] * f.scale - l) : 0.f;
+          vmask |= (uint32_t)ok << idx;
+        }
+      }
+    // The previous tile's wgmma reads of the P and dS panels ended at its
+    // wait; order them before these generic writes.
+    fence_proxy_async();
+    store_tile(smem + (p_s - base), s, r0, c0);
+    fence_proxy_async();      // P's generic writes, visible to wgmma
+    bar_sync(1, WG_THREADS);  // every row of P is written
+
+    // dV += P^T dO, the hi panels then the lo: four k-steps of 16 q rows.
+    fence_regs(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_nd<DN, 0, 1>(
+            dv, desc_k64(p_s + h * T_BYTES + (kk / 2) * BOX + (kk % 2) * 32),
+            desc_mn64(dO + kk * 1024));
+    wgmma_commit();
+
+    // dS^T = P^T (dP^T - D) scale where valid, else 0, in place of dP^T.
+    wgmma_wait<1>();  // dP^T is done; dV may still run
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float dd = d_s[8 * j + c0 + c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + c;
+          const float x = s[idx] * (dp[idx] - dd) * f.scale;
+          dp[idx] = (vmask >> idx) & 1u ? x : 0.f;
+        }
+      }
+    store_tile(smem + (ds_s - base), dp, r0, c0);
+    fence_proxy_async();
+    bar_sync(1, WG_THREADS);  // every row of dS is written
+
+    // dK += dS^T Q, hi then lo.
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_nd<DN, 0, 1>(
+            dk, desc_k64(ds_s + h * T_BYTES + (kk / 2) * BOX + (kk % 2) * 32),
+            desc_mn64(q + kk * 1024));
+    wgmma_commit();
+
+    // dQ = dS K, 64 columns of d at a time (q rows in M: dS^T read
+    // MN-major), hi then lo, added into the owned q rows two columns an
+    // atomic.
+#pragma unroll
+    for (int hn = 0; hn < DN / 64; ++hn) {
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n64<1, 1>(acc, desc_mn64(ds_s + h * T_BYTES + kk * 1024),
+                          desc_mn64(k_s + hn * 2 * BOX + kk * 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qpos = qs + r0 + 8 * i;
+        if (qpos < q0 || qpos >= q_end) continue;
+        float* qrow = dQ + (int64_t)qpos * f.d;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * hn + 8 * j + c0;
+          if (col < f.d)
+            red_add2(qrow + col, acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+    fence_regs(dk);
+    fence_regs(dv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
+    if (++st == STAGES) { st = 0; phase ^= 1; }
+  }
+
+  // The drain: the owned key rows [k0, k_end), pairs of columns below d
+  // (zeros where no query reached the block).
+  float* dK = f.dk + (int64_t)bh * f.sk * f.d;
+  float* dV = f.dv + (int64_t)bh * f.sk * f.d;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!kok[i]) continue;
+    const int64_t at = (int64_t)kpos[i] * f.d;
+#pragma unroll
+    for (int j = 0; j < DN / 8; ++j) {
+      const int col = 8 * j + c0;
+      if (col < f.d) {
+        *reinterpret_cast<float2*>(dK + at + col) =
+            make_float2(dk[4 * j + 2 * i], dk[4 * j + 2 * i + 1]);
+        *reinterpret_cast<float2*>(dV + at + col) =
+            make_float2(dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+// Raises a kernel's dynamic shared-memory limit to `bytes`, once per
+// kernel, so that a launch inside a CUDA-graph capture makes no attribute
+// call.
+template <auto kernel>
+cudaError_t allow_smem(int bytes) {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return e;
+}
+
 template <typename T>
 cudaError_t launch(const BwdArgs& f, dim3 grid, cudaStream_t s) {
-  const size_t smem = smem_bytes(f.bq, f.bk, f.d);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = allow_smem<flash_bwd_kernel<T>>(
+      (int)smem_bytes(BQ_MAX, BK_MAX, D_MAX));
   if (e != cudaSuccess) return e;
-  flash_bwd_kernel<T><<<grid, NT, smem, s>>>(f);
+  flash_bwd_kernel<T><<<grid, NT, smem_bytes(f.bq, f.bk, f.d), s>>>(f);
+  return cudaGetLastError();
+}
+
+// Route A's tensor maps: every operand in boxes of 32 columns x 64 rows
+// (K-major, 64-byte swizzle), 3-D over (BH, s, d) with the head's own
+// extent.
+template <int DN>
+cudaError_t launch_wgmma(const BwdArgs& f, dim3 grid, cudaStream_t s) {
+  CUtensorMap mq{}, mk{}, mv{}, mo{}, mdo{};
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_64B;
+  if (!(wgt::make_map(&mq, f.q, f.d, f.sq, grid.y, 32, 64, sw) &&
+        wgt::make_map(&mk, f.k, f.d, f.sk, grid.y, 32, 64, sw) &&
+        wgt::make_map(&mv, f.v, f.d, f.sk, grid.y, 32, 64, sw) &&
+        wgt::make_map(&mo, f.o, f.d, f.sq, grid.y, 32, 64, sw) &&
+        wgt::make_map(&mdo, f.dout, f.d, f.sq, grid.y, 32, 64, sw)))
+    return cudaErrorInvalidValue;
+  constexpr int smem = tc_smem<DN>();
+  cudaError_t e = allow_smem<flash_bwd_wgmma<DN>>(smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_wgmma<DN><<<grid, TC_THREADS, smem, s>>>(mq, mk, mv, mo, mdo, f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// route: ROUTE_A (TMA ring + wgmma) or ROUTE_C (CUDA cores) for bf16,
+// ignored for fp32 (CUDA cores).
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* o, const void* dout,
                                const float* lse, float* dq, float* dk,
                                float* dv, const int* table, const int* koff,
                                const int* krows, int num_k_blocks, int bh,
                                int sq, int sk, int d, int bq, int bk,
-                               int causal, float scale, int dtype,
+                               int causal, float scale, int dtype, int route,
                                void* stream) {
   BwdArgs f{q,  k,    v,     o,  dout, lse, dq, dk,     dv,   table,
             koff, krows, sq, sk, d,    bq,  bk, causal, scale};
@@ -255,7 +686,9 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   dim3 grid(num_k_blocks, bh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(f, grid, s);
+  if (dtype == 1 && route == ROUTE_A)
+    return d <= 64 ? launch_wgmma<64>(f, grid, s) : launch_wgmma<128>(f, grid, s);
+  if (dtype == 1 && route == ROUTE_C) return launch<__nv_bfloat16>(f, grid, s);
   if (dtype == 0) return launch<float>(f, grid, s);
   return cudaErrorInvalidValue;
 }

@@ -23,11 +23,12 @@ torch version.
 Operands are ``(BH, s, d)``, or for decode ``q (S, h, hd)`` against
 ``(pages, page_size, hkv, hd)`` pools.  A wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.  Each
-launch adds one to :data:`LAUNCHES`, and each forward launch one to the
-route it took in :data:`ROUTES` (:func:`choose_route`): "A" (bf16 operands
-TMA can read: a ring of K/V windows fed by TMA, ``wgmma`` for QK^T and PV,
-the online softmax in registers), "C" (bf16 operands TMA cannot read) or
-"fp32" (both CUDA-core FMAs, never TF32).
+launch adds one to :data:`LAUNCHES`, each forward launch one to the route
+it took in :data:`ROUTES` and each backward launch one to its route in
+:data:`BWD_ROUTES` (:func:`choose_route`): "A" (bf16 operands TMA can
+read: windows fed by TMA on mbarriers into a ring, every tile product on
+``wgmma``), "C" (bf16 operands TMA cannot read) or "fp32" (both CUDA-core
+FMAs, never TF32).
 """
 from __future__ import annotations
 
@@ -50,7 +51,8 @@ MAX_HEAD_DIM = 128
 LAUNCHES = {"flash_fwd_fused": 0, "flash_fwd_dense": 0, "flash_bwd_fused": 0,
             "flash_decode": 0, "flash_decode_int8": 0}
 ROUTES = {"A": 0, "C": 0, "fp32": 0}
-# flash_fwd.cu's ROUTE_A / ROUTE_C; fp32 ignores the code.
+BWD_ROUTES = {"A": 0, "C": 0, "fp32": 0}
+# flash_fwd.cu's and flash_bwd.cu's ROUTE_A / ROUTE_C; fp32 ignores the code.
 _ROUTE_CODE = {"A": 0, "C": 1, "fp32": 1}
 
 # Route A's K/V ring (flash_fwd.cu's STAGES) and its block's dynamic shared
@@ -62,13 +64,23 @@ RING_STAGES = 2
 _Q_BYTES = MAX_HEAD_DIM // 32 * 64 * 64
 RING_SMEM_BYTES = (1024 + _Q_BYTES + RING_STAGES * 2 * _Q_BYTES
                    + 2 * MAX_BLOCK * MAX_BLOCK * 2 + 8 * (1 + 2 * RING_STAGES))
+# The backward's route A at the largest head dim (flash_bwd.cu's STAGES and
+# TC_SMEM): 1024 bytes of slack, the K and V windows, BWD_RING_STAGES stages
+# of Q, dO and O, the P and dS hi / lo panel pairs (four 64 x 64 bf16
+# tiles), the LSE and D of a tile's q rows, and 8-byte mbarriers (K/V, and a
+# full and an empty one a stage): one block an SM.
+BWD_RING_STAGES = 2
+BWD_RING_SMEM_BYTES = (1024 + 2 * _Q_BYTES + BWD_RING_STAGES * 3 * _Q_BYTES
+                       + 4 * MAX_BLOCK * MAX_BLOCK * 2 + 2 * MAX_BLOCK * 4
+                       + 8 * (1 + 2 * BWD_RING_STAGES))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def choose_route(dtype, d: int, ptrs=(0, 0, 0)) -> str:
-    """The forward kernels' route for one call: "fp32" for fp32 operands;
-    for bf16 "C" where TMA cannot read q, k or v (a base ``ptrs`` not
+    """The route of one flash forward or backward call: "fp32" for fp32
+    operands; for bf16 "C" where TMA cannot read an operand (one of the
+    bases ``ptrs`` -- q, k and v, and for the backward also o and dO -- not
     16-byte aligned, or a row of ``2 d`` bytes that is not a multiple of
     16), else "A"."""
     if dtype == torch.float32:
@@ -78,9 +90,9 @@ def choose_route(dtype, d: int, ptrs=(0, 0, 0)) -> str:
     return "A"
 
 
-def _route(qf, kf, vf) -> str:
+def _route(qf, *operands) -> str:
     return choose_route(qf.dtype, qf.shape[2],
-                        tuple(t.data_ptr() for t in (qf, kf, vf)))
+                        tuple(t.data_ptr() for t in (qf, *operands)))
 
 
 class FusedFlash:
@@ -146,7 +158,7 @@ def _lib(name: str):
             lib.flash_fwd_dense.argtypes = [P] * 4 + [I] * 7 + [Fl, I, I, P]
             lib.flash_fwd_dense.restype = I
         elif name == "flash_bwd":
-            lib.flash_bwd_fused.argtypes = [P] * 12 + [I] * 8 + [Fl, I, P]
+            lib.flash_bwd_fused.argtypes = [P] * 12 + [I] * 8 + [Fl, I, I, P]
             lib.flash_bwd_fused.restype = I
         else:
             lib.flash_decode.argtypes = [P] * 8 + [I] * 5 + [Fl, I, P]
@@ -242,14 +254,16 @@ def flash_bwd_fused(exe: FusedFlash, qf, kf, vf, o, do, lse):
     dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=qf.device)
     dk = torch.empty((bh, s.sk, d), dtype=torch.float32, device=qf.device)
     dv = torch.empty_like(dk)
+    route = _route(qf, kf, vf, o, do)
     status = _lib("flash_bwd").flash_bwd_fused(
         _build.ptr(qf), _build.ptr(kf), _build.ptr(vf), _build.ptr(o),
         _build.ptr(do), _build.ptr(lse), _build.ptr(dq), _build.ptr(dk),
         _build.ptr(dv), _build.ptr(exe.table), _build.ptr(exe.k_offsets),
         _build.ptr(exe.k_rows), s.num_k_blocks, bh, sq, s.sk, d, s.bq, s.bk,
-        int(s.causal), d ** -0.5, _DTYPE_CODE[qf.dtype],
+        int(s.causal), d ** -0.5, _DTYPE_CODE[qf.dtype], _ROUTE_CODE[route],
         _build.stream_ptr(qf))
     LAUNCHES["flash_bwd_fused"] += 1
+    BWD_ROUTES[route] += 1
     _build.check(status, "flash_bwd_fused")
     return dq, dk, dv
 
@@ -524,6 +538,6 @@ def flash_decode_plain(exe: FlashDecode, q, k_pool, v_pool, k_scale=None,
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, BWD_ROUTES):
         for name in counts:
             counts[name] = 0

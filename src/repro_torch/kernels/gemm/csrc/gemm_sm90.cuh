@@ -117,6 +117,15 @@ __device__ __forceinline__ uint64_t desc_mn128(uint32_t addr) {
   return make_desc(addr, 4096, 1024, SWIZZLE_128B);
 }
 
+// A K-major 64-byte-swizzled panel of 64 rows read MN-major: its rows are
+// K, its 64 bytes 32 columns of M or N; the next 32 columns are the next
+// panel (4096 bytes on), the next 8-row group of K 512 bytes on, and a
+// k-step of 16 rows starts 1024 bytes in.  The flash backward reads each
+// of its staged windows both ways from one copy.
+__device__ __forceinline__ uint64_t desc_mn64(uint32_t addr) {
+  return make_desc(addr, 4096, 512, SWIZZLE_64B);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -229,19 +229,66 @@ def test_flash_fwd_ring_matches_kernel_py_and_fits_two_blocks():
 
 
 def test_flash_bwd_limits_match_kernel_py():
+    """Both routes share the entry's limits; route A's windows are 64-row
+    TMA boxes and wgmma's M, so its blocks are at most 64 on each side."""
     assert _constexpr(FLASH_BWD_CU, "BQ_MAX") == flash_kernel.MAX_BLOCK
     assert _constexpr(FLASH_BWD_CU, "BK_MAX") == flash_kernel.MAX_BLOCK
     assert _constexpr(FLASH_BWD_CU, "D_MAX") == flash_kernel.MAX_HEAD_DIM
+    assert flash_kernel.MAX_BLOCK == 64
+    assert "bq > BQ_MAX || bk < 1 || bk > BK_MAX || d < 1 || d > D_MAX" \
+        in FLASH_BWD_CU
+
+
+def test_flash_bwd_routes_match_kernel_py():
+    """flash_bwd.cu's route codes are the forward's and kernel.py's; route
+    A runs one template a rounded head dim (64 or 128) on the GEMM's PTX
+    and the shared tensor-map encoder; fp32 runs CUDA cores whatever the
+    code."""
+    assert "enum { ROUTE_A = 0, ROUTE_C = 1 };" in FLASH_BWD_CU
+    assert set(flash_kernel.BWD_ROUTES) == {"A", "C", "fp32"}
+    assert '#include "../../gemm/csrc/gemm_sm90.cuh"' in FLASH_BWD_CU
+    assert '#include "../../gemm/csrc/wgmma_tile.cuh"' in FLASH_BWD_CU
+    assert "d <= 64 ? launch_wgmma<64>(f, grid, s) : launch_wgmma<128>" \
+        in FLASH_BWD_CU
+    assert "if (dtype == 0) return launch<float>(f, grid, s);" \
+        in FLASH_BWD_CU
 
 
 def test_flash_bwd_shared_memory_fits_h100_at_the_limits():
-    """The backward stages k, v, q and dO windows (rows padded), fp32
-    dK/dV, the P tile and two per-row vectors, all fp32: at the largest
-    blocks and head dim it must fit a block's shared memory."""
+    """Route C stages k, v, q and dO windows (rows padded), fp32 dK/dV,
+    the P tile and two per-row vectors, all fp32; route A (flash_bwd.cu's
+    ``tc_smem``, kernel.py's BWD_RING_SMEM_BYTES at d 128) 1024 bytes of
+    slack, the K and V windows, STAGES stages of Q, dO and O (32-column
+    boxes of 4096 bytes), four 64 x 64 bf16 tiles (P and dS, hi and lo),
+    the LSE and D rows and the mbarriers.  At the largest blocks and head
+    dim each fits a block's shared memory; route A at d <= 64 fits two
+    blocks an SM, and needs at least two stages to keep the next tile's
+    loads in flight."""
     pad = _constexpr(FLASH_BWD_CU, "PAD")
     b, d = flash_kernel.MAX_BLOCK, flash_kernel.MAX_HEAD_DIM
     floats = 4 * b * (d + pad) + 2 * b * d + b * (b + pad) + 2 * b
     assert 4 * floats <= H100_SXM.vmem_bytes
+    assert re.search(r"2 \* \(size_t\)bk \* ld \+ 2 \* \(size_t\)bq \* ld \+"
+                     r"\s+2 \* \(size_t\)bk \* d \+ \(size_t\)bq \* \(bk \+ PAD\) \+"
+                     r"\s+2 \* \(size_t\)bq\);", FLASH_BWD_CU)
+    stages = _constexpr(FLASH_BWD_CU, "STAGES")
+    box = _constexpr(FLASH_BWD_CU, "BOX")
+    assert stages == flash_kernel.BWD_RING_STAGES >= 2 and box == 64 * 64
+    assert "constexpr int T_BYTES = BQ_MAX * BK_MAX * 2;" in FLASH_BWD_CU
+    assert re.search(r"return 1024 \+ 2 \* \(DN / 32 \* BOX\) \+ STAGES \* 3 "
+                     r"\* \(DN / 32 \* BOX\) \+\s+4 \* T_BYTES \+ 2 \* BQ_MAX "
+                     r"\* 4 \+ 8 \* \(1 \+ 2 \* STAGES\);", FLASH_BWD_CU)
+
+    def ring(dn):
+        win = dn // 32 * box
+        return (1024 + 2 * win + stages * 3 * win + 4 * b * b * 2 + 2 * b * 4
+                + 8 * (1 + 2 * stages))
+
+    assert ring(d) == flash_kernel.BWD_RING_SMEM_BYTES == 165416
+    assert ring(d) <= H100_SXM.vmem_bytes == 232448
+    assert 2 * ring(64) <= H100_SXM.vmem_bytes
+    assert re.search(r"__launch_bounds__\(TC_THREADS, DN == 64 \? 2 : 1\)",
+                     FLASH_BWD_CU)
 
 
 def test_flash_decode_limits_match_kernel_py_and_machine():
