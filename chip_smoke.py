@@ -36,7 +36,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 training shapes, route A's ragged and clamped edges in bf16,
                 d 36 on route C, fp32; each row naming its route, a
                 main-path row off route A failing, and its device time
-                beside SDPA's autograd backward), the paged decode,
+                beside SDPA's autograd backward), the paged decode
+                (each row naming its route, a bf16 row off route A or the
+                fp32 row off B failing, with its device time warm and after
+                an L2 flush beside SDPA's over the gathered pages, and the
+                share of elements not bit-equal to the plain version),
                 the SSD scan, its backward and the intra-chunk ladder, and
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
@@ -51,7 +55,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 Qwen3's tied table, a ragged batch read from a padded view
                 holding NaN: bit-exact), the quantized GEMM (Qwen3's seven
                 projection shapes at decode and prefill rows under W8A16,
-                int8 and fp8), paged decode over KV-int8 pools and the
+                int8 and fp8), paged decode over KV-int8 pools (as the
+                bf16 decode rows) and the
                 quantized grouped GEMM (phi3.5-moe's expert shapes, int8),
                 each quantized row naming its route (a main-path row off
                 routes A and B fails) and the decode rows their device time
@@ -138,11 +143,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 phase: a quantized call of continuous_quant or
                 serve_moe_quant, or a main-path quant kernel row, off
                 routes A and B (route C or fp32) fails;
+     decode_routes -- the routes of flash_decode and flash_decode_int8 in
+                every phase: a decode call of continuous or
+                continuous_quant off route A (the cluster-split walk on
+                TMA page loads) fails;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
                 times and every case's route, ``flash_routes``, the
-                quantized GEMMs' with their prefill and decode sums apart),
+                quantized GEMMs' with their prefill and decode sums apart,
+                the paged decode kernels' with their device times, warm and
+                L2-cold, and every case's route),
                 then the
                 card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
@@ -368,6 +379,22 @@ def main():
     if off_ab or rows_off:
         fail(f"main-path quant GEMMs left routes A and B: {off_ab} "
              f"{rows_off}")
+    # Every paged decode call of the serving paths is bf16 within route A's
+    # limits: route A (the cluster-split walk on TMA page loads).  (A
+    # kernel row off its route has failed in its case already.)
+    decode_routes = {p: {r: c.get(f"decode_route_{r}", 0) for r in ("A", "B")}
+                     for p, c in by_path.items()}
+    emit(phase="decode_routes", by_path=decode_routes,
+         kernel_rows={r["kernel"] + ":" + r["case"]: r["route"]
+                      for r in results if r["kernel"] in DECODE_KERNELS})
+    off_a = {p: r for p, r in decode_routes.items() if r["B"]}
+    if off_a:
+        fail(f"main-path paged decode left route A: {off_a}")
+    for p, kname in (("continuous", "flash_decode"),
+                     ("continuous_quant", "flash_decode_int8")):
+        if decode_routes[p]["A"] != by_path[p][kname]:
+            fail(f"{p}: {decode_routes[p]['A']} route-A decode calls, "
+                 f"{by_path[p][kname]} {kname} launches")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -403,6 +430,8 @@ def main():
                             "flash_bwd_fused") else {}),
             **(_quant_split_sums(rows) if kname in ("gemm_quant",
                                                    "grouped_quant") else {}),
+            **(_decode_sums(rows, [r for r in results if r["kernel"] == kname])
+               if kname in DECODE_KERNELS else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -480,6 +509,18 @@ def _flash_sums(rows, all_rows):
             "device_library_ms": sum(r["device_library_ms"] for r in rows),
             "flash_routes": {r["case"]: r["route"] for r in all_rows}}
 
+
+def _decode_sums(rows, all_rows):
+    """A paged decode kernel's main-path device times, warm and L2-cold
+    (CUDA graphs), beside SDPA's over the gathered pages, and the route
+    every case took (``decode_routes``, off-path cases too)."""
+    out = {key: sum(r[key] for r in rows) for key in
+           ("device_ms", "cold_ms", "device_library_ms", "cold_library_ms")}
+    out["decode_routes"] = {r["case"]: r["route"] for r in all_rows}
+    return out
+
+
+DECODE_KERNELS = ("flash_decode", "flash_decode_int8")
 
 KERNELS = {
     "gemm_fused": ("src/repro_torch/kernels/gemm/csrc/gemm.cu",
@@ -1095,6 +1136,7 @@ def run_decode_case(torch, case, gen):
     from repro_torch.core import DecodeTileSchedule
     from repro_torch.kernels.flash_attention.kernel import (
         FlashDecode, flash_decode, flash_decode_plain)
+    from repro_torch.kernels.flash_attention import kernel as fk
     label, lengths, dname, main_path = case
     dt = getattr(torch, dname)
     S, P, B, h, hkv, hd = (CONT_SLOTS, CONT_PAGE, CONT_BLOCKS, 16, 8, 128)
@@ -1113,7 +1155,9 @@ def run_decode_case(torch, case, gen):
     exe = FlashDecode(DecodeTileSchedule(num_seqs=S, pages=CONT_PAGES,
                                          page_size=P, max_blocks=B), "cuda")
     exe.update(bt, lens)
+    before = dict(fk.DECODE_ROUTES)
     got = flash_decode(exe, q, k, v)
+    route = _route_taken(fk.DECODE_ROUTES, before)
     want = flash_decode_plain(exe, q, k, v)
     torch.cuda.synchronize()
     max_abs, rel, nbad, tol = compare(torch, got, want, dname)
@@ -1126,6 +1170,9 @@ def run_decode_case(torch, case, gen):
               .repeat_interleave(h // hkv, dim=1).contiguous() for t in (k, v))
     mask = (span[None, :] < lens[:, None].long())[:, None, None, :]
     q4 = q[:, :, None, :]
+
+    def kern():
+        return flash_decode(exe, q, k, v)
 
     def library():
         return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
@@ -1142,16 +1189,26 @@ def run_decode_case(torch, case, gen):
                main_path=main_path, shape=[S, h, hkv, hd, P],
                lengths=list(lengths), dtype=dname, max_abs_err=max_abs,
                max_rel_err=rel, tolerance=tol, mismatches=nbad,
-               ms=time_ms(torch, lambda: flash_decode(exe, q, k, v), 50),
+               differ_frac=(got != want).float().mean().item(), route=route,
+               ms=time_ms(torch, kern, 50),
                plain_ms=time_ms(torch, lambda: flash_decode_plain(
                    exe, q, k, v), 2),
-               library_ms=time_ms(torch, library, 50), op_ms=op_ms,
+               library_ms=time_ms(torch, library, 50),
+               **_device_and_cold(torch, kern, library), op_ms=op_ms,
                byte_ms=byte_ms, bound_ms=max(op_ms, byte_ms),
                bound_by="bytes" if byte_ms >= op_ms else "operations")
     emit(**row)
     if nbad:
         fail(f"flash_decode {label}: {nbad} elements outside atol=rtol={tol}")
+    _check_decode_route("flash_decode", label, route, dname)
     return [row]
+
+
+def _check_decode_route(kname, label, route, dname):
+    """bf16 decode rows run route A (the main path's), fp32 rows B."""
+    want = "A" if dname == "bfloat16" else "B"
+    if route != want:
+        fail(f"{kname} {label}: route {route}, expected {want}")
 
 
 def ssd_cases():
@@ -1867,7 +1924,8 @@ def run_gemm_quant_case(torch, case, gen):
 
 
 def _route_taken(routes, before):
-    """The one route a single launch added to a ``QUANT_ROUTES`` count."""
+    """The one route a single launch added to a route count
+    (``QUANT_ROUTES``, ``DECODE_ROUTES``)."""
     taken = [r for r in routes if routes[r] != before[r]]
     if len(taken) != 1:
         fail(f"expected one counted route, got {taken}")
@@ -1896,6 +1954,7 @@ def run_decode_int8_case(torch, gen):
     from repro_torch.core import DecodeTileSchedule
     from repro_torch.kernels.flash_attention.kernel import (
         FlashDecode, flash_decode, flash_decode_plain)
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models.attention import quantize_kv_rows
     S, P, B, h, hkv, hd = (CONT_SLOTS, CONT_PAGE, CONT_BLOCKS, 16, 8, 128)
     lengths = (0, 1, 16, 17, 300, 255, 100, 33)
@@ -1922,7 +1981,10 @@ def run_decode_int8_case(torch, gen):
     def plain():
         return flash_decode_plain(exe, q, kq, vq, ks, vs)
 
-    got, want = kern(), plain()
+    before = dict(fk.DECODE_ROUTES)
+    got = kern()
+    route = _route_taken(fk.DECODE_ROUTES, before)
+    want = plain()
     torch.cuda.synchronize()
     max_abs, rel, nbad, tol = compare(torch, got, want, "bfloat16")
     if got[0].abs().max().item() != 0:
@@ -1937,19 +1999,26 @@ def run_decode_int8_case(torch, gen):
     live_pages = sum(-(-L // P) for L in lengths)
     nbytes = (2 * sum(lengths) * (hkv * hd + 4) + 2 * 2 * S * h * hd
               + 4 * (live_pages + S))
+
+    def library():
+        return F.scaled_dot_product_attention(q4, gk, gv, attn_mask=mask)
+
     row = dict(phase="kernel", kernel="flash_decode_int8", case="serve_ragged",
                main_path=True, shape=[S, h, hkv, hd, P], lengths=list(lengths),
                dtype="bfloat16", kv_dtype="int8", max_abs_err=max_abs,
                max_rel_err=rel, tolerance=tol, mismatches=nbad,
+               differ_frac=(got != want).float().mean().item(), route=route,
                ms=time_ms(torch, kern, 50), plain_ms=time_ms(torch, plain, 2),
-               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                   q4, gk, gv, attn_mask=mask), 50),
+               library_ms=time_ms(torch, library, 50),
+               **_device_and_cold(torch, kern, library),
                library="SDPA over the gathered pages, dequantized outside "
                        "the timed region",
                **bound(nbytes, 4 * h * hd * sum(lengths), "bfloat16"))
     emit(**row)
     if nbad:
         fail(f"flash_decode_int8: {nbad} elements outside atol=rtol={tol}")
+    _check_decode_route("flash_decode_int8", "serve_ragged", route,
+                        "bfloat16")
     return [row]
 
 
@@ -2121,6 +2190,8 @@ def _read_counts():
                      for r, n in gk.QUANT_ROUTES.items()})
     launches.update({f"grouped_quant_route_{r}": n
                      for r, n in grk.QUANT_ROUTES.items()})
+    launches.update({f"decode_route_{r}": n
+                     for r, n in fk.DECODE_ROUTES.items()})
     return {**launches,
             "engine_transpose_launches": st.get("transpose", {})
             .get("launches", 0),

@@ -17,7 +17,10 @@ kernels accept rather than from a scratchpad size:
   * the paged decode kernel takes pages of up to ``decode_max_page``
     slots, head dims up to ``decode_max_head_dim`` and GQA groups of up to
     ``decode_max_group`` query heads per KV head (the constants of
-    ``csrc/flash_decode.cu``);
+    ``csrc/flash_decode.cu``); its route A (the cluster-split walk on TMA
+    page loads) takes bf16 q with pages of up to ``decode_a_max_page``
+    rows (a multiple of 4), GQA groups of up to ``decode_a_max_group`` and
+    the head dims ``decode_a_head_dims``, and route B the rest;
   * the SSD chunked-scan kernels take chunks of up to ``ssd_max_q`` rows,
     states of up to ``ssd_max_state`` and head dims of up to
     ``ssd_max_head_dim`` (the constants of ``csrc/ssd_scan.cu`` and
@@ -121,6 +124,10 @@ class MachineModel:
     decode_max_page: Optional[int] = None
     decode_max_head_dim: Optional[int] = None
     decode_max_group: Optional[int] = None
+    # The decode kernel's route A limits; None: no route A.
+    decode_a_max_page: Optional[int] = None
+    decode_a_max_group: Optional[int] = None
+    decode_a_head_dims: Optional[Tuple[int, ...]] = None
     # SSD chunked-scan kernel limits (chunk, state, head dim); None: legality
     # is the VMEM fit of a kernel that stages whole chunk cells.
     ssd_max_q: Optional[int] = None
@@ -193,6 +200,9 @@ H100_SXM = MachineModel(
     decode_max_page=64,
     decode_max_head_dim=128,
     decode_max_group=64,
+    decode_a_max_page=64,
+    decode_a_max_group=8,
+    decode_a_head_dims=(64, 128),
     ssd_max_q=256,
     ssd_max_state=128,
     ssd_max_head_dim=64,

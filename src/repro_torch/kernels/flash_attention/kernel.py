@@ -12,13 +12,17 @@ torch version.
   * :func:`flash_bwd_fused` -- one launch producing fp32 dQ, dK and dV
     over the same table, one thread block per (k-block, batch-head) (the
     counterpart of ``build_fused_flash_bwd_kernel``);
-  * :func:`flash_decode` -- one paged decode step over a KV pool, one
-    thread block per (slot, KV head) walking that slot's rows of the
-    runtime :class:`~repro_torch.core.schedule.DecodeTileSchedule` table
-    (the counterpart of ``build_decode_flash_kernel``); with int8 pools
-    and their per-token ``(pages, page_size)`` f32 scales it is the same
+  * :func:`flash_decode` -- one paged decode step over a KV pool, walking
+    each slot's rows of the runtime
+    :class:`~repro_torch.core.schedule.DecodeTileSchedule` table (the
+    counterpart of ``build_decode_flash_kernel``); with int8 pools and
+    their per-token ``(pages, page_size)`` f32 scales it is the same
     kernel's KV-int8 branch (``kv_quant=True``), counted apart as
-    ``flash_decode_int8``.
+    ``flash_decode_int8``.  Each call adds one to the route it took in
+    :data:`DECODE_ROUTES` (:func:`choose_decode_route`): "A" (bf16 q: a
+    cluster of :func:`decode_cluster` blocks a (slot, KV head), each
+    walking its :func:`decode_chunk` of the slot's rows with TMA page
+    loads) or "B" (one block a (slot, KV head) walking all of them).
 
 Operands are ``(BH, s, d)``, or for decode ``q (S, h, hd)`` against
 ``(pages, page_size, hkv, hd)`` pools.  A wrapper runs its plain version only for
@@ -35,9 +39,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.machine import H100_SXM
 from repro_torch.core.schedule import (DecodeTileSchedule, FlashTileSchedule,
                                        ceil_div, pack_table)
 from repro_torch.kernels import _build, disable_tf32
+from repro_torch.kernels.gemm.kernel import sm_count
 
 NEG_INF = -1e30
 
@@ -52,6 +58,11 @@ LAUNCHES = {"flash_fwd_fused": 0, "flash_fwd_dense": 0, "flash_bwd_fused": 0,
             "flash_decode": 0, "flash_decode_int8": 0}
 ROUTES = {"A": 0, "C": 0, "fp32": 0}
 BWD_ROUTES = {"A": 0, "C": 0, "fp32": 0}
+DECODE_ROUTES = {"A": 0, "B": 0}
+# flash_decode.cu's ROUTE_A / ROUTE_B, and its MAX_CLUSTER (the portable
+# thread-block cluster size).
+_DECODE_ROUTE_CODE = {"A": 0, "B": 1}
+DECODE_MAX_CLUSTER = 8
 # flash_fwd.cu's and flash_bwd.cu's ROUTE_A / ROUTE_C; fp32 ignores the code.
 _ROUTE_CODE = {"A": 0, "C": 1, "fp32": 1}
 
@@ -93,6 +104,45 @@ def choose_route(dtype, d: int, ptrs=(0, 0, 0)) -> str:
 def _route(qf, *operands) -> str:
     return choose_route(qf.dtype, qf.shape[2],
                         tuple(t.data_ptr() for t in (qf, *operands)))
+
+
+def choose_decode_route(q_dtype, pool_dtype, group: int, page_size: int,
+                        head_dim: int, ptrs=()) -> str:
+    """The route of one :func:`flash_decode` call: "A" for bf16 q over bf16
+    or int8 pools within ``H100_SXM``'s route-A limits -- a GQA group of at
+    most ``decode_a_max_group``, pages of at most ``decode_a_max_page``
+    rows and a multiple of 4 (the int8 scales' 16-byte bulk copies), a head
+    dim in ``decode_a_head_dims`` (so every row stride of the pools' tensor
+    maps, a multiple of ``head_dim`` bytes, is a multiple of 16) -- with
+    every base in ``ptrs`` 16-byte aligned; else "B"."""
+    m = H100_SXM
+    if (q_dtype == torch.bfloat16
+            and pool_dtype in (torch.bfloat16, torch.int8)
+            and group <= m.decode_a_max_group
+            and page_size <= m.decode_a_max_page and page_size % 4 == 0
+            and head_dim in m.decode_a_head_dims
+            and not any(p % 16 for p in ptrs)):
+        return "A"
+    return "B"
+
+
+def decode_cluster(num_seqs: int, num_kv_heads: int, max_blocks: int,
+                   sms: int) -> int:
+    """Blocks of one (slot, KV head) on route A, a thread-block cluster:
+    enough to bring the ``num_seqs * num_kv_heads`` (slot, KV head) pairs
+    up to the card's ``sms``, at most :data:`DECODE_MAX_CLUSTER` and at
+    most ``max_blocks`` (a slot walks at most that many rows)."""
+    return max(1, min(DECODE_MAX_CLUSTER, max_blocks,
+                      sms // (num_seqs * num_kv_heads)))
+
+
+def decode_chunk(start: int, end: int, clusters: int, rank: int):
+    """Rows ``[lo, hi)`` of a slot's ``[start, end)`` that rank ``rank``
+    of a ``clusters``-block cluster walks on route A (flash_decode.cu's
+    rule): contiguous, in rank order, sizes differing by at most one; a
+    rank may get none."""
+    n = end - start
+    return start + rank * n // clusters, start + (rank + 1) * n // clusters
 
 
 class FusedFlash:
@@ -161,7 +211,7 @@ def _lib(name: str):
             lib.flash_bwd_fused.argtypes = [P] * 12 + [I] * 8 + [Fl, I, I, P]
             lib.flash_bwd_fused.restype = I
         else:
-            lib.flash_decode.argtypes = [P] * 8 + [I] * 5 + [Fl, I, P]
+            lib.flash_decode.argtypes = [P] * 8 + [I] * 8 + [Fl, I, I, P]
             lib.flash_decode.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
@@ -344,15 +394,24 @@ def flash_decode(exe: FlashDecode, q, k_pool, v_pool, k_scale=None,
     if not q.is_cuda:
         return flash_decode_plain(exe, q, k_pool, v_pool, k_scale, v_scale)
     S, h, hd = q.shape
+    pages, P, hkv = k_pool.shape[:3]
+    max_blocks = exe.schedule.max_blocks
     out = torch.empty_like(q)
+    route = choose_decode_route(
+        q.dtype, k_pool.dtype, h // hkv, P, hd,
+        tuple(t.data_ptr() for t in (q, k_pool, v_pool, out, k_scale,
+                                     v_scale) if t is not None))
+    clusters = decode_cluster(S, hkv, max_blocks, sm_count(q.device)) \
+        if route == "A" else 1
     status = _lib("flash_decode").flash_decode(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(out), _build.ptr(exe.table), _build.ptr(exe.bstart),
-        _build.ptr(k_scale), _build.ptr(v_scale), S, h, k_pool.shape[2], hd,
-        k_pool.shape[1], hd ** -0.5, _DTYPE_CODE[q.dtype],
-        _build.stream_ptr(q))
+        _build.ptr(k_scale), _build.ptr(v_scale), S, h, hkv, hd, P, pages,
+        max_blocks, clusters, hd ** -0.5, _DTYPE_CODE[q.dtype],
+        _DECODE_ROUTE_CODE[route], _build.stream_ptr(q))
     name = "flash_decode" if k_scale is None else "flash_decode_int8"
     LAUNCHES[name] += 1
+    DECODE_ROUTES[route] += 1
     _build.check(status, name)
     return out
 
@@ -538,6 +597,6 @@ def flash_decode_plain(exe: FlashDecode, q, k_pool, v_pool, k_scale=None,
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES, BWD_ROUTES):
+    for counts in (LAUNCHES, ROUTES, BWD_ROUTES, DECODE_ROUTES):
         for name in counts:
             counts[name] = 0

@@ -292,8 +292,9 @@ def test_flash_bwd_shared_memory_fits_h100_at_the_limits():
 
 
 def test_flash_decode_limits_match_kernel_py_and_machine():
-    """The decode kernel's limits live in the .cu and in H100_SXM, which
-    ``plan_flash_decode`` checks; kernel.py restates none of them."""
+    """The decode kernel's limits (route B's, which take every legal pool
+    geometry) live in the .cu and in H100_SXM, which ``plan_flash_decode``
+    checks; kernel.py restates none of them."""
     assert _constexpr(FLASH_DECODE_CU, "PAGE_MAX") == H100_SXM.decode_max_page
     assert _constexpr(FLASH_DECODE_CU, "D_MAX") == H100_SXM.decode_max_head_dim
     assert _constexpr(FLASH_DECODE_CU, "GROUP_MAX") == H100_SXM.decode_max_group
@@ -301,7 +302,7 @@ def test_flash_decode_limits_match_kernel_py_and_machine():
 
 
 def test_flash_decode_shared_memory_fits_h100_at_the_limits():
-    """The decode kernel stages the group's q rows and accumulator, one
+    """Route B stages the group's q rows and accumulator, one
     page of k (rows padded by one) and v, the scores (rows padded by one),
     three per-head vectors and the page's K and V scales (KV-int8 pools),
     all fp32 (``smem_bytes`` in the .cu)."""
@@ -313,6 +314,85 @@ def test_flash_decode_shared_memory_fits_h100_at_the_limits():
     assert re.search(r"2 \* \(size_t\)rep \* d \+ \(size_t\)page \* \(d \+ 1\)",
                      FLASH_DECODE_CU)
     assert 4 * floats <= H100_SXM.vmem_bytes
+
+
+def _decode_a_int(name):
+    """An int constexpr of flash_decode.cu (a product ``a * b`` too)."""
+    m = re.search(rf"constexpr int {name} = (\d+)(?: \* (\d+))?;",
+                  FLASH_DECODE_CU)
+    return int(m.group(1)) * int(m.group(2) or 1)
+
+
+def test_flash_decode_route_a_limits_match_kernel_py_and_machine():
+    """Route A's limits live in the .cu and in H100_SXM, which
+    ``choose_decode_route`` reads; its cluster cap, route codes and chunk
+    rule are kernel.py's."""
+    assert _decode_a_int("A_GROUP_MAX") == H100_SXM.decode_a_max_group
+    assert _decode_a_int("A_PAGE_MAX") == H100_SXM.decode_a_max_page
+    dims = re.search(r"constexpr bool head_dim_a\(int hd\) \{\s*return ([^;]+);",
+                     FLASH_DECODE_CU).group(1)
+    assert tuple(int(d) for d in re.findall(r"hd == (\d+)", dims)) == \
+        H100_SXM.decode_a_head_dims
+    assert _decode_a_int("MAX_CLUSTER") == flash_kernel.DECODE_MAX_CLUSTER
+    assert _decode_a_int("A_SMEM_LIMIT") == H100_SXM.vmem_bytes
+    assert {"A": _decode_a_int("ROUTE_A"), "B": _decode_a_int("ROUTE_B")} \
+        == flash_kernel._DECODE_ROUTE_CODE
+    # decode_chunk's rule, and the 16-byte scale copies behind P % 4 == 0.
+    assert "const int lo = start + rank * n / C;" in FLASH_DECODE_CU
+    assert "const int cnt = start + (rank + 1) * n / C - lo;" in \
+        FLASH_DECODE_CU
+    assert "page_size % 4 != 0" in FLASH_DECODE_CU
+    assert flash_kernel.decode_chunk(5, 12, 3, 1) == (5 + 7 // 3,
+                                                     5 + 2 * 7 // 3)
+
+
+def _layout_a(ring, rep, page, hd, isz, warps):
+    """flash_decode.cu's LayoutA total, in bytes (plus the 128-byte
+    alignment slack of the launch)."""
+    def up(x, a):
+        return (x + a - 1) // a * a
+    slot = up(page * hd * isz, 128)
+    floats = (2 * ring * page + ring * rep * page + ring * rep
+              + warps * rep * (hd + 1) + 3 * rep + rep * (hd + 1))
+    return up(2 * ring * slot + 4 * floats + 4 * ring, 8) + 16 * ring + 128
+
+
+def _ring_pages(page, hd, isz, max_blocks, cluster):
+    slot = -(-page * hd * isz // 128) * 128
+    return max(1, min(_decode_a_int("A_RING_MAX"),
+                      _decode_a_int("A_RING_BYTES") // (2 * slot),
+                      -(-max_blocks // cluster)))
+
+
+def test_flash_decode_route_a_shared_memory_fits_h100_at_the_limits():
+    """Route A stages a ring of K and V pages (at most A_RING_BYTES of
+    them, at most A_RING_MAX pages), their scales, the round's scores and
+    page maxima, the warps' partial acc and l, the maxima, the block's acc
+    and l, the ring's k_len and two mbarriers a slot: within the H100's
+    227 KB at every route-A group, page size and head dim, for either pool
+    type, with the most pages a ring takes."""
+    for text in ("page = align_up(P * hd * isz, 128);",
+                 "pm = sc + ring * rep * P * 4;",
+                 "stat = wred + warps * rep * (hd + 1) * 4;",
+                 "bar = align_up(klen + ring * 4, 8);",
+                 "total = bar + 2 * ring * 8;",
+                 "const size_t smem = (size_t)lay.total + 128;",
+                 "return group <= 2 ? 16 : 8;"):
+        assert text in FLASH_DECODE_CU, text
+    worst = 0
+    for hd in H100_SXM.decode_a_head_dims:
+        for isz in (1, 2):
+            for page in range(4, H100_SXM.decode_a_max_page + 1, 4):
+                ring = _ring_pages(page, hd, isz, 10 ** 6, 1)
+                for rep in range(1, H100_SXM.decode_a_max_group + 1):
+                    warps = 16 if rep <= 2 else 8
+                    worst = max(worst, _layout_a(ring, rep, page, hd, isz,
+                                                 warps))
+    assert worst <= H100_SXM.vmem_bytes, worst
+    # The serving shape: a 12-page ring (24 blocks over a cluster of 2),
+    # 119,408 bytes: one block an SM, 128 blocks on the card's 132 SMs.
+    assert _ring_pages(16, 128, 2, 24, 2) == 12
+    assert _layout_a(12, 2, 16, 128, 2, 16) == 119408
 
 
 def test_ssd_limits_match_kernel_py_and_machine():
