@@ -41,7 +41,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 fp32 row off B failing, with its device time warm and after
                 an L2 flush beside SDPA's over the gathered pages, and the
                 share of elements not bit-equal to the plain version),
-                the SSD scan, its backward and the intra-chunk ladder, and
+                the SSD scan, its backward (each row naming its route, a
+                main-path row off route A failing, two runs bit-equal, with
+                its device time beside the composition's autograd
+                backward's; every SSD bound prices fp32 operands as bf16
+                hi + lo tensor-core products, the earlier fp32 CUDA-core
+                figure beside it) and the intra-chunk ladder, and
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
                 decode) and on ragged cases with an empty expert, whose dW
@@ -147,13 +152,19 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 every phase: a decode call of continuous or
                 continuous_quant off route A (the cluster-split walk on
                 TMA page loads) fails;
+     ssd_routes -- the routes of ssd_scan_bwd in every phase: a train_ssm
+                backward off route A (a cluster of blocks a group, wgmma
+                products) fails, and so does a run whose kernel rows never
+                took route B;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
                 times and every case's route, ``flash_routes``, the
                 quantized GEMMs' with their prefill and decode sums apart,
                 the paged decode kernels' with their device times, warm and
-                L2-cold, and every case's route),
+                L2-cold, and every case's route, the SSD kernels' with their
+                fp32 CUDA-core operation time, the backward's also with its
+                device times and every case's route, ``ssd_routes``),
                 then the
                 card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
@@ -395,6 +406,23 @@ def main():
         if decode_routes[p]["A"] != by_path[p][kname]:
             fail(f"{p}: {decode_routes[p]['A']} route-A decode calls, "
                  f"{by_path[p][kname]} {kname} launches")
+    # Every SSD backward of the training path is bf16 C/B with fp32 L and
+    # xdt within route A's limits: route A (a cluster of blocks a group,
+    # wgmma products).  Route B must have run off the path.  (A main-path
+    # kernel row off route A has failed in its case already.)
+    ssd_routes = {p: {r: c.get(f"ssd_bwd_route_{r}", 0) for r in ("A", "B")}
+                  for p, c in by_path.items()}
+    ssd_rows = {r["case"]: r["route"] for r in results
+                if r["kernel"] == "ssd_scan_bwd"}
+    emit(phase="ssd_routes", by_path=ssd_routes, kernel_rows=ssd_rows)
+    off_a = {p: r for p, r in ssd_routes.items() if r["B"]}
+    if off_a:
+        fail(f"main-path SSD backwards left route A: {off_a}")
+    if ssd_routes["train_ssm"]["A"] != by_path["train_ssm"]["ssd_scan_bwd"]:
+        fail(f"train_ssm: {ssd_routes['train_ssm']['A']} route-A SSD "
+             f"backwards, {by_path['train_ssm']['ssd_scan_bwd']} launches")
+    if "B" not in ssd_rows.values():
+        fail(f"no SSD backward row ran route B: {ssd_rows}")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -432,6 +460,8 @@ def main():
                                                    "grouped_quant") else {}),
             **(_decode_sums(rows, [r for r in results if r["kernel"] == kname])
                if kname in DECODE_KERNELS else {}),
+            **(_ssd_sums(rows, [r for r in results if r["kernel"] == kname])
+               if kname.startswith("ssd_") else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -517,6 +547,20 @@ def _decode_sums(rows, all_rows):
     out = {key: sum(r[key] for r in rows) for key in
            ("device_ms", "cold_ms", "device_library_ms", "cold_library_ms")}
     out["decode_routes"] = {r["case"]: r["route"] for r in all_rows}
+    return out
+
+
+def _ssd_sums(rows, all_rows):
+    """An SSD kernel's main-path operation time at the fp32 CUDA-core rate
+    (the earlier bound); for the backward also its device time (CUDA
+    graphs) beside the composition's autograd backward, and the route
+    every case took (``ssd_routes``, off-path cases too)."""
+    out = {"fp32_op_ms": sum(r["fp32_op_ms"] for r in rows)}
+    if all("route" in r for r in all_rows):
+        out.update(device_ms=sum(r["device_ms"] for r in rows),
+                   device_library_ms=sum(r["device_library_ms"]
+                                         for r in rows),
+                   ssd_routes={r["case"]: r["route"] for r in all_rows})
     return out
 
 
@@ -1271,45 +1315,57 @@ def _ssd_composition(torch, c, b, l, x, di, do, s0):
 
 
 def _ssd_bound(kind, shape, dtypes, states=False):
-    """(byte_ms, op_ms) of one call: each input read once and each output
-    written once at its dtype; each product's flops at the peak of its
-    operands' type (bf16 when both are bf16, else fp32)."""
+    """(byte_ms, op_ms, fp32_op_ms) of one call: each input read once and
+    each output written once at its dtype.  ``op_ms`` prices every product
+    on the tensor cores at the bf16 peak, a product with one fp32 operand
+    as two bf16 products (hi and lo) and with two as three, the least the
+    card needs at the kernels' fp32 tolerance; ``fp32_op_ms`` is the
+    earlier rule, a product with an fp32 operand at the fp32 CUDA-core
+    peak."""
     g, nc, q, n, p = shape
     cells = g * nc
     isz = {"bfloat16": 2, "float32": 4}
     ci, li, xi = (isz[d] for d in dtypes)
     cb, xb = dtypes[0] == "bfloat16", dtypes[2] == "bfloat16"
 
-    def ops_ms(*terms):  # (flops, both operands bf16)
-        return sum(f / peak("bfloat16" if bf else "float32")
-                   for f, bf in terms) * 1e3
+    def ops_ms(*terms):  # (flops, first operand bf16, second operand bf16)
+        tc = sum(f * (3 - a - b) for f, a, b in terms) / peak("bfloat16")
+        old = sum(f / peak("bfloat16" if a and b else "float32")
+                  for f, a, b in terms)
+        return tc * 1e3, old * 1e3
 
+    qqn, qqp, qnp = cells * 2 * q * q * n, cells * 2 * q * q * p, \
+        cells * 2 * q * n * p
     cell_in = 2 * q * n * ci + q * q * li + q * p * xi
     if kind == "diag":
         nbytes = cells * (cell_in + q * p * xi)
-        op = ops_ms((cells * 2 * q * q * n, cb), (cells * 2 * q * q * p, xb))
+        op = ops_ms((qqn, cb, cb), (qqp, xb, xb))
     elif kind == "scan":
         nbytes = cells * (cell_in + 2 * q * 4 + q * p * xi) \
             + 2 * g * p * n * 4 + (cells * p * n * 4 if states else 0)
-        op = ops_ms((cells * 2 * q * q * n, cb), (cells * 2 * q * q * p, xb),
-                    (cells * 2 * q * n * p, False),       # C · Sᵀ
-                    (cells * 2 * q * n * p, cb and xb))   # xwᵀ · B
+        op = ops_ms((qqn, cb, cb), (qqp, xb, xb),  # C·Bᵀ, W (xdt's dtype)·xdt
+                    (qnp, cb, False),              # C·Sᵀ
+                    (qnp, xb, cb))                 # xwᵀ·B
     else:  # bwd: operands, states, fp32 dY / dSf in; fp32 cotangents out
         nbytes = cells * (cell_in + 2 * q * 4 + p * n * 4 + q * p * 4) \
             + g * p * n * 4 \
             + cells * (2 * q * n + q * q + q * p + 2 * q) * 4 + g * p * n * 4
-        # the recomputed scores C·Bᵀ at C/B's type; dscores·B, dscoresᵀ·C,
-        # dW, Wᵀ·dY and the state terms each have an fp32 operand
-        op = ops_ms((cells * 2 * q * q * n, cb),
-                    (cells * (2 * q * q * (2 * n + 2 * p) + 10 * q * n * p),
-                     False))
-    return nbytes / hbm() * 1e3, op
+        # widened as the reference's backward: the scores C·Bᵀ at C/B's
+        # type; dscores·B, dscoresᵀ·C, dW = dY·xdtᵀ and wᵀ·dY; the state
+        # terms B·dSᵀ, (xdt ⊙ do)·dS, C·S_inᵀ, (dY ⊙ di)·S_in and the
+        # increment (dY ⊙ di)ᵀ·C
+        op = ops_ms((qqn, cb, cb), (qqn, False, cb), (qqn, False, cb),
+                    (qqp, False, xb), (qqp, False, False),
+                    (qnp, cb, False), (qnp, False, False), (qnp, cb, False),
+                    (qnp, False, False), (qnp, False, cb))
+    return (nbytes / hbm() * 1e3, *op)
 
 
 def run_ssd_case(torch, case, gen):
     """ssd_scan_fused (with the entering states at the training shape),
     ssd_chunk_diag on the flattened cells and ssd_scan_bwd against their
     plain versions; the library is the torch backend's composition."""
+    from repro_torch.kernels.ssd_chunk import kernel as sk
     from repro_torch.kernels.ssd_chunk.kernel import (
         ssd_chunk_diag, ssd_chunk_diag_plain, ssd_scan_bwd, ssd_scan_bwd_plain,
         ssd_scan_fused, ssd_scan_fused_plain)
@@ -1319,8 +1375,9 @@ def run_ssd_case(torch, case, gen):
     train = label.startswith("train")
     rows = []
 
-    def row(kname, kind, errs, tol, kern, plain, library, states=False):
-        byte_ms, op_ms = _ssd_bound(kind, shape, dtypes, states)
+    def row(kname, kind, errs, tol, kern, plain, library, states=False,
+            **extra):
+        byte_ms, op_ms, fp32_op_ms = _ssd_bound(kind, shape, dtypes, states)
         r = dict(phase="kernel", kernel=kname, case=label, main_path=main_path,
                  shape=list(shape), dtypes=list(dtypes),
                  max_abs_err=max(e[0] for e in errs.values()),
@@ -1329,8 +1386,10 @@ def run_ssd_case(torch, case, gen):
                  mismatches=sum(e[2] for e in errs.values()),
                  ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2),
                  library_ms=time_ms(torch, library, 5), op_ms=op_ms,
-                 byte_ms=byte_ms, bound_ms=max(op_ms, byte_ms),
-                 bound_by="bytes" if byte_ms >= op_ms else "operations")
+                 fp32_op_ms=fp32_op_ms, byte_ms=byte_ms,
+                 bound_ms=max(op_ms, byte_ms),
+                 bound_by="bytes" if byte_ms >= op_ms else "operations",
+                 **extra)
         emit(**r)
         if r["mismatches"]:
             fail(f"{kname} {label}: {r['mismatches']} elements outside "
@@ -1367,18 +1426,45 @@ def run_ssd_case(torch, case, gen):
     if train or not main_path:
         dy = torch.randn(x.shape, generator=gen, device="cuda")
         dsf = torch.randn(s0.shape, generator=gen, device="cuda")
-        got = ssd_scan_bwd(*ops[:6], st, dy, dsf)
+
+        def bwd():
+            return ssd_scan_bwd(*ops[:6], st, dy, dsf)
+
+        # One launch, on the route choose_bwd_route names (route A on the
+        # main path); a second gives the same bits (no atomics).
+        before = dict(sk.SSD_BWD_ROUTES)
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        took = [r for r, n in sk.SSD_BWD_ROUTES.items() if n != before[r]]
+        route = took[0] if len(took) == 1 else str(took)
+        if main_path and route != "A":
+            fail(f"ssd_scan_bwd {label}: route {route}, expected A")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"ssd_scan_bwd {label}: two runs differ")
         want = ssd_scan_bwd_plain(*ops[:6], st, dy, dsf)
         torch.cuda.synchronize()
         names = ("dc", "db", "dl", "dx", "ddi", "ddo", "ds0")
         leaves = [t.detach().requires_grad_(True) for t in ops]
         outs = _ssd_composition(torch, *leaves)
+        # For its device time, the composition's forward runs on a stream
+        # of its own, from leaves first used there, and the graph captures
+        # the autograd backward alone on that stream.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            side_leaves = [t.detach().requires_grad_(True) for t in ops]
+            side_outs = _ssd_composition(torch, *side_leaves)
+        torch.cuda.current_stream().wait_stream(side)
         row("ssd_scan_bwd", "bwd",
             {k: errors(a, w, BWD_TOL) for k, a, w in zip(names, got, want)},
-            BWD_TOL, lambda: ssd_scan_bwd(*ops[:6], st, dy, dsf),
-            lambda: ssd_scan_bwd_plain(*ops[:6], st, dy, dsf),
+            BWD_TOL, bwd, lambda: ssd_scan_bwd_plain(*ops[:6], st, dy, dsf),
             lambda: torch.autograd.grad(outs, leaves, (dy.to(x.dtype), dsf),
-                                        retain_graph=True))
+                                        retain_graph=True),
+            route=route, device_ms=graph_ms(torch, bwd, iters=5),
+            device_library_ms=graph_ms(
+                torch, lambda: torch.autograd.grad(
+                    side_outs, side_leaves, (dy.to(x.dtype), dsf),
+                    retain_graph=True), iters=5, stream=side))
     return rows
 
 
@@ -2180,7 +2266,7 @@ def _read_counts():
     launches = {}
     for mod in _kernel_modules():
         launches.update(mod.LAUNCHES)
-    gk, fk, _, grk, _ = _kernel_modules()
+    gk, fk, sk, grk, _ = _kernel_modules()
     launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
     launches.update({f"grouped_route_{r}": n for r, n in grk.ROUTES.items()})
     launches.update({f"flash_route_{r}": n for r, n in fk.ROUTES.items()})
@@ -2192,6 +2278,8 @@ def _read_counts():
                      for r, n in grk.QUANT_ROUTES.items()})
     launches.update({f"decode_route_{r}": n
                      for r, n in fk.DECODE_ROUTES.items()})
+    launches.update({f"ssd_bwd_route_{r}": n
+                     for r, n in sk.SSD_BWD_ROUTES.items()})
     return {**launches,
             "engine_transpose_launches": st.get("transpose", {})
             .get("launches", 0),

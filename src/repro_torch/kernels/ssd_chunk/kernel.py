@@ -8,7 +8,12 @@ and ``csrc/ssd_scan_bwd.cu``), each beside its plain torch version.
   * :func:`ssd_chunk_diag` -- the intra-chunk ladder alone over flat
     groups (the counterpart of ``build_ssd_chunk_kernel``);
   * :func:`ssd_scan_bwd` -- the reverse walk producing all seven fp32
-    cotangents (the counterpart of ``build_ssd_scan_bwd_kernel``).
+    cotangents (the counterpart of ``build_ssd_scan_bwd_kernel``).  Each
+    call adds one to the route it took in :data:`SSD_BWD_ROUTES`
+    (:func:`choose_bwd_route`): "A" (bf16 C/B with fp32 L and xdt within
+    ``H100_SXM``'s route-A limits: a cluster of :func:`bwd_cluster` blocks
+    a group, each rank its :func:`bwd_chunks`, every product on
+    ``wgmma``) or "B" (one block a group, CUDA-core FMAs).
 
 Operands: C and B ``(G, NC, Q, n)`` (or ``(G, Q, n)`` for the diag form)
 in one dtype, L ``(.., Q, Q)`` and xdt ``(.., Q, p)`` each float32 or
@@ -20,11 +25,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.machine import H100_SXM
 from repro_torch.kernels import _build, disable_tf32
 from repro_torch.kernels.ssd_chunk.ref import (ref_ssd_chunk_diag,
                                                ref_ssd_chunk_scan_bwd)
 
 LAUNCHES = {"ssd_scan_fused": 0, "ssd_chunk_diag": 0, "ssd_scan_bwd": 0}
+SSD_BWD_ROUTES = {"A": 0, "B": 0}
+# ssd_scan_bwd.cu's ROUTE_A / ROUTE_B, and its MAX_CLUSTER (the portable
+# thread-block cluster size).
+_BWD_ROUTE_CODE = {"A": 0, "B": 1}
+SSD_BWD_MAX_CLUSTER = 8
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,7 +54,7 @@ def _lib(name: str):
             lib.ssd_chunk_diag.argtypes = [P] * 5 + [I] * 7 + [P]
             lib.ssd_chunk_diag.restype = I
         else:
-            lib.ssd_scan_bwd.argtypes = [P] * 16 + [I] * 8 + [P]
+            lib.ssd_scan_bwd.argtypes = [P] * 16 + [I] * 10 + [P]
             lib.ssd_scan_bwd.restype = I
         _LIBS[name] = lib
     return _LIBS[name]
@@ -85,6 +96,35 @@ def _check(c, b, l, x, extra=()):
 
 def _codes(c, l, x):
     return _BF16[c.dtype], _BF16[l.dtype], _BF16[x.dtype]
+
+
+def choose_bwd_route(c_dtype, l_dtype, x_dtype, q: int, n: int, p: int,
+                     ptrs=()) -> str:
+    """The route of one :func:`ssd_scan_bwd` call: "A" for bf16 C and B
+    with fp32 L and xdt, a chunk of a multiple of ``ssd_bwd_a_block`` rows,
+    a state of ``ssd_bwd_a_state`` and a head dim of ``ssd_bwd_a_head_dim``
+    (``H100_SXM``), with every base in ``ptrs`` 16-byte aligned (the
+    kernel's vector loads); else "B"."""
+    m = H100_SXM
+    if (c_dtype == torch.bfloat16 and l_dtype == torch.float32
+            and x_dtype == torch.float32 and q % m.ssd_bwd_a_block == 0
+            and n == m.ssd_bwd_a_state and p == m.ssd_bwd_a_head_dim
+            and not any(t % 16 for t in ptrs)):
+        return "A"
+    return "B"
+
+
+def bwd_cluster(chunks: int) -> int:
+    """Blocks of one group on route A, a thread-block cluster: one a chunk,
+    at most :data:`SSD_BWD_MAX_CLUSTER`."""
+    return min(chunks, SSD_BWD_MAX_CLUSTER)
+
+
+def bwd_chunks(chunks: int, cluster: int, rank: int):
+    """Chunks ``[lo, hi)`` that rank ``rank`` of a group's cluster walks on
+    route A (as ``ssd_scan_bwd.cu`` splits them): contiguous runs whose
+    lengths differ by at most one, none empty."""
+    return rank * chunks // cluster, (rank + 1) * chunks // cluster
 
 
 def ssd_scan_fused(c, b, l, x, decay_in, decay_out, s0, *,
@@ -151,16 +191,20 @@ def ssd_scan_bwd(c, b, l, x, decay_in, decay_out, states, dy, dsf):
     if not c.is_cuda:
         return ssd_scan_bwd_plain(c, b, l, x, decay_in, decay_out, states,
                                   dy, dsf)
+    ins = (c, b, l, x, decay_in, decay_out, states, dy, dsf)
+    route = choose_bwd_route(c.dtype, l.dtype, x.dtype, q, n, p,
+                             tuple(t.data_ptr() for t in ins))
     f32 = dict(dtype=torch.float32, device=c.device)
     dc, db = torch.empty(c.shape, **f32), torch.empty(c.shape, **f32)
     dl, dx = torch.empty(l.shape, **f32), torch.empty(x.shape, **f32)
     ddi, ddo = torch.empty((g, nc, q), **f32), torch.empty((g, nc, q), **f32)
     ds0 = torch.empty((g, p, n), **f32)
     status = _lib("ssd_scan_bwd").ssd_scan_bwd(
-        *(_build.ptr(t) for t in (c, b, l, x, decay_in, decay_out, states, dy,
-                                  dsf, dc, db, dl, dx, ddi, ddo, ds0)),
-        g, nc, q, n, p, *_codes(c, l, x), _build.stream_ptr(c))
+        *(_build.ptr(t) for t in (*ins, dc, db, dl, dx, ddi, ddo, ds0)),
+        g, nc, q, n, p, *_codes(c, l, x), _BWD_ROUTE_CODE[route],
+        bwd_cluster(nc), _build.stream_ptr(c))
     LAUNCHES["ssd_scan_bwd"] += 1
+    SSD_BWD_ROUTES[route] += 1
     _build.check(status, "ssd_scan_bwd")
     return dc, db, dl, dx, ddi, ddo, ds0
 
@@ -213,5 +257,6 @@ def ssd_scan_bwd_plain(c, b, l, x, decay_in, decay_out, states, dy, dsf):
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SSD_BWD_ROUTES):
+        for name in counts:
+            counts[name] = 0

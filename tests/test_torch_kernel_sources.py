@@ -15,6 +15,7 @@ from repro_torch.core import H100_SXM
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
 
 KERNELS = Path(gemm_kernel.__file__).resolve().parents[1]
 # gemm.cu with the header that holds its bf16 tile (the ring's constants
@@ -434,6 +435,56 @@ def test_ssd_shared_memory_fits_h100_at_the_limits(q, n, p):
     assert 4 * bwd <= H100_SXM.vmem_bytes
     if (q, n, p) == (256, 128, 64):
         assert (4 * fwd, 4 * bwd) == (150784, 151808)
+
+
+def test_ssd_bwd_route_a_limits_match_kernel_py_and_machine():
+    """Route A's limits live in ssd_scan_bwd.cu and in H100_SXM, which
+    ``choose_bwd_route`` reads; its route codes, cluster limit and chunk
+    split are kernel.py's, and its tile routines are the new header's."""
+    m = H100_SXM
+    assert _constexpr(SSD_BWD_CU, "A_BLOCK") == m.ssd_bwd_a_block
+    assert _constexpr(SSD_BWD_CU, "A_STATE") == m.ssd_bwd_a_state
+    assert _constexpr(SSD_BWD_CU, "A_HEAD_DIM") == m.ssd_bwd_a_head_dim
+    assert _constexpr(SSD_BWD_CU, "MAX_CLUSTER") == \
+        ssd_kernel.SSD_BWD_MAX_CLUSTER
+    assert m.ssd_bwd_a_state <= m.ssd_max_state
+    assert m.ssd_bwd_a_head_dim <= m.ssd_max_head_dim
+    assert m.ssd_max_q % m.ssd_bwd_a_block == 0
+    assert "enum { ROUTE_A = 0, ROUTE_B = 1 };" in SSD_BWD_CU
+    assert ssd_kernel._BWD_ROUTE_CODE == {"A": 0, "B": 1}
+    assert ("const int lo = rank * f.chunks / C, hi = (rank + 1) * f.chunks "
+            "/ C;") in SSD_BWD_CU
+    assert ssd_kernel.bwd_chunks(9, 8, 7) == (7 * 9 // 8, 9)
+    assert '#include "ssd_sm90.cuh"' in SSD_BWD_CU
+    assert '#include "ssd_sm90.cuh"' not in SSD_SCAN_CU
+
+
+def test_ssd_bwd_route_a_shared_memory_fits_h100_at_the_limits():
+    """Route A's dynamic shared memory (``A_SMEM`` in its source): 512
+    bytes of alignment slack, the state region (a (p, n) state in three
+    split windows, room for the fp32 tile it first holds), the B_j and C_i
+    windows, the xdt_j and dY_i split windows and 64 bytes of sums.  Two
+    blocks share an SM's 228 KB, each with the 1 KB the card reserves a
+    block; a rank that walks several chunks adds its fp32 dS and still
+    fits a block's 227 KB."""
+    m = H100_SXM
+    for name, formula in (
+            ("A_STATE_WINDOW", r"A_HEAD_DIM \* A_STATE \* 2"),
+            ("A_STATE_BYTES", r"3 \* A_STATE_WINDOW"),
+            ("A_NB_BYTES", r"A_BLOCK \* A_STATE \* 2"),
+            ("A_NP_BYTES", r"2 \* A_BLOCK \* A_HEAD_DIM \* 2"),
+            ("A_SMEM", r"512 \+ A_STATE_BYTES \+ 2 \* A_NB_BYTES \+ "
+                       r"2 \* A_NP_BYTES \+ 64"),
+            ("A_CARRY_BYTES", r"A_HEAD_DIM \* A_STATE \* 4")):
+        assert re.search(rf"constexpr int {name} =\s*{formula};", SSD_BWD_CU), \
+            name
+    n, p, rows = m.ssd_bwd_a_state, m.ssd_bwd_a_head_dim, m.ssd_bwd_a_block
+    smem = 512 + 3 * p * n * 2 + 2 * rows * n * 2 + 2 * rows * p * 2 * 2 + 64
+    carry = p * n * 4
+    assert 3 * p * n * 2 >= carry  # the published fp32 tile
+    assert smem == 115264
+    assert 2 * (smem + 1024) <= 228 * 1024
+    assert smem + carry <= m.vmem_bytes
 
 
 def test_every_kernel_source_is_built():
