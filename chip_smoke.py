@@ -50,7 +50,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
                 decode) and on ragged cases with an empty expert, whose dW
-                must be exactly zero, the forwards also on cases that drive
+                must be exactly zero, the backward on its three routes
+                (each row naming its route, a main-path row off route A
+                failing, two runs bit-equal, dX rows past the groups' sum
+                exactly zero, also with NaN in x and dY there, its device
+                time beside the composition's, its bound pricing the fp32
+                cotangent as bf16 hi + lo tensor-core products, the earlier
+                fp32 CUDA-core figure beside it), the forwards also on cases that drive
                 the wgmma tile (every epilogue, every pinned (bm, bn),
                 groups of 1-65 rows, K 24 and 200, route C, NaN past the
                 groups' sum), each row naming its route (a main-path row
@@ -156,6 +162,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 backward off route A (a cluster of blocks a group, wgmma
                 products) fails, and so does a run whose kernel rows never
                 took route B;
+     grouped_bwd_routes -- the routes of grouped_bwd in every phase: a
+                train_moe backward off route A (TMA ring, wgmma, the fp32
+                cotangent split into bf16 hi + lo) fails, and so does a run
+                whose kernel rows never took route C or fp32;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
@@ -164,7 +174,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the paged decode kernels' with their device times, warm and
                 L2-cold, and every case's route, the SSD kernels' with their
                 fp32 CUDA-core operation time, the backward's also with its
-                device times and every case's route, ``ssd_routes``),
+                device times and every case's route, ``ssd_routes``; the
+                grouped backward's with its device times, its fp32
+                CUDA-core operation time and every case's route,
+                ``grouped_bwd_routes``),
                 then the
                 card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
@@ -423,6 +436,26 @@ def main():
              f"backwards, {by_path['train_ssm']['ssd_scan_bwd']} launches")
     if "B" not in ssd_rows.values():
         fail(f"no SSD backward row ran route B: {ssd_rows}")
+    # Every grouped backward of the training path is bf16 with TMA-legal
+    # operands: route A (TMA ring, wgmma, dY split into bf16 hi + lo).
+    # Routes C and fp32 must have run off the path.  (A main-path kernel row
+    # off route A has failed in its case already.)
+    gbwd_routes = {p: {r: c.get(f"grouped_bwd_route_{r}", 0)
+                       for r in ("A", "C", "fp32")}
+                   for p, c in by_path.items()}
+    gbwd_rows = {r["case"]: r["route"] for r in results
+                 if r["kernel"] == "grouped_bwd"}
+    emit(phase="grouped_bwd_routes", by_path=gbwd_routes,
+         kernel_rows=gbwd_rows)
+    off_a = {p: r for p, r in gbwd_routes.items() if r["C"] or r["fp32"]}
+    if off_a:
+        fail(f"main-path grouped backwards left route A: {off_a}")
+    if gbwd_routes["train_moe"]["A"] != by_path["train_moe"]["grouped_bwd"]:
+        fail(f"train_moe: {gbwd_routes['train_moe']['A']} route-A grouped "
+             f"backwards, {by_path['train_moe']['grouped_bwd']} launches")
+    for want in ("C", "fp32"):
+        if want not in gbwd_rows.values():
+            fail(f"no grouped_bwd row ran route {want}: {gbwd_rows}")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -462,6 +495,9 @@ def main():
                if kname in DECODE_KERNELS else {}),
             **(_ssd_sums(rows, [r for r in results if r["kernel"] == kname])
                if kname.startswith("ssd_") else {}),
+            **(_grouped_bwd_sums(rows, [r for r in results
+                                        if r["kernel"] == kname])
+               if kname == "grouped_bwd" else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -562,6 +598,17 @@ def _ssd_sums(rows, all_rows):
                                          for r in rows),
                    ssd_routes={r["case"]: r["route"] for r in all_rows})
     return out
+
+
+def _grouped_bwd_sums(rows, all_rows):
+    """The grouped backward's main-path device times (CUDA graphs) beside
+    the composition's, its operation time at the fp32 CUDA-core rate (the
+    earlier bound), and the route every case took (``grouped_bwd_routes``,
+    off-path cases too)."""
+    return {"device_ms": sum(r["device_ms"] for r in rows),
+            "device_library_ms": sum(r["device_library_ms"] for r in rows),
+            "fp32_op_ms": sum(r["fp32_op_ms"] for r in rows),
+            "grouped_bwd_routes": {r["case"]: r["route"] for r in all_rows}}
 
 
 DECODE_KERNELS = ("flash_decode", "flash_decode_int8")
@@ -1492,7 +1539,9 @@ def grouped_cases():
     panel and K off the ring's 6 x 32, route C (x rows of 200 bytes; the
     planned N = 300 case above has weight rows of 600), NaN in the rows
     past sum(group_sizes), and the two decode cases on the pinned bm 16
-    and bm 64 tiles beside the planner's bm 128."""
+    and bm 64 tiles beside the planner's bm 128.  The backward runs on
+    every prefill and ragged case (bf16 on its routes A and C, fp32) and
+    on the row-aware bm 128 and bm 64 tiles and the NaN case of route A."""
     bf, f32 = "bfloat16", "float32"
     d, ff = 4096, 6400
     cases = [
@@ -1527,9 +1576,9 @@ def grouped_cases():
     rows = [1, 17, 0, 32, 64, 65]
     cases += [
         ("tile_rows_bm128", rows, 0, 512, 256, None, bf, (128, 128), False,
-         False, False),
+         True, False),
         ("tile_rows_bm64_silu", rows, 0, 512, 256, "silu", bf, (64, 128),
-         False, False, False),
+         False, True, False),
         ("tile_k24_relu", [50, 90], 7, 24, 200, "relu", bf, (128, 64), False,
          False, False),
         ("tile_k200_gelu", [50, 0, 80], 3, 200, 136, "gelu", bf, (64, 128),
@@ -1537,7 +1586,7 @@ def grouped_cases():
         ("tile_route_c_k100_bias", [60, 85], 5, 100, 160, "bias", bf,
          (128, 64), False, False, False),
         ("tile_nan_past_sum", [40, 0, 90], 30, 256, 192, "silu", bf,
-         (128, 128), False, False, True),
+         (128, 128), False, True, True),
         ("tile_nan_past_sum_bm16", [40, 0, 90], 30, 256, 192, "bias", bf,
          (16, 128), False, False, True),
     ]
@@ -1732,9 +1781,19 @@ def run_grouped_case(torch, case, gen):
     if not bwd:
         return rows
     dy = torch.randn((t, n), generator=gen, device="cuda")
-    got = grouped_bwd(table, x, dy, w, gs, bm=plan.bm, with_db=biased)
+    if nan_tail:
+        dy[total:] = float("nan")
+
+    def kern_bwd():
+        return grouped_bwd(table, x, dy, w, gs, bm=plan.bm, with_db=biased)
+
+    before = dict(grk.BWD_ROUTES)
+    got, again = kern_bwd(), kern_bwd()
     want = grouped_bwd_plain(table, x, dy, w, gs, with_db=biased)
     torch.cuda.synchronize()
+    routes = {r: grk.BWD_ROUTES[r] - before[r] for r in grk.BWD_ROUTES
+              if grk.BWD_ROUTES[r] != before[r]}
+    route = next(iter(routes)) if len(routes) == 1 else routes
     errs = {}
     for name, a, b in zip(("dx", "dw", "db"), got, want):
         if a is None:
@@ -1744,37 +1803,57 @@ def run_grouped_case(torch, case, gen):
         diff = (a - b).abs()
         errs[name] = (diff.max().item(),
                       int((diff > BWD_TOL + BWD_TOL * b.abs()).sum().item()))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again)
+                    if a is not None)
     empty = [i for i, sz in enumerate(sizes) if sz == 0]
     empty_zero = all(int(torch.count_nonzero(got[1][i])) == 0 and (
         got[2] is None or int(torch.count_nonzero(got[2][i])) == 0)
         for i in empty)
-    # dx and dw: 4 x rows x K x N products, each with the fp32 cotangent
-    # as an operand; bytes: x, dy, the touched panels in, dx, every dW
-    # (empty experts' zeros too) and db out.
-    b_op_ms = 2 * flops / peak("float32") * 1e3
+    tail_zero = int(torch.count_nonzero(got[0][total:])) == 0
+    # dx and dw: 4 x rows x K x N products, each with the fp32 cotangent as
+    # an operand: on the tensor cores two bf16 products (hi, lo) against
+    # bf16 x and w, three (hi hi, hi lo, lo hi) against fp32 ones
+    # (fp32_op_ms: the earlier rule, fp32 at the CUDA-core rate); bytes: x,
+    # dy, the touched panels in, dx, every dW (empty experts' zeros too)
+    # and db out.
+    pieces = 2 if dname == "bfloat16" else 3
+    b_op_ms = pieces * 2 * flops / peak("bfloat16") * 1e3
     b_bytes = isz * (total * k + panels) + 4 * (
         total * n + t * k + e * k * n + (e * n if biased else 0))
     b_byte_ms = b_bytes / hbm() * 1e3
-    row = dict(base, kernel="grouped_bwd", library=lib_bwd_name,
+    row = dict(base, kernel="grouped_bwd", library=lib_bwd_name, route=route,
                max_abs_err=max(v[0] for v in errs.values()),
                errors={k_: v[0] for k_, v in errs.items()},
                tolerance=BWD_TOL, mismatches=sum(v[1] for v in errs.values()),
-               empty_experts=empty, empty_expert_dw_db_zero=empty_zero,
-               ms=time_ms(torch, lambda: grouped_bwd(
-                   table, x, dy, w, gs, bm=plan.bm, with_db=biased), 5),
+               rerun_bit_equal=bit_equal, empty_experts=empty,
+               empty_expert_dw_db_zero=empty_zero,
+               dx_past_sum_zero=tail_zero,
+               ms=time_ms(torch, kern_bwd, 5),
                plain_ms=time_ms(torch, lambda: grouped_bwd_plain(
                    table, x, dy, w, gs, with_db=biased), 2),
                library_ms=time_ms(torch, lambda: lib_bwd(dy), 5),
+               device_ms=graph_ms(torch, kern_bwd, iters=3),
+               device_library_ms=graph_ms(torch, lambda: lib_bwd(dy),
+                                          iters=3),
                op_ms=b_op_ms, byte_ms=b_byte_ms,
+               fp32_op_ms=2 * flops / peak("float32") * 1e3,
                bound_ms=max(b_op_ms, b_byte_ms),
                bound_by="bytes" if b_byte_ms >= b_op_ms else "operations")
     emit(**row)
     if row["mismatches"]:
         fail(f"grouped_bwd {label}: {row['mismatches']} elements outside "
              f"atol=rtol={BWD_TOL}")
+    if not bit_equal:
+        fail(f"grouped_bwd {label}: two runs differ")
     if not empty_zero:
         fail(f"grouped_bwd {label}: an empty expert's dW or db is not "
              f"exactly zero")
+    if not tail_zero:
+        fail(f"grouped_bwd {label}: dX rows past sum(group_sizes) are not "
+             f"exactly zero")
+    if main_path and route != "A":
+        fail(f"grouped_bwd {label}: a main-path backward took route {route}, "
+             f"not A")
     rows.append(row)
     return rows
 
@@ -2269,6 +2348,8 @@ def _read_counts():
     gk, fk, sk, grk, _ = _kernel_modules()
     launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
     launches.update({f"grouped_route_{r}": n for r, n in grk.ROUTES.items()})
+    launches.update({f"grouped_bwd_route_{r}": n
+                     for r, n in grk.BWD_ROUTES.items()})
     launches.update({f"flash_route_{r}": n for r, n in fk.ROUTES.items()})
     launches.update({f"flash_bwd_route_{r}": n
                      for r, n in fk.BWD_ROUTES.items()})

@@ -11,6 +11,11 @@ and ``csrc/grouped_quant.cu``), each beside its plain torch version.
     from ``block_expert`` (the counterpart of ``build_grouped_gemm_kernel``);
   * :func:`grouped_bwd` -- dX, dW and db in one deterministic launch over
     the same table (the counterpart of ``build_fused_grouped_bwd_kernel``);
+    each launch adds one to the route it took in :data:`BWD_ROUTES`
+    (:func:`choose_bwd_route`): "A" (TMA ring and wgmma, the fp32
+    cotangent split into bf16 hi + lo in the kernel), "C" (bf16 operands
+    TMA cannot read) or "fp32" (fp32 x and w), the last two on CUDA-core
+    FMAs;
   * :func:`grouped_quant` -- the quantized form of ``grouped_fused``: int8
     or e4m3 x and w with per-row ``sx`` and per-expert column ``sw``
     scales, or a bf16 / fp32 x with an int8 / e4m3 w (W8A16), dequant in
@@ -50,6 +55,14 @@ LAUNCHES = {"grouped_fused": 0, "grouped_padded": 0, "grouped_bwd": 0,
             "grouped_quant": 0}
 ROUTES = {"A": 0, "C": 0, "fp32": 0}
 _ROUTE_CODE = {"A": 0, "C": 2, "fp32": 0}
+# grouped_bwd's routes (grouped.cu's ROUTE_A, ROUTE_C, ROUTE_F32).
+BWD_ROUTES = {"A": 0, "C": 0, "fp32": 0}
+_BWD_ROUTE_CODE = {"A": 0, "C": 2, "fp32": 3}
+# The backward's route A (grouped.cu's BWD_*): a dX tile is a table row's
+# rows x BWD_TILE columns of K, a dW tile BWD_TILE x BWD_TILE of one
+# expert; a ring stage is BWD_PANEL deep (N for dX, rows for dW), and
+# BWD_STAGES of them are in flight.
+BWD_TILE, BWD_PANEL, BWD_STAGES = 128, 32, 4
 # grouped_quant's routes (grouped_quant.cu's ROUTE_*, gemm_quant's codes),
 # counted apart from the wide forward's.
 QUANT_ROUTES = {"A": 0, "B": 0, "C": 0, "fp32": 0}
@@ -75,7 +88,7 @@ def _lib(name: str = "grouped"):
             lib.grouped_fused.restype = I
             lib.grouped_padded.argtypes = [P] * 6 + [I] * 10 + [P]
             lib.grouped_padded.restype = I
-            lib.grouped_bwd.argtypes = [P] * 8 + [I] * 6 + [P]
+            lib.grouped_bwd.argtypes = [P] * 8 + [I] * 8 + [P]
             lib.grouped_bwd.restype = I
         else:
             lib.grouped_quant.argtypes = [P] * 7 + [I] * 13 + [P]
@@ -145,6 +158,18 @@ def choose_quant_route(x_dtype, w_dtype, k: int, n: int, bm: int,
     not a multiple of 16 bytes); else "B" for bm 16 tiles (swap-AB) and
     "A" otherwise.  The bank is (E, K, N): the dense GEMM's "nn" rule."""
     return _gemm_quant_route(x_dtype, w_dtype, k, n, "nn", bm, ptrs)
+
+
+def choose_bwd_route(dtype, k: int, n: int, ptrs=(0, 0, 0)) -> str:
+    """The backward kernel's route for one call: "fp32" for fp32 x and w;
+    for bf16 "C" where TMA cannot read x, w or the fp32 cotangent (a base
+    ``ptrs`` not 16-byte aligned, or ``k`` or ``n`` not a multiple of 8:
+    rows of x and w that are not a multiple of 16 bytes), else "A"."""
+    if dtype == torch.float32:
+        return "fp32"
+    if any(p % 16 for p in ptrs) or k % 8 or n % 8:
+        return "C"
+    return "A"
 
 
 def _route(x, w) -> str:
@@ -233,11 +258,15 @@ def grouped_bwd(table, x, dy, w, group_sizes, *, bm: int,
     dx, dw = torch.empty((t, k), **f32), torch.empty((e, k, n), **f32)
     db = torch.empty((e, n), **f32) if with_db else None
     offsets = expert_offsets(group_sizes).to(torch.int32)
+    route = choose_bwd_route(x.dtype, k, n, (x.data_ptr(), w.data_ptr(),
+                                             dy.data_ptr()))
     status = _lib().grouped_bwd(
         _build.ptr(x), _build.ptr(dy), _build.ptr(w), _build.ptr(table),
         _build.ptr(offsets), _build.ptr(dx), _build.ptr(dw), _build.ptr(db),
-        table.shape[0], k, n, e, bm, _DT[x.dtype], _build.stream_ptr(x))
+        table.shape[0], t, k, n, e, bm, _DT[x.dtype], _BWD_ROUTE_CODE[route],
+        _build.stream_ptr(x))
     LAUNCHES["grouped_bwd"] += 1
+    BWD_ROUTES[route] += 1
     _build.check(status, "grouped_bwd")
     return dx, dw, db
 
@@ -391,6 +420,6 @@ def grouped_bwd_plain(table, x, dy, w, group_sizes, *,
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES, QUANT_ROUTES):
+    for counts in (LAUNCHES, ROUTES, BWD_ROUTES, QUANT_ROUTES):
         for name in counts:
             counts[name] = 0

@@ -620,3 +620,37 @@ def test_a_shared_header_rebuilds_every_library(monkeypatch, tmp_path):
     header = copy / "gemm" / "csrc" / "quant_tile.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build._target(src) != before
+
+
+@pytest.mark.parametrize("bm", [16, 64, 128])
+def test_grouped_bwd_route_a_constants_and_shared_memory(bm):
+    """Route A of the grouped backward: grouped.cu's BWD_TILE, BWD_PANEL
+    and BWD_STAGES are kernel.py's; a ring stage holds what a dX tile of
+    bm rows loads (an fp32 dY box of 64 rows a warpgroup, w's box of
+    BWD_PANEL x BWD_TILE) and what a dW tile loads (four fp32 dY boxes of
+    32 x 32, x's two boxes of 64 x 32); the ring fits a block's 232,448
+    bytes twice (two blocks an SM); the route codes agree."""
+    from repro_torch.kernels.grouped_gemm import kernel as grouped_kernel
+    assert bm in {s[0] for s in grouped_kernel.SHAPES}
+    tile, panel, stages = (int(_constexpr(GROUPED_CU, name)) for name in
+                           ("BWD_TILE", "BWD_PANEL", "BWD_STAGES"))
+    assert (tile, panel, stages) == (grouped_kernel.BWD_TILE,
+                                     grouped_kernel.BWD_PANEL,
+                                     grouped_kernel.BWD_STAGES)
+    assert "constexpr int BWD_A_SLOT = BWD_TILE * BWD_PANEL * 4;" in GROUPED_CU
+    assert "constexpr int BWD_B_SLOT = BWD_TILE * BWD_PANEL * 2;" in GROUPED_CU
+    assert ("constexpr int BWD_SMEM = 1024 + BWD_STAGES * BWD_STAGE + "
+            "2 * BWD_STAGES * 8;") in GROUPED_CU
+    a_slot, b_slot = tile * panel * 4, tile * panel * 2
+    warpgroups = min(2, -(-bm // 64))
+    assert warpgroups * 64 * panel * 4 <= a_slot      # dX: dY's rows
+    assert tile * panel * 2 <= b_slot                 # dX: w's box
+    assert 4 * 32 * panel * 4 == a_slot               # dW: dY's columns
+    assert 2 * 64 * panel * 2 == b_slot               # dW: x's columns
+    smem = 1024 + stages * (a_slot + b_slot) + 2 * stages * 8
+    assert 2 * smem <= H100_SXM.vmem_bytes
+    assert "__launch_bounds__(BWD_THREADS, 2)" in GROUPED_CU
+    assert "enum { ROUTE_A = 0, ROUTE_C = 2, ROUTE_F32 = 3 };" in GROUPED_CU
+    assert grouped_kernel._BWD_ROUTE_CODE == {"A": 0, "C": 2, "fp32": 3}
+    assert set(grouped_kernel.BWD_ROUTES) == {"A", "C", "fp32"}
+    assert '#include "../../ssd_chunk/csrc/ssd_sm90.cuh"' in GROUPED_CU
