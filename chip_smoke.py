@@ -41,12 +41,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 fp32 row off B failing, with its device time warm and after
                 an L2 flush beside SDPA's over the gathered pages, and the
                 share of elements not bit-equal to the plain version),
-                the SSD scan, its backward (each row naming its route, a
-                main-path row off route A failing, two runs bit-equal, with
-                its device time beside the composition's autograd
-                backward's; every SSD bound prices fp32 operands as bf16
-                hi + lo tensor-core products, the earlier fp32 CUDA-core
-                figure beside it) and the intra-chunk ladder, and
+                the SSD scan, its backward and the intra-chunk ladder
+                (each row naming its route, a main-path row off route A
+                failing, two runs bit-equal, with its device time beside
+                the composition's, or its autograd backward's; every SSD
+                bound prices fp32 operands as bf16 hi + lo tensor-core
+                products, the earlier fp32 CUDA-core figure beside it), and
                 the three grouped-GEMM kernels at phi3.5-moe-42b's expert
                 shapes (4096 capacity rows at prefill and training, 512 at
                 decode) and on ragged cases with an empty expert, whose dW
@@ -126,6 +126,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      serve_ssm_off -- the same prefill under fused="off": one ssd_chunk_diag
                 launch per layer, logits against fused="auto", and
                 layer 0's scan operands through both lowerings;
+     serve_ssm_prefill_profile -- torch.profiler over one full-width mamba2
+                prefill (batch 4 x 1000): wall against device, the busy
+                share and the kernels that take it;
      train_ssm -- full-width mamba2-130m training as phase 7 at batch 8 x
                 1024 (four chunks a row, so the reverse walk crosses seams):
                 one ssd_scan_fused (with states) and one ssd_scan_bwd launch
@@ -162,6 +165,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 backward off route A (a cluster of blocks a group, wgmma
                 products) fails, and so does a run whose kernel rows never
                 took route B;
+     ssd_fwd_routes -- the same for ssd_scan_fused and ssd_chunk_diag: a
+                serve_ssm or train_ssm scan or a serve_ssm_off diag call
+                off route A fails, and so does a run whose kernel rows
+                never took route B;
      grouped_bwd_routes -- the routes of grouped_bwd in every phase: a
                 train_moe backward off route A (TMA ring, wgmma, the fp32
                 cotangent split into bf16 hi + lo) fails, and so does a run
@@ -173,8 +180,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 quantized GEMMs' with their prefill and decode sums apart,
                 the paged decode kernels' with their device times, warm and
                 L2-cold, and every case's route, the SSD kernels' with their
-                fp32 CUDA-core operation time, the backward's also with its
-                device times and every case's route, ``ssd_routes``; the
+                fp32 CUDA-core operation time, their device times and every
+                case's route, ``ssd_routes``; the
                 grouped backward's with its device times, its fp32
                 CUDA-core operation time and every case's route,
                 ``grouped_bwd_routes``),
@@ -322,6 +329,7 @@ def main():
     torch.cuda.empty_cache()
     counts_ssm, model, prompts, logits = phase_serve_ssm(torch)
     counts_ssm_off = phase_serve_ssm_off(torch, model, prompts, logits)
+    phase_serve_ssm_prefill_profile(torch, model, prompts)
     del model, logits
     torch.cuda.empty_cache()
     counts_train_ssm = phase_train(torch, "mamba2-130m", SSM_TRAIN_SEQ,
@@ -436,6 +444,27 @@ def main():
              f"backwards, {by_path['train_ssm']['ssd_scan_bwd']} launches")
     if "B" not in ssd_rows.values():
         fail(f"no SSD backward row ran route B: {ssd_rows}")
+    # Likewise every SSD forward of the serving and training paths (the
+    # scan, and the diag form under fused="off"): route A (a cluster of
+    # blocks a group, the state folded over DSMEM, wgmma products).  Route
+    # B must have run off the path.
+    fwd_routes = {p: {r: c.get(f"ssd_fwd_route_{r}", 0) for r in ("A", "B")}
+                  for p, c in by_path.items()}
+    fwd_rows = {r["kernel"] + ":" + r["case"]: r["route"] for r in results
+                if r["kernel"] in ("ssd_scan_fused", "ssd_chunk_diag")}
+    emit(phase="ssd_fwd_routes", by_path=fwd_routes, kernel_rows=fwd_rows)
+    off_a = {p: r for p, r in fwd_routes.items() if r["B"]}
+    if off_a:
+        fail(f"main-path SSD forwards left route A: {off_a}")
+    for p, kname in (("serve_ssm", "ssd_scan_fused"),
+                     ("train_ssm", "ssd_scan_fused"),
+                     ("serve_ssm_off", "ssd_chunk_diag")):
+        if not by_path[p][kname] or \
+                fwd_routes[p]["A"] != by_path[p][kname]:
+            fail(f"{p}: {fwd_routes[p]['A']} route-A SSD forwards, "
+                 f"{by_path[p][kname]} {kname} launches")
+    if "B" not in fwd_rows.values():
+        fail(f"no SSD forward row ran route B: {fwd_rows}")
     # Every grouped backward of the training path is bf16 with TMA-legal
     # operands: route A (TMA ring, wgmma, dY split into bf16 hi + lo).
     # Routes C and fp32 must have run off the path.  (A main-path kernel row
@@ -588,8 +617,8 @@ def _decode_sums(rows, all_rows):
 
 def _ssd_sums(rows, all_rows):
     """An SSD kernel's main-path operation time at the fp32 CUDA-core rate
-    (the earlier bound); for the backward also its device time (CUDA
-    graphs) beside the composition's autograd backward, and the route
+    (the earlier bound), its device time (CUDA graphs) beside the
+    composition's (its autograd backward for ssd_scan_bwd), and the route
     every case took (``ssd_routes``, off-path cases too)."""
     out = {"fp32_op_ms": sum(r["fp32_op_ms"] for r in rows)}
     if all("route" in r for r in all_rows):
@@ -1452,24 +1481,59 @@ def run_ssd_case(torch, case, gen):
                 diff.max().item() / max(want.float().abs().max().item(), 1e-30),
                 bad)
 
+    def forward(kname, call):
+        """One call on the route choose_fwd_route names (route A on the
+        main path), and a second that gives the same bits (no atomics)."""
+        before = dict(sk.SSD_FWD_ROUTES)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        took = [r for r, n in sk.SSD_FWD_ROUTES.items() if n != before[r]]
+        route = took[0] if len(took) == 1 else str(took)
+        if main_path and route != "A":
+            fail(f"{kname} {label}: route {route}, expected A")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{kname} {label}: two runs differ")
+        return got, route
+
+    def timed(kern, library):
+        """Device times (CUDA graphs) of the kernel and the composition."""
+        return dict(device_ms=graph_ms(torch, kern, iters=5),
+                    device_library_ms=graph_ms(torch, library, iters=5))
+
     ytol, stol = TOL[dtypes[2]], TOL["float32"]
-    y, sf, st = ssd_scan_fused(*ops, return_states=True)
+    (y, sf, st), route = forward(
+        "ssd_scan_fused", lambda: ssd_scan_fused(*ops, return_states=True))
     yp, sfp, stp = ssd_scan_fused_plain(*ops, return_states=True)
     torch.cuda.synchronize()
+
+    def scan():
+        return ssd_scan_fused(*ops, return_states=train)
+
+    def composition():
+        return _ssd_composition(torch, *ops)
+
     row("ssd_scan_fused", "scan",
         {"y": errors(y, yp, ytol), "s_final": errors(sf, sfp, stol),
          "states": errors(st, stp, stol)},
-        {"y": ytol, "states": stol},
-        lambda: ssd_scan_fused(*ops, return_states=train),
+        {"y": ytol, "states": stol}, scan,
         lambda: ssd_scan_fused_plain(*ops, return_states=train),
-        lambda: _ssd_composition(torch, *ops), states=train)
+        composition, states=train, route=route, **timed(scan, composition))
     if not train:
         flat = [t.reshape(g * nc, *t.shape[2:]) for t in (c, b, l, x)]
-        yd, ydp = ssd_chunk_diag(*flat), ssd_chunk_diag_plain(*flat)
+        (yd,), route = forward("ssd_chunk_diag",
+                               lambda: (ssd_chunk_diag(*flat),))
+        ydp = ssd_chunk_diag_plain(*flat)
         torch.cuda.synchronize()
+
+        def diag():
+            return ssd_chunk_diag(*flat)
+
+        def diag_composition():
+            return _ssd_diag_composition(torch, *flat)
+
         row("ssd_chunk_diag", "diag", {"y": errors(yd, ydp, ytol)}, ytol,
-            lambda: ssd_chunk_diag(*flat), lambda: ssd_chunk_diag_plain(*flat),
-            lambda: _ssd_diag_composition(torch, *flat))
+            diag, lambda: ssd_chunk_diag_plain(*flat), diag_composition,
+            route=route, **timed(diag, diag_composition))
     if train or not main_path:
         dy = torch.randn(x.shape, generator=gen, device="cuda")
         dsf = torch.randn(s0.shape, generator=gen, device="cuda")
@@ -2359,6 +2423,8 @@ def _read_counts():
                      for r, n in grk.QUANT_ROUTES.items()})
     launches.update({f"decode_route_{r}": n
                      for r, n in fk.DECODE_ROUTES.items()})
+    launches.update({f"ssd_fwd_route_{r}": n
+                     for r, n in sk.SSD_FWD_ROUTES.items()})
     launches.update({f"ssd_bwd_route_{r}": n
                      for r, n in sk.SSD_BWD_ROUTES.items()})
     return {**launches,
@@ -3117,6 +3183,23 @@ def _ssm_scan_lowerings(torch, model, prompts):
             "y_differing": int((ya != yo).sum()), "y_count": ya.numel(),
             "s_final_max_abs_diff": (sa - so).abs().max().item(),
             "s_final_max_abs": sa.abs().max().item()}
+
+
+def phase_serve_ssm_prefill_profile(torch, model, prompts):
+    """One full-width mamba2-130m prefill (batch 4 x 1000, fused="auto")
+    under torch.profiler: wall against device, and the kernels that take
+    it (the scan's ``ssd_fwd_wgmma`` among them)."""
+    from repro_torch.core import use
+    from repro_torch.runtime.steps import make_prefill_step
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        prefill = make_prefill_step(model, SSM_PROMPT + SSM_GEN)
+
+        def step():
+            prefill({"tokens": prompts})
+
+        step()  # warm
+        emit(phase="serve_ssm_prefill_profile", batch=SSM_BATCH,
+             prompt=SSM_PROMPT, **_device_profile(torch, step, 1))
 
 
 def phase_serve_ssm_off(torch, model, prompts, logits_auto):

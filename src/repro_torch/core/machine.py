@@ -24,10 +24,10 @@ kernels accept rather than from a scratchpad size:
   * the SSD chunked-scan kernels take chunks of up to ``ssd_max_q`` rows,
     states of up to ``ssd_max_state`` and head dims of up to
     ``ssd_max_head_dim`` (the constants of ``csrc/ssd_scan.cu`` and
-    ``csrc/ssd_scan_bwd.cu``); the backward's route A (a cluster of blocks
-    a group, wgmma products) takes chunks of a multiple of
-    ``ssd_bwd_a_block`` rows, states of exactly ``ssd_bwd_a_state`` and
-    head dims of exactly ``ssd_bwd_a_head_dim``, and route B the rest;
+    ``csrc/ssd_scan_bwd.cu``); their route A (a cluster of blocks a group,
+    wgmma products) takes chunks of a multiple of ``ssd_a_block`` rows,
+    states of exactly ``ssd_a_state`` and head dims of exactly
+    ``ssd_a_head_dim``, and route B the rest;
   * the grouped-GEMM kernels take the ``(bm, bk, bn)`` tilings of
     ``grouped_blocks`` (the shapes ``csrc/grouped.cu`` instantiates), each
     of which must fit its static shared memory (``grouped_smem_bytes``);
@@ -136,11 +136,11 @@ class MachineModel:
     ssd_max_q: Optional[int] = None
     ssd_max_state: Optional[int] = None
     ssd_max_head_dim: Optional[int] = None
-    # The SSD backward's route A (chunk-row multiple, state, head dim);
-    # None: no route A.
-    ssd_bwd_a_block: Optional[int] = None
-    ssd_bwd_a_state: Optional[int] = None
-    ssd_bwd_a_head_dim: Optional[int] = None
+    # The SSD kernels' route A (chunk-row multiple, state, head dim), the
+    # forward's and the backward's alike; None: no route A.
+    ssd_a_block: Optional[int] = None
+    ssd_a_state: Optional[int] = None
+    ssd_a_head_dim: Optional[int] = None
     # Grouped-GEMM kernel tilings (bm, bk, bn) and the static shared memory
     # a tile may stage; None: legality is the VMEM fit of a kernel that
     # stages whole operands.
@@ -214,9 +214,9 @@ H100_SXM = MachineModel(
     ssd_max_q=256,
     ssd_max_state=128,
     ssd_max_head_dim=64,
-    ssd_bwd_a_block=64,
-    ssd_bwd_a_state=128,
-    ssd_bwd_a_head_dim=64,
+    ssd_a_block=64,
+    ssd_a_state=128,
+    ssd_a_head_dim=64,
     grouped_blocks=((16, 32, 64), (16, 32, 128), (64, 32, 64),
                     (64, 32, 128), (128, 32, 64), (128, 32, 128)),
     grouped_smem_bytes=48 * 1024,

@@ -1,9 +1,12 @@
 // Hopper (sm_90a) tile routines of the SSD chunked scan, for one warpgroup
-// of 128 threads (route A of ssd_scan_bwd.cu): 64-row windows staged into
-// shared memory by the block's own vector loads (bf16 as it is, fp32 split
-// into two or three bf16 windows), wgmma with A read from registers, and
-// the conversions from wgmma's accumulator layout to its A fragments and
-// to staged windows.
+// of 128 threads (route A of ssd_scan.cu and ssd_scan_bwd.cu): 64-row
+// windows staged into shared memory by the block's own vector loads (bf16
+// as it is, fp32 split into two or three bf16 windows), wgmma with A read
+// from registers, and the conversions from wgmma's accumulator layout to
+// its A fragments and to staged windows.
+//
+// A block may hold several warpgroups: each routine works on its own
+// warpgroup's threads (threadIdx.x % WG).
 //
 // Layouts (gemm_sm90.cuh's, as flash_bwd.cu uses them):
 //   * a window is 64 rows x D columns of bf16, stored as D / 32 panels of
@@ -20,8 +23,9 @@
 //     followed by its lo window; where that is not enough, into three
 //     pieces, a third window of bf16(x - hi - lo) (2^-24 left out).  A
 //     product with one fp32 operand runs once a piece, with two fp32
-//     operands three times (hi hi, hi lo, lo hi); bf16 operands go in
-//     exactly, and every sum is fp32;
+//     operands three times (hi hi, hi lo, lo hi), or six in three pieces
+//     (the pairs whose piece indices sum to at most 2); bf16 operands go
+//     in exactly, and every sum is fp32;
 //   * wgmma's accumulator: register 4 j + 2 h + c of a thread holds row
 //     r0 + 8 h, column 8 j + c0 + c, with r0 = 16 warp + lane / 4 and
 //     c0 = 2 (lane % 4).  The register A fragment of k-step kk is the
@@ -99,7 +103,7 @@ struct Bf16Rows {
   __device__ __forceinline__ void load(const __nv_bfloat16* src, int ld) {
 #pragma unroll
     for (int k = 0; k < D / 16; ++k) {
-      const int t = threadIdx.x + k * WG;
+      const int t = threadIdx.x % WG + k * WG;
       const int ch = t & 3, r = (t >> 2) & 63, panel = t >> 8;
       v[k] = __ldg(reinterpret_cast<const uint4*>(
           src + (int64_t)r * ld + panel * 32 + ch * 8));
@@ -108,7 +112,7 @@ struct Bf16Rows {
   __device__ __forceinline__ void store(unsigned char* dst) const {
 #pragma unroll
     for (int k = 0; k < D / 16; ++k) {
-      const int t = threadIdx.x + k * WG;
+      const int t = threadIdx.x % WG + k * WG;
       const int ch = t & 3, r = (t >> 2) & 63, panel = t >> 8;
       *reinterpret_cast<uint4*>(dst + panel * PANEL + r * 64 +
                                 ((ch ^ ((r >> 1) & 3)) << 4)) = v[k];
@@ -127,7 +131,7 @@ struct F32Rows {
                                        const float* scale) {
 #pragma unroll
     for (int k = 0; k < D / 8; ++k) {
-      const int t = threadIdx.x + k * WG;
+      const int t = threadIdx.x % WG + k * WG;
       const int qd = t & 7, r = (t >> 3) & 63, panel = t >> 9;
       v[k] = __ldg(reinterpret_cast<const float4*>(
           src + (int64_t)r * ld + panel * 32 + qd * 4));
@@ -144,7 +148,7 @@ struct F32Rows {
   __device__ __forceinline__ void store(unsigned char* dst) const {
 #pragma unroll
     for (int k = 0; k < D / 8; ++k) {
-      const int t = threadIdx.x + k * WG;
+      const int t = threadIdx.x % WG + k * WG;
       const int qd = t & 7, r = (t >> 3) & 63, panel = t >> 9;
       const int off = panel * PANEL + r * 64 +
                       (((qd >> 1) ^ ((r >> 1) & 3)) << 4) + (qd & 1) * 8;
@@ -164,7 +168,7 @@ struct F32Rows {
 template <int N, int PIECES>
 __device__ __forceinline__ void store_split(unsigned char* dst,
                                             const float* x) {
-  const int r0 = 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4;
+  const int r0 = 16 * (threadIdx.x % WG / 32) + (threadIdx.x % 32) / 4;
   const int c0 = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int j = 0; j < N / 4; ++j)
@@ -184,6 +188,22 @@ __device__ __forceinline__ void frag_split(const float* x, Frag& hi,
     for (int m = 0; m < 4; ++m) {
       const int e = 8 * kk + 2 * m;
       split2(x[e], x[e + 1], hi[kk][m], lo[kk][m]);
+    }
+}
+
+// The same in three pieces (hi, lo, lo2), each of what the earlier ones
+// leave out.
+__device__ __forceinline__ void frag_split3(const float* x, Frag& hi,
+                                            Frag& lo, Frag& lo2) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int e = 8 * kk + 2 * m;
+      float a = x[e], b = x[e + 1];
+      hi[kk][m] = split_step(a, b);
+      lo[kk][m] = split_step(a, b);
+      lo2[kk][m] = pack_bf16(a, b);
     }
 }
 

@@ -2,11 +2,16 @@
 and ``csrc/ssd_scan_bwd.cu``), each beside its plain torch version.
 
   * :func:`ssd_scan_fused` -- the whole carried-state scan in one launch,
-    one thread block per group walking its chunks in order, optionally
-    with the fp32 state entering each chunk (the counterpart of the
-    reference's ``build_ssd_scan_kernel``, ``return_states``);
+    optionally with the fp32 state entering each chunk (the counterpart of
+    the reference's ``build_ssd_scan_kernel``, ``return_states``);
   * :func:`ssd_chunk_diag` -- the intra-chunk ladder alone over flat
-    groups (the counterpart of ``build_ssd_chunk_kernel``);
+    groups (the counterpart of ``build_ssd_chunk_kernel``).  Each call of
+    either adds one to the route it took in :data:`SSD_FWD_ROUTES`
+    (:func:`choose_fwd_route`): "A" (``H100_SXM``'s route-A limits and,
+    for the scan, at most :data:`SSD_MAX_CLUSTER` chunks: a cluster of a
+    block a chunk for each group, the carried state folded over the
+    cluster; for the diag form a block a cell; every product on
+    ``wgmma``) or "B" (one block a group or cell, CUDA-core FMAs);
   * :func:`ssd_scan_bwd` -- the reverse walk producing all seven fp32
     cotangents (the counterpart of ``build_ssd_scan_bwd_kernel``).  Each
     call adds one to the route it took in :data:`SSD_BWD_ROUTES`
@@ -31,11 +36,12 @@ from repro_torch.kernels.ssd_chunk.ref import (ref_ssd_chunk_diag,
                                                ref_ssd_chunk_scan_bwd)
 
 LAUNCHES = {"ssd_scan_fused": 0, "ssd_chunk_diag": 0, "ssd_scan_bwd": 0}
+SSD_FWD_ROUTES = {"A": 0, "B": 0}
 SSD_BWD_ROUTES = {"A": 0, "B": 0}
-# ssd_scan_bwd.cu's ROUTE_A / ROUTE_B, and its MAX_CLUSTER (the portable
-# thread-block cluster size).
-_BWD_ROUTE_CODE = {"A": 0, "B": 1}
-SSD_BWD_MAX_CLUSTER = 8
+# ssd_scan.cu's and ssd_scan_bwd.cu's ROUTE_A / ROUTE_B, and their
+# MAX_CLUSTER (the portable thread-block cluster size).
+_ROUTE_CODE = {"A": 0, "B": 1}
+SSD_MAX_CLUSTER = 8
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,9 +55,9 @@ def _lib(name: str):
         lib = _build.library(name)
         P, I = _build.P, _build.I
         if name == "ssd_scan":
-            lib.ssd_scan_fused.argtypes = [P] * 10 + [I] * 8 + [P]
+            lib.ssd_scan_fused.argtypes = [P] * 10 + [I] * 9 + [P]
             lib.ssd_scan_fused.restype = I
-            lib.ssd_chunk_diag.argtypes = [P] * 5 + [I] * 7 + [P]
+            lib.ssd_chunk_diag.argtypes = [P] * 5 + [I] * 8 + [P]
             lib.ssd_chunk_diag.restype = I
         else:
             lib.ssd_scan_bwd.argtypes = [P] * 16 + [I] * 10 + [P]
@@ -98,32 +104,49 @@ def _codes(c, l, x):
     return _BF16[c.dtype], _BF16[l.dtype], _BF16[x.dtype]
 
 
+def _route_a_fits(c_dtype, l_dtype, x_dtype, q: int, n: int, p: int,
+                  ptrs) -> bool:
+    """Route A's limits, the forward's and the backward's alike: bf16 C
+    and B with fp32 L and xdt, a chunk of a multiple of ``ssd_a_block``
+    rows, a state of ``ssd_a_state`` and a head dim of ``ssd_a_head_dim``
+    (``H100_SXM``), every base in ``ptrs`` 16-byte aligned (the kernels'
+    vector loads)."""
+    m = H100_SXM
+    return (c_dtype == torch.bfloat16 and l_dtype == torch.float32
+            and x_dtype == torch.float32 and q % m.ssd_a_block == 0
+            and n == m.ssd_a_state and p == m.ssd_a_head_dim
+            and not any(t % 16 for t in ptrs))
+
+
 def choose_bwd_route(c_dtype, l_dtype, x_dtype, q: int, n: int, p: int,
                      ptrs=()) -> str:
-    """The route of one :func:`ssd_scan_bwd` call: "A" for bf16 C and B
-    with fp32 L and xdt, a chunk of a multiple of ``ssd_bwd_a_block`` rows,
-    a state of ``ssd_bwd_a_state`` and a head dim of ``ssd_bwd_a_head_dim``
-    (``H100_SXM``), with every base in ``ptrs`` 16-byte aligned (the
-    kernel's vector loads); else "B"."""
-    m = H100_SXM
-    if (c_dtype == torch.bfloat16 and l_dtype == torch.float32
-            and x_dtype == torch.float32 and q % m.ssd_bwd_a_block == 0
-            and n == m.ssd_bwd_a_state and p == m.ssd_bwd_a_head_dim
-            and not any(t % 16 for t in ptrs)):
-        return "A"
-    return "B"
+    """The route of one :func:`ssd_scan_bwd` call: "A" within route A's
+    limits (:func:`_route_a_fits`), else "B"."""
+    return "A" if _route_a_fits(c_dtype, l_dtype, x_dtype, q, n, p,
+                                ptrs) else "B"
+
+
+def choose_fwd_route(c_dtype, l_dtype, x_dtype, q: int, n: int, p: int,
+                     chunks: int = 1, ptrs=()) -> str:
+    """The route of one :func:`ssd_scan_fused` call of ``chunks`` chunks a
+    group, or of one :func:`ssd_chunk_diag` call (one chunk a cell): "A"
+    within route A's limits (:func:`_route_a_fits`) and at most
+    :data:`SSD_MAX_CLUSTER` chunks (a cluster holds a block a chunk), else
+    "B"."""
+    return "A" if chunks <= SSD_MAX_CLUSTER and _route_a_fits(
+        c_dtype, l_dtype, x_dtype, q, n, p, ptrs) else "B"
 
 
 def bwd_cluster(chunks: int) -> int:
-    """Blocks of one group on route A, a thread-block cluster: one a chunk,
-    at most :data:`SSD_BWD_MAX_CLUSTER`."""
-    return min(chunks, SSD_BWD_MAX_CLUSTER)
+    """Blocks of one group on the backward's route A, a thread-block
+    cluster: one a chunk, at most :data:`SSD_MAX_CLUSTER`."""
+    return min(chunks, SSD_MAX_CLUSTER)
 
 
 def bwd_chunks(chunks: int, cluster: int, rank: int):
     """Chunks ``[lo, hi)`` that rank ``rank`` of a group's cluster walks on
-    route A (as ``ssd_scan_bwd.cu`` splits them): contiguous runs whose
-    lengths differ by at most one, none empty."""
+    the backward's route A (as ``ssd_scan_bwd.cu`` splits them):
+    contiguous runs whose lengths differ by at most one, none empty."""
     return rank * chunks // cluster, (rank + 1) * chunks // cluster
 
 
@@ -146,12 +169,15 @@ def ssd_scan_fused(c, b, l, x, decay_in, decay_out, s0, *,
     sf = torch.empty((g, p, n), dtype=torch.float32, device=c.device)
     states = torch.empty((g, nc, p, n), dtype=torch.float32,
                          device=c.device) if return_states else None
+    ins = (c, b, l, x, decay_in, decay_out, s0, y, sf, states)
+    route = choose_fwd_route(c.dtype, l.dtype, x.dtype, q, n, p, nc,
+                             tuple(t.data_ptr() for t in ins
+                                   if t is not None))
     status = _lib("ssd_scan").ssd_scan_fused(
-        _build.ptr(c), _build.ptr(b), _build.ptr(l), _build.ptr(x),
-        _build.ptr(decay_in), _build.ptr(decay_out), _build.ptr(s0),
-        _build.ptr(y), _build.ptr(sf), _build.ptr(states), g, nc, q, n, p,
-        *_codes(c, l, x), _build.stream_ptr(c))
+        *(_build.ptr(t) for t in ins), g, nc, q, n, p, *_codes(c, l, x),
+        _ROUTE_CODE[route], _build.stream_ptr(c))
     LAUNCHES["ssd_scan_fused"] += 1
+    SSD_FWD_ROUTES[route] += 1
     _build.check(status, "ssd_scan_fused")
     return (y, sf, states) if return_states else (y, sf)
 
@@ -165,12 +191,16 @@ def ssd_chunk_diag(c, b, l, x) -> torch.Tensor:
     if not c.is_cuda:
         return ssd_chunk_diag_plain(c, b, l, x)
     g, q, n = c.shape
+    p = x.shape[-1]
     y = torch.empty_like(x)
+    ins = (c, b, l, x, y)
+    route = choose_fwd_route(c.dtype, l.dtype, x.dtype, q, n, p, 1,
+                             tuple(t.data_ptr() for t in ins))
     status = _lib("ssd_scan").ssd_chunk_diag(
-        _build.ptr(c), _build.ptr(b), _build.ptr(l), _build.ptr(x),
-        _build.ptr(y), g, q, n, x.shape[-1], *_codes(c, l, x),
-        _build.stream_ptr(c))
+        *(_build.ptr(t) for t in ins), g, q, n, p, *_codes(c, l, x),
+        _ROUTE_CODE[route], _build.stream_ptr(c))
     LAUNCHES["ssd_chunk_diag"] += 1
+    SSD_FWD_ROUTES[route] += 1
     _build.check(status, "ssd_chunk_diag")
     return y
 
@@ -201,7 +231,7 @@ def ssd_scan_bwd(c, b, l, x, decay_in, decay_out, states, dy, dsf):
     ds0 = torch.empty((g, p, n), **f32)
     status = _lib("ssd_scan_bwd").ssd_scan_bwd(
         *(_build.ptr(t) for t in (*ins, dc, db, dl, dx, ddi, ddo, ds0)),
-        g, nc, q, n, p, *_codes(c, l, x), _BWD_ROUTE_CODE[route],
+        g, nc, q, n, p, *_codes(c, l, x), _ROUTE_CODE[route],
         bwd_cluster(nc), _build.stream_ptr(c))
     LAUNCHES["ssd_scan_bwd"] += 1
     SSD_BWD_ROUTES[route] += 1
@@ -257,6 +287,6 @@ def ssd_scan_bwd_plain(c, b, l, x, decay_in, decay_out, states, dy, dsf):
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, SSD_BWD_ROUTES):
+    for counts in (LAUNCHES, SSD_FWD_ROUTES, SSD_BWD_ROUTES):
         for name in counts:
             counts[name] = 0

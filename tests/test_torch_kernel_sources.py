@@ -10,6 +10,7 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.core import H100_SXM
 from repro_torch.kernels import _build
@@ -442,21 +443,21 @@ def test_ssd_bwd_route_a_limits_match_kernel_py_and_machine():
     ``choose_bwd_route`` reads; its route codes, cluster limit and chunk
     split are kernel.py's, and its tile routines are the new header's."""
     m = H100_SXM
-    assert _constexpr(SSD_BWD_CU, "A_BLOCK") == m.ssd_bwd_a_block
-    assert _constexpr(SSD_BWD_CU, "A_STATE") == m.ssd_bwd_a_state
-    assert _constexpr(SSD_BWD_CU, "A_HEAD_DIM") == m.ssd_bwd_a_head_dim
+    assert _constexpr(SSD_BWD_CU, "A_BLOCK") == m.ssd_a_block
+    assert _constexpr(SSD_BWD_CU, "A_STATE") == m.ssd_a_state
+    assert _constexpr(SSD_BWD_CU, "A_HEAD_DIM") == m.ssd_a_head_dim
     assert _constexpr(SSD_BWD_CU, "MAX_CLUSTER") == \
-        ssd_kernel.SSD_BWD_MAX_CLUSTER
-    assert m.ssd_bwd_a_state <= m.ssd_max_state
-    assert m.ssd_bwd_a_head_dim <= m.ssd_max_head_dim
-    assert m.ssd_max_q % m.ssd_bwd_a_block == 0
+        ssd_kernel.SSD_MAX_CLUSTER
+    assert m.ssd_a_state <= m.ssd_max_state
+    assert m.ssd_a_head_dim <= m.ssd_max_head_dim
+    assert m.ssd_max_q % m.ssd_a_block == 0
     assert "enum { ROUTE_A = 0, ROUTE_B = 1 };" in SSD_BWD_CU
-    assert ssd_kernel._BWD_ROUTE_CODE == {"A": 0, "B": 1}
+    assert ssd_kernel._ROUTE_CODE == {"A": 0, "B": 1}
     assert ("const int lo = rank * f.chunks / C, hi = (rank + 1) * f.chunks "
             "/ C;") in SSD_BWD_CU
     assert ssd_kernel.bwd_chunks(9, 8, 7) == (7 * 9 // 8, 9)
     assert '#include "ssd_sm90.cuh"' in SSD_BWD_CU
-    assert '#include "ssd_sm90.cuh"' not in SSD_SCAN_CU
+    assert '#include "ssd_sm90.cuh"' in SSD_SCAN_CU
 
 
 def test_ssd_bwd_route_a_shared_memory_fits_h100_at_the_limits():
@@ -478,13 +479,91 @@ def test_ssd_bwd_route_a_shared_memory_fits_h100_at_the_limits():
             ("A_CARRY_BYTES", r"A_HEAD_DIM \* A_STATE \* 4")):
         assert re.search(rf"constexpr int {name} =\s*{formula};", SSD_BWD_CU), \
             name
-    n, p, rows = m.ssd_bwd_a_state, m.ssd_bwd_a_head_dim, m.ssd_bwd_a_block
+    n, p, rows = m.ssd_a_state, m.ssd_a_head_dim, m.ssd_a_block
     smem = 512 + 3 * p * n * 2 + 2 * rows * n * 2 + 2 * rows * p * 2 * 2 + 64
     carry = p * n * 4
     assert 3 * p * n * 2 >= carry  # the published fp32 tile
     assert smem == 115264
     assert 2 * (smem + 1024) <= 228 * 1024
     assert smem + carry <= m.vmem_bytes
+
+
+def test_ssd_fwd_route_a_limits_match_kernel_py_and_machine():
+    """The forward's route A (ssd_scan.cu) takes the backward's limits from
+    H100_SXM, which ``choose_fwd_route`` reads; its route codes and cluster
+    limit are kernel.py's, a cluster holds a block a chunk (a call of more
+    chunks than the cluster limit is refused, and choose_fwd_route sends
+    it to route B), and its tile routines are ssd_sm90.cuh's."""
+    m = H100_SXM
+    assert _constexpr(SSD_SCAN_CU, "A_BLOCK") == m.ssd_a_block
+    assert _constexpr(SSD_SCAN_CU, "A_STATE") == m.ssd_a_state
+    assert _constexpr(SSD_SCAN_CU, "A_HEAD_DIM") == m.ssd_a_head_dim
+    assert _constexpr(SSD_SCAN_CU, "MAX_CLUSTER") == \
+        ssd_kernel.SSD_MAX_CLUSTER
+    assert "enum { ROUTE_A = 0, ROUTE_B = 1 };" in SSD_SCAN_CU
+    assert '#include "ssd_sm90.cuh"' in SSD_SCAN_CU
+    flat = " ".join(SSD_SCAN_CU.split())
+    assert "const int64_t g = blockIdx.x / C, cell = blockIdx.x;" in flat
+    assert "chunks > MAX_CLUSTER ||" in flat
+    assert "attrs[0].val.clusterDim.x = f.chunks;" in flat
+    bf, f32 = torch.bfloat16, torch.float32
+    limit = ssd_kernel.SSD_MAX_CLUSTER
+    assert ssd_kernel.choose_fwd_route(bf, f32, f32, 256, 128, 64,
+                                       limit) == "A"
+    assert ssd_kernel.choose_fwd_route(bf, f32, f32, 256, 128, 64,
+                                       limit + 1) == "B"
+
+
+def test_ssd_fwd_route_a_shared_memory_fits_h100_at_the_limits():
+    """Route A's dynamic shared memory (``a_smem`` in ssd_scan.cu): 512
+    bytes of alignment slack, the chunk's B_j windows, its xdt_j split
+    windows (for the scan at least the state region, which shares their
+    memory and first holds the published fp32 tile), a C_i window for each
+    of the two warpgroups and 64 bytes of the published decay.  One block
+    an SM: at every Q up to 256 it fits a block's 227 KB."""
+    m = H100_SXM
+    for name, formula in (
+            ("A_STATE_WINDOW", r"A_HEAD_DIM \* A_STATE \* 2"),
+            ("A_STATE_BYTES", r"3 \* A_STATE_WINDOW"),
+            ("A_NB_BYTES", r"A_BLOCK \* A_STATE \* 2"),
+            ("A_X_WINDOW", r"A_BLOCK \* A_HEAD_DIM \* 2"),
+            ("A_NX_BYTES", r"3 \* A_X_WINDOW"),
+            ("A_PUB_BYTES", r"A_HEAD_DIM \* A_STATE \* 4"),
+            ("A_WINDOWS", r"Q_MAX / A_BLOCK")):
+        assert re.search(rf"constexpr int {name} =\s*{formula};",
+                         SSD_SCAN_CU), name
+    flat = " ".join(SSD_SCAN_CU.split())
+    assert ("return scan && windows * A_NX_BYTES < A_STATE_BYTES ? "
+            "A_STATE_BYTES : windows * A_NX_BYTES;") in flat
+    assert ("return 512 + windows * A_NB_BYTES + a_x_region(scan, windows) "
+            "+ 2 * A_NB_BYTES + 64;") in flat
+    n, p, rows = m.ssd_a_state, m.ssd_a_head_dim, m.ssd_a_block
+    state, nb, nx, pub = 3 * p * n * 2, rows * n * 2, 3 * rows * p * 2, \
+        p * n * 4
+
+    def smem(scan, windows):
+        x = state if scan and windows * nx < state else windows * nx
+        return 512 + windows * nb + x + 2 * nb + 64
+
+    assert state >= pub  # the published fp32 tile
+    windows = m.ssd_max_q // rows
+    assert (smem(True, windows), smem(True, 1)) == (197184, 98880)
+    for w in range(1, windows + 1):
+        for scan in (True, False):
+            assert smem(scan, w) <= m.vmem_bytes
+
+
+def test_ssd_scan_header_describes_both_routes():
+    """ssd_scan.cu's header comment states both routes, what bounds each
+    and what route A's design does about it."""
+    header = " ".join(SSD_SCAN_CU.split("#include")[0].replace("//", " ")
+                      .split())
+    for text in ("(A) bf16 C and B, fp32 L and xdt", "(B) everything else",
+                 "What bounds it on the H100: bytes", "thread-block cluster",
+                 "distributed shared memory", "wgmma", "three bf16 pieces",
+                 "two warpgroups", "What still bounds it",
+                 "Bound by its fp32 CUDA-core products"):
+        assert text in header, text
 
 
 def test_every_kernel_source_is_built():

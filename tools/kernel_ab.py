@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Device times of one of the port's kernels at chip_smoke.py's main-path
+cases, taken from the source tree ``--src``, so that two trees can be
+compared on one card in turns:
+
+    for t in old new new old; do
+        python3 tools/kernel_ab.py ssd_fwd --src $t/src
+    done
+
+Kernels and cases (chip_smoke.py's operands and shapes):
+
+  * ``decode`` -- the paged decode (``flash_decode``) at ``serve_ragged``:
+    8 slots of lengths 0-300, 16 query / 8 KV heads of 128, 96 pages of
+    16, 24 blocks, over bf16 and KV-int8 pools; warm and after a 64 MB L2
+    flush (CUDA graphs of 20 calls);
+  * ``ssd_fwd`` -- ``ssd_scan_fused`` at ``serve_model_dtypes`` (mamba2-130m
+    serving at batch 4 x 1000: 96 groups of 4 chunks of 256, state 128,
+    head dim 64, bf16 C / B, fp32 L and xdt) and ``train_model_dtypes``
+    (192 groups, with the entering states), and ``ssd_chunk_diag`` on
+    serving's 384 flattened cells;
+  * ``ssd_bwd`` -- ``ssd_scan_bwd`` at ``train_model_dtypes``;
+  * ``grouped_bwd`` -- ``grouped_bwd`` at phi3.5-moe training's
+    ``prefill_gate_silu`` and ``prefill_down`` cases.
+
+Each call prints one JSON line: the card's name and power limit, the tree,
+the kernel, and for each case the device milliseconds of one call
+(``device_ms``: a CUDA graph of the calls under CUDA events, chip_smoke's
+``graph_ms``), host-timed milliseconds (``ms``, chip_smoke's ``time_ms``)
+or the L2-cold device time (``cold_ms``), and the route it took where the
+tree counts routes.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _route(routes, call, torch):
+    """Runs call once; the routes it added to, where the tree counts
+    them."""
+    before = dict(routes) if routes is not None else None
+    call()
+    torch.cuda.synchronize()
+    return None if routes is None else \
+        [r for r, n in routes.items() if n != before[r]]
+
+
+def decode(torch, cs, gen):
+    from repro_torch.core import DecodeTileSchedule
+    from repro_torch.kernels.flash_attention.kernel import (FlashDecode,
+                                                            flash_decode)
+    from repro_torch.models.attention import quantize_kv_rows
+
+    S, P, B, h, hkv, hd = (cs.CONT_SLOTS, cs.CONT_PAGE, cs.CONT_BLOCKS, 16,
+                           8, 128)
+    lengths = (0, 1, 16, 17, 300, 255, 100, 33)
+    q = torch.randn((S, h, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((cs.CONT_PAGES, P, hkv, hd), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    perm = torch.randperm(cs.CONT_PAGES,
+                          generator=torch.Generator().manual_seed(3))
+    bt = torch.zeros((S, B), dtype=torch.int32)
+    used = 0
+    for slot, n in enumerate(-(-L // P) for L in lengths):
+        bt[slot, :n] = perm[used:used + n]
+        used += n
+    exe = FlashDecode(DecodeTileSchedule(num_seqs=S, pages=cs.CONT_PAGES,
+                                         page_size=P, max_blocks=B), "cuda")
+    exe.update(bt.cuda(), torch.tensor(lengths, dtype=torch.int32,
+                                       device="cuda"))
+    (kq, ks), (vq, vs) = (quantize_kv_rows(t) for t in (k, v))
+    flush = torch.empty(cs.L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    out = {}
+    for name, fn in (("bf16", lambda: flash_decode(exe, q, k, v)),
+                     ("int8", lambda: flash_decode(exe, q, kq, vq, ks, vs))):
+        out[name] = dict(device_ms=cs.graph_ms(torch, fn),
+                         cold_ms=cs.graph_ms(torch, fn, flush=flush))
+    return out
+
+
+def ssd_fwd(torch, cs, gen):
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+
+    cases = {c[0]: c for c in cs.ssd_cases()}
+    routes = getattr(sk, "SSD_FWD_ROUTES", None)
+    out = {}
+    for label, kname in (("serve_model_dtypes", "ssd_scan_fused"),
+                         ("train_model_dtypes", "ssd_scan_fused"),
+                         ("serve_model_dtypes", "ssd_chunk_diag")):
+        _, shape, dtypes, _ = cases[label]
+        ops = cs._ssd_operands(torch, shape, dtypes, gen)
+        if kname == "ssd_chunk_diag":
+            g, nc = shape[:2]
+            flat = [t.reshape(g * nc, *t.shape[2:]) for t in ops[:4]]
+
+            def call(flat=flat):
+                return sk.ssd_chunk_diag(*flat)
+        else:
+            states = label.startswith("train")
+
+            def call(ops=ops, states=states):
+                return sk.ssd_scan_fused(*ops, return_states=states)
+        route = _route(routes, call, torch)
+        out[f"{kname}:{label}"] = dict(
+            device_ms=cs.graph_ms(torch, call, iters=5),
+            ms=cs.time_ms(torch, call, 10), route=route)
+        del ops
+    return out
+
+
+def ssd_bwd(torch, cs, gen):
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+
+    label, shape, dtypes, _ = next(c for c in cs.ssd_cases()
+                                   if c[0] == "train_model_dtypes")
+    ops = cs._ssd_operands(torch, shape, dtypes, gen)
+    _, _, states = sk.ssd_scan_fused_plain(*ops, return_states=True)
+    dy = torch.randn(ops[3].shape, generator=gen, device="cuda")
+    dsf = torch.randn(ops[6].shape, generator=gen, device="cuda")
+
+    def bwd():
+        return sk.ssd_scan_bwd(*ops[:6], states, dy, dsf)
+
+    route = _route(getattr(sk, "SSD_BWD_ROUTES", None), bwd, torch)
+    return {label: dict(device_ms=cs.graph_ms(torch, bwd, iters=5),
+                        ms=cs.time_ms(torch, bwd, 10), route=route)}
+
+
+def grouped_bwd(torch, cs, gen):
+    from repro_torch.core import GroupedGemmDescriptor, plan_grouped
+    from repro_torch.kernels.grouped_gemm import kernel as grk
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    out = {}
+    for case in cs.grouped_cases():
+        label, sizes, extra, k, n, epi = case[:6]
+        if label not in ("prefill_gate_silu", "prefill_down"):
+            continue
+        e, t = len(sizes), sum(sizes) + extra
+        x = torch.randn((t, k), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((e, k, n), generator=gen, device="cuda")
+             * k ** -0.5).bfloat16()
+        dy = torch.randn((t, n), generator=gen, device="cuda")
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        plan = plan_grouped(GroupedGemmDescriptor(
+            t=t, k=k, n=n, num_experts=e, dtype="bfloat16", epilogue=epi))
+        table = plan.tile_schedule().tables(gs)
+
+        def bwd():
+            return grk.grouped_bwd(table, x, dy, w, gs, bm=plan.bm)
+
+        route = _route(getattr(grk, "BWD_ROUTES", None), bwd, torch)
+        out[label] = dict(device_ms=cs.graph_ms(torch, bwd, iters=3),
+                          ms=cs.time_ms(torch, bwd, 5), route=route,
+                          bm=plan.bm)
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+KERNELS = {"decode": decode, "ssd_fwd": ssd_fwd, "ssd_bwd": ssd_bwd,
+           "grouped_bwd": grouped_bwd}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=sorted(KERNELS))
+    ap.add_argument("--src", required=True,
+                    help="the src/ directory whose repro_torch is timed")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = KERNELS[args.kernel](torch, cs, gen)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"card": smi, "src": args.src, "kernel": args.kernel,
+                      **out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
