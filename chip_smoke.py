@@ -62,9 +62,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 groups' sum), each row naming its route (a main-path row
                 off route A fails), the decode rows also their device time
                 (CUDA graphs, beside torch.bmm's) and on pinned bm 16 and
-                64 tiles; then the transpose (fig89's panel,
-                Qwen3's tied table, a ragged batch read from a padded view
-                holding NaN: bit-exact), the quantized GEMM (Qwen3's seven
+                64 tiles; then the transpose (fig89's panel and
+                Qwen3's tied table on route A, route A at every other
+                element size, a ragged batch read from a padded view
+                holding NaN among them, and route B on a view TMA cannot
+                address: bit-exact, each row naming its route, a main-path
+                row off route A failing, with its device time warm and
+                L2-cold beside the library's), the quantized GEMM (Qwen3's seven
                 projection shapes at decode and prefill rows under W8A16,
                 int8 and fp8), paged decode over KV-int8 pools (as the
                 bf16 decode rows) and the
@@ -173,6 +177,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 train_moe backward off route A (TMA ring, wgmma, the fp32
                 cotangent split into bf16 hi + lo) fails, and so does a run
                 whose kernel rows never took route C or fp32;
+     transpose_routes -- the routes of the transpose in every phase: a
+                gemm_transpose call off route A (a persistent TMA ring, the
+                output tile stored whole) fails, and so does a run whose
+                kernel rows never took route B;
  10. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
@@ -184,7 +192,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 case's route, ``ssd_routes``; the
                 grouped backward's with its device times, its fp32
                 CUDA-core operation time and every case's route,
-                ``grouped_bwd_routes``),
+                ``grouped_bwd_routes``; the transpose's with its device
+                times, warm and L2-cold, and every case's route,
+                ``transpose_routes``),
                 then the
                 card's nvidia-smi line, then
  11. the last line: {"ok": true, "device": {...}}.
@@ -485,6 +495,26 @@ def main():
     for want in ("C", "fp32"):
         if want not in gbwd_rows.values():
             fail(f"no grouped_bwd row ran route {want}: {gbwd_rows}")
+    # Every transpose of the main path (the two-pass GEMM's first pass, a
+    # contiguous table) is one TMA can address: route A (a persistent TMA
+    # ring, the output tile stored whole).  Route B must have run off the
+    # path.  (A main-path kernel row off route A has failed in its case
+    # already.)
+    tr_routes = {p: {r: c.get(f"transpose_route_{r}", 0) for r in ("A", "B")}
+                 for p, c in by_path.items()}
+    tr_rows = {r["case"]: r["route"] for r in results
+               if r["kernel"] == "transpose"}
+    emit(phase="transpose_routes", by_path=tr_routes, kernel_rows=tr_rows)
+    off_a = {p: r for p, r in tr_routes.items() if r["B"]}
+    if off_a:
+        fail(f"main-path transposes left route A: {off_a}")
+    if not by_path["gemm_transpose"]["transpose"] or \
+            tr_routes["gemm_transpose"]["A"] != \
+            by_path["gemm_transpose"]["transpose"]:
+        fail(f"gemm_transpose: {tr_routes['gemm_transpose']['A']} route-A "
+             f"transposes, {by_path['gemm_transpose']['transpose']} launches")
+    if "B" not in tr_rows.values():
+        fail(f"no transpose row ran route B: {tr_rows}")
     kernels = []
     for kname, meta in KERNELS.items():
         paths = {p: c[kname] for p, c in by_path.items() if c.get(kname)}
@@ -527,6 +557,9 @@ def main():
             **(_grouped_bwd_sums(rows, [r for r in results
                                         if r["kernel"] == kname])
                if kname == "grouped_bwd" else {}),
+            **(_transpose_sums(rows, [r for r in results
+                                      if r["kernel"] == kname])
+               if kname == "transpose" else {}),
             "cases": len(rows)})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -638,6 +671,16 @@ def _grouped_bwd_sums(rows, all_rows):
             "device_library_ms": sum(r["device_library_ms"] for r in rows),
             "fp32_op_ms": sum(r["fp32_op_ms"] for r in rows),
             "grouped_bwd_routes": {r["case"]: r["route"] for r in all_rows}}
+
+
+def _transpose_sums(rows, all_rows):
+    """The transpose's main-path device times, warm and L2-cold (CUDA
+    graphs), beside the library's, and the route every case took
+    (``transpose_routes``, off-path cases too)."""
+    out = {key: sum(r[key] for r in rows) for key in
+           ("device_ms", "cold_ms", "device_library_ms", "cold_library_ms")}
+    out["transpose_routes"] = {r["case"]: r["route"] for r in all_rows}
+    return out
 
 
 DECODE_KERNELS = ("flash_decode", "flash_decode_int8")
@@ -1923,54 +1966,98 @@ def run_grouped_case(torch, case, gen):
 
 
 def transpose_cases():
-    """(label, (nb, rows, cols), dtype, padded source view, main): the
-    §IV-C panel at fig89's shape, Qwen3-0.6B's tied table (the read-out's
-    B, 151,936 x 1,024 bf16, 311 MB each way) and a ragged batched case
-    read from a padded view whose padding holds NaN."""
-    return [("fig89_256x512", (1, 256, 512), "float32", False, True),
-            ("qwen3_tied_table", (1, 151936, 1024), "bfloat16", False, True),
-            ("ragged_batched_padded", (3, 1000, 777), "float32", True,
+    """(label, (nb, rows, cols), dtype, (row pad, column pad) of a padded
+    source view or None, main): the §IV-C panel at fig89's shape and
+    Qwen3-0.6B's tied table (the read-out's B, 151,936 x 1,024 bf16, 311 MB
+    each way) on route A; off the main path route A at every other element
+    size (a ragged fp32 batch read from a view whose padding holds NaN,
+    int8, a padded float64 batch) and route B on a bf16 batch read from a
+    view padded by 3 columns, whose 1560-byte row stride TMA cannot take."""
+    return [("fig89_256x512", (1, 256, 512), "float32", None, True),
+            ("qwen3_tied_table", (1, 151936, 1024), "bfloat16", None, True),
+            ("ragged_batched_padded", (3, 1000, 777), "float32", (5, 11),
+             False),
+            ("route_a_int8", (2, 1008, 528), "int8", None, False),
+            ("route_a_f64_padded", (2, 998, 130), "float64", (2, 2), False),
+            ("route_b_bf16_padded", (2, 999, 777), "bfloat16", (0, 3),
              False)]
+
+
+def _transpose_source(torch, shape, dname, pad, gen):
+    """The case's source: normal draws (integers in [-100, 100) for int8),
+    as a view into a buffer padded by ``pad`` rows and columns that holds
+    NaN (77 for int8) past the view, where ``pad`` is given."""
+    dt = getattr(torch, dname)
+    if dt.is_floating_point:
+        data = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    else:
+        data = torch.randint(-100, 100, shape, generator=gen, device="cuda",
+                             dtype=dt)
+    if pad is None:
+        return data
+    nb, rows, cols = shape
+    base = torch.full((nb, rows + pad[0], cols + pad[1]),
+                      float("nan") if dt.is_floating_point else 77,
+                      device="cuda", dtype=dt)
+    x = base[:, :rows, :cols]
+    x.copy_(data)
+    return x
 
 
 def run_transpose_case(torch, case, gen):
     """transpose_tiles at the planned tile edge against its plain version:
-    bit-exact, nothing read past the view's extent; the library is
+    bit-exact, nothing read past the view's extent, on the route
+    choose_route names (a main-path row off route A fails); host-timed,
+    device (CUDA graph) and L2-cold device times beside the library's,
     ``x.transpose(-2, -1).contiguous()``."""
     from repro_torch.core import TransposeDescriptor, plan_transpose
+    from repro_torch.kernels.transpose import kernel as tk
     from repro_torch.kernels.transpose.kernel import (transpose_plain,
                                                       transpose_tiles)
-    label, (nb, rows, cols), dname, padded, main_path = case
-    dt = getattr(torch, dname)
-    data = torch.randn((nb, rows, cols), generator=gen, device="cuda").to(dt)
-    if padded:
-        base = torch.full((nb, rows + 5, cols + 11), float("nan"),
-                          device="cuda", dtype=dt)
-        x = base[:, :rows, :cols]
-        x.copy_(data)
-    else:
-        x = data
+    label, (nb, rows, cols), dname, pad, main_path = case
+    x = _transpose_source(torch, (nb, rows, cols), dname, pad, gen)
     bt = plan_transpose(TransposeDescriptor(rows=rows, cols=cols, dtype=dname,
                                             batch=nb)).bt
+    before = dict(tk.TRANSPOSE_ROUTES)
     got, want = transpose_tiles(x, bt=bt), transpose_plain(x, bt=bt)
     torch.cuda.synchronize()
+    took = [r for r, n in tk.TRANSPOSE_ROUTES.items() if n != before[r]]
+    route = took[0] if len(took) == 1 else str(took)
     exact = bool(torch.equal(got, want))
     nan = bool(torch.isnan(got.float()).any())
+    max_abs = (got.float() - want.float()).abs().max().item()
+    del got, want
+
+    def kern():
+        return transpose_tiles(x, bt=bt)
+
+    def library():
+        return x.transpose(-2, -1).contiguous()
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
     row = dict(phase="kernel", kernel="transpose", case=label,
                main_path=main_path, shape=[nb, rows, cols], dtype=dname,
-               tile=bt, padded_view=padded,
-               max_abs_err=(got.float() - want.float()).abs().max().item(),
+               tile=bt, padded_view=pad is not None, route=route,
+               max_abs_err=max_abs,
                bit_exact=exact, nan_in_output=nan,
-               ms=time_ms(torch, lambda: transpose_tiles(x, bt=bt), 20),
+               ms=time_ms(torch, kern, 20),
                plain_ms=time_ms(torch, lambda: transpose_plain(x, bt=bt), 3),
-               library_ms=time_ms(
-                   torch, lambda: x.transpose(-2, -1).contiguous(), 20),
+               library_ms=time_ms(torch, library, 20),
+               device_ms=graph_ms(torch, kern),
+               cold_ms=graph_ms(torch, kern, flush=flush),
+               device_library_ms=graph_ms(torch, library),
+               cold_library_ms=graph_ms(torch, library, flush=flush),
                library="x.transpose(-2, -1).contiguous()",
-               **bound(2 * nb * rows * cols * x.element_size(), 0, dname))
+               # A copy: bytes only (no operations to price in any dtype).
+               **bound(2 * nb * rows * cols * x.element_size(), 0, "float32"))
     emit(**row)
     if not exact or nan:
         fail(f"transpose {label}: not bit-exact against its plain version "
              f"(or NaN from outside the view reached the output)")
+    if main_path and route != "A":
+        fail(f"transpose {label}: a main-path transpose took route {route}, "
+             f"not A")
     return [row]
 
 
@@ -2409,7 +2496,7 @@ def _read_counts():
     launches = {}
     for mod in _kernel_modules():
         launches.update(mod.LAUNCHES)
-    gk, fk, sk, grk, _ = _kernel_modules()
+    gk, fk, sk, grk, tk = _kernel_modules()
     launches.update({f"gemm_route_{r}": n for r, n in gk.ROUTES.items()})
     launches.update({f"grouped_route_{r}": n for r, n in grk.ROUTES.items()})
     launches.update({f"grouped_bwd_route_{r}": n
@@ -2427,6 +2514,8 @@ def _read_counts():
                      for r, n in sk.SSD_FWD_ROUTES.items()})
     launches.update({f"ssd_bwd_route_{r}": n
                      for r, n in sk.SSD_BWD_ROUTES.items()})
+    launches.update({f"transpose_route_{r}": n
+                     for r, n in tk.TRANSPOSE_ROUTES.items()})
     return {**launches,
             "engine_transpose_launches": st.get("transpose", {})
             .get("launches", 0),

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the planned GEMM (gemm.cu), in inline
 // PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors, the
 // bf16 and int8 warpgroup products, cluster barriers and distributed shared
-// memory.  The quantized GEMMs (quant_sm90.cuh) use them too.
+// memory.  The quantized GEMMs (quant_sm90.cuh) use them too, and the
+// transpose (transpose.cu) its TMA loads and stores.
 //
 // Shared-memory layouts (what TMA writes and what the descriptors read):
 //   * K-major panels (A, and B of the "nt" layout): rows of BK = 32 bf16,
@@ -87,8 +88,48 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Brings a tensor map (a __grid_constant__ kernel parameter) into the
+// descriptor cache ahead of its first TMA use.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// One box of shared memory into a 3-D tensor map (innermost coordinate
+// first), in the thread's current bulk group; TMA clips what lies past the
+// map's extent.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the thread's bulk groups are still reading
+// their shared memory (the source may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of the thread's bulk groups are incomplete (their
+// writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Generic-proxy shared-memory writes made visible to the async proxy
-// (wgmma reads), and async-proxy reads ordered before later generic writes.
+// (wgmma reads, TMA stores), and async-proxy reads ordered before later
+// generic writes.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -17,6 +17,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
 from repro_torch.kernels.ssd_chunk import kernel as ssd_kernel
+from repro_torch.kernels.transpose import kernel as transpose_kernel
 
 KERNELS = Path(gemm_kernel.__file__).resolve().parents[1]
 # gemm.cu with the header that holds its bf16 tile (the ring's constants
@@ -33,6 +34,7 @@ SSD_CSRC = KERNELS / "ssd_chunk" / "csrc"
 SSD_COMMON = (SSD_CSRC / "ssd_common.cuh").read_text()
 SSD_SCAN_CU = (SSD_CSRC / "ssd_scan.cu").read_text()
 SSD_BWD_CU = (SSD_CSRC / "ssd_scan_bwd.cu").read_text()
+TRANSPOSE_CU = (KERNELS / "transpose" / "csrc" / "transpose.cu").read_text()
 
 
 def _constexpr(src, name):
@@ -733,3 +735,64 @@ def test_grouped_bwd_route_a_constants_and_shared_memory(bm):
     assert grouped_kernel._BWD_ROUTE_CODE == {"A": 0, "C": 2, "fp32": 3}
     assert set(grouped_kernel.BWD_ROUTES) == {"A", "C", "fp32"}
     assert '#include "../../ssd_chunk/csrc/ssd_sm90.cuh"' in GROUPED_CU
+
+
+def test_transpose_route_a_constants_match_kernel_py_and_machine():
+    """transpose.cu's tile edges are H100_SXM.transpose_tiles, its ring
+    (stages, output tiles, the widest box row) and route codes are
+    kernel.py's, and it takes its mbarriers, TMA loads and stores from
+    gemm_sm90.cuh and the tensor-map encoder from wgmma_tile.cuh."""
+    tk = transpose_kernel
+    assert (_constexpr(TRANSPOSE_CU, "BT_SMALL"),
+            _constexpr(TRANSPOSE_CU, "BT_LARGE")) == \
+        H100_SXM.transpose_tiles == tk.TILE_EDGES
+    assert _constexpr(TRANSPOSE_CU, "A_STAGES") == tk.RING_STAGES
+    assert _constexpr(TRANSPOSE_CU, "OUT_TILES") == tk.OUT_TILES
+    assert _constexpr(TRANSPOSE_CU, "BOX_BYTES") == tk.BOX_BYTES == 128
+    assert tk.RING_STAGES in (3, 4) and tk.OUT_TILES == 2
+    assert "enum { ROUTE_A = 0, ROUTE_B = 1 };" in TRANSPOSE_CU
+    assert tk._ROUTE_CODE == {"A": 0, "B": 1}
+    assert '#include "../../gemm/csrc/gemm_sm90.cuh"' in TRANSPOSE_CU
+    assert "wgt::encode_tiled()" in TRANSPOSE_CU
+    for fn in ("mbar_expect_tx", "tma_load_3d", "tma_store_3d",
+               "bulk_wait_read<0>", "fence_proxy_async"):
+        assert f"sm90::{fn}" in TRANSPOSE_CU, fn
+    flat = " ".join(TRANSPOSE_CU.split())
+    assert "return elem * bt < BOX_BYTES ? elem * bt : BOX_BYTES;" in flat
+    for elem in (1, 2, 4, 8):
+        for bt in H100_SXM.transpose_tiles:
+            assert tk.box_row(elem, bt) == min(elem * bt, 128)
+
+
+def test_transpose_route_a_shared_memory_fits_h100():
+    """Route A's dynamic shared memory (``a_smem``: 1024 bytes of
+    alignment slack, A_STAGES staged tiles and OUT_TILES output tiles, an
+    mbarrier a stage) is kernel.py's ring_smem_bytes and fits a block's
+    227 KB at every element size and tile edge."""
+    flat = " ".join(TRANSPOSE_CU.split())
+    assert ("return 1024 + (A_STAGES + OUT_TILES) * tile_bytes(elem, bt) + "
+            "A_STAGES * 8;") in flat
+    assert "return elem * bt * bt;" in flat
+    assert 'static_assert(a_smem(8, BT_LARGE) <= 232448' in flat
+    for elem in (1, 2, 4, 8):
+        for bt in H100_SXM.transpose_tiles:
+            want = 1024 + 6 * elem * bt * bt + 32
+            assert transpose_kernel.ring_smem_bytes(elem, bt) == want
+            assert want <= 232448
+
+
+def test_transpose_walk_and_route_check_mirror_kernel_py():
+    """The kernel's tile walk (``a_tile``) and route-A check
+    (``route_a_ok``) are the arithmetic of kernel.py's walk_tile and
+    choose_route."""
+    flat = " ".join(TRANSPOSE_CU.split())
+    for line in ("b = (int)(t / per_batch);",
+                 "i = (int)(u / f.tj);", "j = (int)(u % f.tj);",
+                 "a_tile(blockIdx.x + it * grid, f, b, i, j);",
+                 "(elem == 1 || elem == 2 || elem == 4 || elem == 8)",
+                 "reinterpret_cast<uintptr_t>(x) % 16 == 0",
+                 "row_stride * elem % 16 == 0 && batch_stride * elem % 16 "
+                 "== 0", "(long long)rows * elem % 16 == 0",
+                 "const long long lim = 1LL << 40;"):
+        assert line in flat, line
+    assert transpose_kernel.TMA_STRIDE_LIMIT == 1 << 40

@@ -20,7 +20,15 @@ Kernels and cases (chip_smoke.py's operands and shapes):
     serving's 384 flattened cells;
   * ``ssd_bwd`` -- ``ssd_scan_bwd`` at ``train_model_dtypes``;
   * ``grouped_bwd`` -- ``grouped_bwd`` at phi3.5-moe training's
-    ``prefill_gate_silu`` and ``prefill_down`` cases.
+    ``prefill_gate_silu`` and ``prefill_down`` cases;
+  * ``transpose`` -- ``transpose_tiles`` at ``fig89_256x512`` (256 x 512
+    fp32) and ``qwen3_tied_table`` (151,936 x 1,024 bf16), warm and after a
+    64 MB L2 flush (CUDA graphs of 20 calls), beside ``x.transpose(-2,
+    -1).contiguous()`` and ``x.clone()`` (the card's copy rate on the same
+    bytes); the other tile edge (``<case>:bt=<edge>``) and, where the tree
+    counts routes, route B on the same view (``<case>:route=B``); the small
+    case also its host microseconds a call (``host_us``: the least of 5
+    runs of 200 calls on the host clock).
 
 Each call prints one JSON line: the card's name and power limit, the tree,
 the kernel, and for each case the device milliseconds of one call
@@ -35,6 +43,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -164,8 +173,74 @@ def grouped_bwd(torch, cs, gen):
     return out
 
 
+def transpose(torch, cs, gen):
+    from repro_torch.core import TransposeDescriptor, plan_transpose
+    from repro_torch.kernels.transpose import kernel as tk
+
+    flush = torch.empty(cs.L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    routes = getattr(tk, "TRANSPOSE_ROUTES", None)
+    choose = getattr(tk, "choose_route", None)
+    out = {}
+    for label, shape, dname, pad, main_path in cs.transpose_cases():
+        if not main_path:
+            continue
+        x = cs._transpose_source(torch, shape, dname, pad, gen)
+        nb, rows, cols = shape
+        bt = plan_transpose(TransposeDescriptor(rows=rows, cols=cols,
+                                                dtype=dname, batch=nb)).bt
+
+        def call(x=x, bt=bt):
+            return tk.transpose_tiles(x, bt=bt)
+
+        def host_us(fn, n=200, reps=5):
+            # Host microseconds a call, the least of `reps` runs of `n`
+            # calls (the host's noise only adds): the launches keep ahead
+            # of the card.
+            best = float("inf")
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                best = min(best, time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            return best / n * 1e6
+
+        def library(x=x):
+            return x.transpose(-2, -1).contiguous()
+
+        # The planned route, then route B on the same view where the tree
+        # has routes.
+        for suffix in ("", ":route=B")[:1 if choose is None else 2]:
+            if suffix:
+                tk.choose_route = lambda *a: "B"
+            route = _route(routes, call, torch)
+            out[label + suffix] = dict(
+                device_ms=cs.graph_ms(torch, call),
+                cold_ms=cs.graph_ms(torch, call, flush=flush),
+                ms=cs.time_ms(torch, call, 20), route=route, tile=bt,
+                **({"host_us": host_us(call)} if rows * cols < 1 << 20
+                   else {}))
+            tk.choose_route = choose
+        for other in tk.TILE_EDGES:
+            if other != bt:
+                out[f"{label}:bt={other}"] = dict(device_ms=cs.graph_ms(
+                    torch, lambda x=x, other=other: tk.transpose_tiles(
+                        x, bt=other)))
+        out[label + ":library"] = dict(
+            device_ms=cs.graph_ms(torch, library),
+            cold_ms=cs.graph_ms(torch, library, flush=flush),
+            ms=cs.time_ms(torch, library, 20))
+        # The card's copy rate on the same bytes: a yardstick, not a bound.
+        out[label + ":copy"] = dict(device_ms=cs.graph_ms(torch, x.clone))
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = {"decode": decode, "ssd_fwd": ssd_fwd, "ssd_bwd": ssd_bwd,
-           "grouped_bwd": grouped_bwd}
+           "grouped_bwd": grouped_bwd, "transpose": transpose}
 
 
 def main() -> int:
