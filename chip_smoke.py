@@ -16,7 +16,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 and of mamba2-130m (its projections and read-out; the SSD
                 scan at serving, 96 groups x 4 chunks of 256, and training,
                 192 groups with the entering states; the diag form
-                flattened)
+                flattened), of phi3-mini-3.8b (its prefill and training
+                attention at head dim 96), starcoder2-15b (its biased gelu
+                up projection) and grok-1-314b (its gelu gate at the 8 x
+                6144 x 32,768 expert bank)
                 and ragged cases, with errors, kernel / plain /
                 library times (CUDA events) and the bound; the GEMM rows
                 also on cases that drive each route of gemm.cu (every
@@ -181,7 +184,24 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 gemm_transpose call off route A (a persistent TMA ring, the
                 output tile stored whole) fails, and so does a run whose
                 kernel rows never took route B;
- 10. the ``kernels`` line (the GEMM rows with their large-M and decode
+ 10. serve_qwen2p5 / serve_phi3_mini / serve_starcoder2 / serve_grok --
+                qwen2.5-3b (36 layers), phi3-mini-3.8b (32), starcoder2-15b
+                (24 of its 40: fp32 masters) and grok-1-314b (2 of its 64)
+                at their published widths, every bias and norm leaf drawn
+                from a seeded generator, as serve: launch counts from each
+                model's structure (starcoder2's two MLP GEMMs a layer,
+                phi3-mini's read-out of 32,064 as two region launches, no
+                flash launch for grok, whose attention softcap keeps
+                attention in plain torch), prefill logits against the torch
+                backend (grok with the engine's routing replayed), block
+                0's input against the table (times sqrt(d) under grok's
+                embed_scale), logits within the final softcap, a profile of
+                two decode steps each;
+     train_qwen2p5 / train_phi3_mini / train_starcoder2 -- as train at 36,
+                8 and 2 layers, with drawn bias and norm leaves and no
+                checkpoint (13-37 GB a checkpoint: two would pass what the
+                card's machine lets a run write);
+ 11. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
                 times and every case's route, ``flash_routes``, the
@@ -197,7 +217,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 ``transpose_routes``),
                 then the
                 card's nvidia-smi line, then
- 11. the last line: {"ok": true, "device": {...}}.
+ 12. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
 """
@@ -265,6 +285,28 @@ SSM_TRAIN_SEQ = 1024
 # and training 2 (45.8 GB with gradients and AdamW's m and v).  Serving and
 # training use the batches above.
 MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "phi3.5-moe-42b", 4, 2
+
+# The remaining decoder configurations at their published widths: (arch,
+# phase tag, layers served, layers trained), None for full depth and 0 for
+# no training on the card.  Served at the batches above; trained at 8 x
+# 128.  qwen2.5-3b's fp32 masters are 12.3 GB and its training state 49
+# GB: full depth both ways.  phi3-mini-3.8b's masters are 15.3 GB, its
+# training state 61 GB before activations: 8 layers trained.  starcoder2-15b
+# has 1.54 GB of masters a layer and 2.4 GB of tables: 24 layers served, 2
+# trained.  grok-1-314b has 19.7 GB a layer and 6.4 GB of tables: 2
+# layers served, and one layer's training state (79 GB) does not fit.
+ARCH_RUNS = (("qwen2.5-3b", "qwen2p5", None, None),
+             ("phi3-mini-3.8b", "phi3_mini", None, 8),
+             ("starcoder2-15b", "starcoder2", 24, 2),
+             ("grok-1-314b", "grok", 2, 0))
+# What a run may write to the card's machine's disk, deleted files
+# included: the machine ends a command past it.  The train phase's two
+# Qwen3 checkpoints write 14.4 GB of it; the larger models' training
+# states (13-37 GB a checkpoint) are not checkpointed.
+CKPT_WRITE_GIB = 45
+# Block 0's input against the table's rows (times sqrt(d) under
+# embed_scale), elementwise relative: three bf16 roundings of 2^-9.
+EMBED_TOL = 1e-2
 
 
 def emit(**kw):
@@ -355,6 +397,8 @@ def main():
     counts_train_moe = phase_train(
         torch, name="train_moe", cfg=_moe_cfg(MOE_TRAIN_LAYERS), resume=False,
         extra={"reduced": _moe_reduced(MOE_TRAIN_LAYERS)})
+    torch.cuda.empty_cache()
+    counts_archs = phase_arch_runs(torch)
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
                "continuous": counts_cont, "train": counts_train,
@@ -364,7 +408,7 @@ def main():
                "train_moe": counts_train_moe,
                "gemm_transpose": counts_transpose,
                "continuous_quant": counts_cont_quant,
-               "serve_moe_quant": counts_moe_quant}
+               "serve_moe_quant": counts_moe_quant, **counts_archs}
     # Every wide GEMM of the main path reads TMA-legal operands: route C
     # (loads through registers) is for operands off it.
     routes = {p: {r: c.get(f"gemm_route_{r}", 0) for r in ("A", "B", "C",
@@ -810,6 +854,11 @@ def gemm_cases():
     cases += [("moe_readout", BATCH, mvocab, md, "nn", None),
               ("moe_train_readout", TRAIN_BATCH * TRAIN_SEQ, mvocab, md,
                "nn", None)]
+    # starcoder2-15b's non-gated MLP: the up projection (d 6144 -> d_ff
+    # 24,576) with its bias and the gelu fused, at the serving prefill (=
+    # training) rows.
+    cases.append(("starcoder2_prefill_up_bias_gelu", BATCH * PROMPT, 24576,
+                  6144, "nn", "bias_gelu"))
     cases = [c + ("bfloat16", False, 0, True) for c in cases]
     # The kernel's routes off the main path: every epilogue with and
     # without C_in, batches of 3, K below one panel and K off the ring's
@@ -1040,11 +1089,16 @@ HEAD_SCALES = (1.0, 1e3, 1e-3, 30.0)
 
 def flash_cases():
     """(label, bh, sq, sk, d, causal, dtype, main, head_scales): the
-    main-path shapes (route A), then ragged bf16 cases on route A, a bf16
-    head dim whose rows TMA cannot read (d 36: route C) and fp32 cases."""
+    main-path shapes (route A; head dims 128 and phi3-mini's 96), then
+    ragged bf16 cases on route A, a bf16 head dim whose rows TMA cannot
+    read (d 36: route C) and fp32 cases."""
     return [("prefill_causal", BATCH * 16, PROMPT, PROMPT, 128, True,
              "bfloat16", True, None),
             ("moe_prefill_causal", BATCH * 32, PROMPT, PROMPT, 128, True,
+             "bfloat16", True, None),
+            # phi3-mini-3.8b's prefill: 32 heads of 96, route A's DN 128
+            # instantiation over 96-column rows.
+            ("phi3_prefill_causal_d96", BATCH * 32, PROMPT, PROMPT, 96, True,
              "bfloat16", True, None),
             ("ragged_causal_100", 8, 100, 100, 128, True, "bfloat16", False,
              None),
@@ -1146,7 +1200,8 @@ def run_flash_case(torch, case, gen):
 
 def flash_bwd_cases():
     """(label, bh, sq, sk, d, causal, dtype, main): the training shapes
-    (batch 8 x 16 heads of Qwen3, 8 x 32 of phi3.5-moe, sequence 128),
+    (batch 8 x 16 heads of Qwen3, 8 x 32 of phi3.5-moe and of phi3-mini,
+    whose heads are 96 wide; sequence 128),
     route A's edges in bf16 (ragged non-causal windows with sk > sq at d
     96, a clamped causal case), a bf16 head dim whose rows TMA cannot read
     (d 36: route C) and ragged fp32 cases."""
@@ -1154,6 +1209,8 @@ def flash_bwd_cases():
              True, "bfloat16", True),
             ("moe_train_causal", TRAIN_BATCH * 32, TRAIN_SEQ, TRAIN_SEQ,
              128, True, "bfloat16", True),
+            ("phi3_train_causal_d96", TRAIN_BATCH * 32, TRAIN_SEQ, TRAIN_SEQ,
+             96, True, "bfloat16", True),
             ("ragged_noncausal_100x130_d96", 6, 100, 130, 96, False,
              "bfloat16", False),
             ("clamped_causal_100", 8, 100, 100, 128, True, "bfloat16",
@@ -1638,8 +1695,9 @@ def grouped_cases():
     of 256 rows at prefill (batch 4 x 256) and training (8 x 128), of 32
     at decode; up and gate (silu) are d 4096 -> d_ff 6400, down the
     reverse, all bf16, and training runs the backward at the prefill
-    shapes.  Then ragged cases: sums below T, empty experts, groups
-    smaller than bm, K and N tails, every epilogue.  Then the bf16 wgmma
+    shapes; grok-1-314b's gate (gelu) at its prefill, 8 groups of 512
+    rows, d 6144 -> 32,768.  Then ragged cases: sums below T, empty
+    experts, groups smaller than bm, K and N tails, every epilogue.  Then the bf16 wgmma
     tile off the main path: every epilogue with and without bias, every
     (bm, bn) of SHAPES pinned, row-aware tiles (groups of 1, 17, 32, 64
     and 65 rows on bm 128 and bm 64 tiles, an empty expert), K below one
@@ -1658,6 +1716,11 @@ def grouped_cases():
         ("decode_gate_silu", [32] * 16, 0, d, ff, "silu", bf, None, True,
          False),
         ("decode_down", [32] * 16, 0, ff, d, None, bf, None, True, False),
+        # grok-1-314b's gate (gelu) at its bank, 8 experts of d 6144 -> d_ff
+        # 32,768: top-2 routing of the serving prefill's 1024 tokens in
+        # groups of 32 gives 16 capacity slots an expert a group, 512 rows.
+        ("grok_prefill_gate_gelu", [512] * 8, 0, 6144, 32768, "gelu", bf,
+         None, True, False),
         ("ragged_f32_bias_silu", [37, 0, 201, 70], 4, 100, 70, "bias_silu",
          f32, (16, 64), False, True),
         ("ragged_f32_gelu_small_groups", [5, 3, 2, 1, 0], 7, 129, 200, "gelu",
@@ -2922,7 +2985,10 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _train_parts(torch, cfg, seq):
+def _train_parts(torch, cfg, seq, draw=False):
+    """(make_state, batch_fn, step_fn); ``draw`` redraws every bias and norm
+    leaf of each fresh model (:func:`_draw_leaves`), the same values each
+    time."""
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import LanguageModel
     from repro_torch.optim import adamw, warmup_cosine
@@ -2932,6 +2998,8 @@ def _train_parts(torch, cfg, seq):
 
     def make_state():
         model = LanguageModel(cfg, device="cuda", seed=0)
+        if draw:
+            _draw_leaves(torch, model)
         return model, opt.init(dict(model.named_parameters()))
 
     def batch_fn(step):
@@ -3014,17 +3082,45 @@ def _train_want(cfg):
                 "ssd_chunk_diag": 0, "ssd_scan_bwd": L,
                 "engine_ssd_launches": L, "engine_ssd_launches_bwd": L,
                 "flash_fwd_fused": 0, "flash_bwd_fused": 0}
-    return {"gemm_fused": 7 * L + 1, "gemm_region": 0,
-            "flash_fwd_fused": L, "flash_fwd_dense": 0,
-            "flash_bwd_fused": L, "engine_flash_launches": L,
-            "engine_flash_launches_bwd": L}
+    # a dense decoder: its GEMMs and flash once a layer each way, or none
+    # where the attention softcap keeps attention in plain torch
+    flash = _flash_calls(cfg)
+    return {**_gemm_want(cfg, 1), "flash_fwd_fused": flash,
+            "flash_fwd_dense": 0, "flash_bwd_fused": flash,
+            "engine_flash_launches": flash,
+            "engine_flash_launches_bwd": flash}
+
+
+def _flash_calls(cfg):
+    """Flash forwards of one forward pass: one a layer, none where the
+    attention softcap keeps attention off the flash kernels (grok-1, as in
+    the reference)."""
+    return 0 if cfg.attn_logit_softcap else cfg.num_layers
+
+
+def _gemm_want(cfg, forwards):
+    """GEMM calls and kernel launches of ``forwards`` forward passes of an
+    attention model: q, k, v and o a layer, the dense MLP's GEMMs (three
+    gated, two not; a mixture of experts runs its experts on the grouped
+    kernels) and the read-out, one GEMM tied or untied.  Every plan of
+    these shapes is one fused launch, except a read-out whose vocab is off
+    the 128-column tiles (phi3-mini's and phi3.5-moe's 32,064 = 250 x 128
+    + 64): the planner covers it with two regions, two gemm_region
+    launches."""
+    mlp = 0 if cfg.num_experts else 3 if cfg.mlp_gated else 2
+    proj = (4 + mlp) * cfg.num_layers
+    ragged = cfg.vocab_size % 128 != 0
+    return {"engine_gemm_calls": forwards * (proj + 1),
+            "gemm_fused": forwards * (proj + (0 if ragged else 1)),
+            "gemm_region": forwards * (2 if ragged else 0)}
 
 
 def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
-                cfg=None, resume=True, extra=None):
+                cfg=None, resume=True, extra=None, draw=False):
     """Training at full width through ``run_with_restarts``.  ``cfg``
     overrides ``get_config(arch)``; ``resume=False`` writes no checkpoint
-    and skips the resume check; ``extra`` joins the phase's line."""
+    and skips the resume check; ``extra`` joins the phase's line; ``draw``
+    redraws the bias and norm leaves (:func:`_draw_leaves`)."""
     import os
     import shutil
     import tempfile
@@ -3033,7 +3129,7 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
     from repro_torch.runtime.train_loop import (TrainLoopConfig,
                                                 run_with_restarts)
     cfg = cfg or get_config(arch)
-    make_state, batch_fn, step_fn = _train_parts(torch, cfg, seq)
+    make_state, batch_fn, step_fn = _train_parts(torch, cfg, seq, draw)
     with use(backend="engine", fused="auto", device="cuda"):
         _backend_gap(torch, cfg, make_state, batch_fn, name)
     torch.cuda.empty_cache()
@@ -3805,6 +3901,198 @@ def phase_serve_moe_quant(torch, model, prompts, logits_wide):
              f"{rel:.4f} of their range (bound {LOGIT_BOUND})")
     with use(quant="int8"):
         phase_profile(torch, model, prompts, name="serve_moe_quant_profile")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The remaining decoder configurations at full width
+# ---------------------------------------------------------------------------
+
+def _draw_leaves(torch, model, seed: int = 2):
+    """Redraw every bias and norm leaf of ``model`` from a seeded generator:
+    biases N(0, 0.2^2), norm scales 1 + N(0, 0.2^2).  ``Init`` gives zeros
+    and ones, under which a bias or norm wired wrong would not show.  The
+    same seed gives the same values, so both backends see one model."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    drawn = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "b" or ("norm" in name and leaf in ("scale", "bias")):
+                noise = 0.2 * torch.randn(p.shape, generator=gen,
+                                          device=p.device)
+                p.copy_(noise + (1.0 if leaf == "scale" else 0.0))
+                drawn.append(name)
+    return drawn
+
+
+def _arch_cfg(arch, layers, training):
+    """``get_config(arch)`` cut to ``layers`` (None: full depth) and the
+    cut's ``reduced`` entry: what the card could not hold at full depth --
+    the fp32 masters, or training's 16 bytes a parameter (masters,
+    gradients, AdamW's m and v) before activations."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg, None
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    per, what = (16, "training state") if training else (4, "fp32 masters")
+    return cut, {"num_layers": f"{cfg.num_layers} -> {layers}",
+                 "why": f"{what}: {per * cfg.param_count() / 1e9:.1f} GB at "
+                        f"{cfg.num_layers} layers, "
+                        f"{per * cut.param_count() / 1e9:.1f} GB at {layers}"}
+
+
+@contextlib.contextmanager
+def _block0_input(model):
+    """The first input of block 0 (the scaled embedding), caught by a
+    forward pre-hook."""
+    caught = []
+    hook = model.blocks[0].register_forward_pre_hook(
+        lambda _, args: caught.append(args[0].detach().clone())
+        if not caught else None)
+    try:
+        yield caught
+    finally:
+        hook.remove()
+
+
+def phase_serve_arch(torch, arch, tag, layers):
+    """One of the remaining decoder configurations at its published widths
+    (depth cut to ``layers`` where the card cannot hold more) through
+    ``generate`` (engine, fused="auto"), with its bias and norm leaves
+    drawn (:func:`_draw_leaves`), counted alone, with its gates: launch
+    counts from the model's structure; prefill logits against the torch
+    backend (a mixture of experts replays the engine's routing; the
+    free-routing gap beside it); block 0's input against the table's rows
+    (times sqrt(d) under ``embed_scale``); logits within the final softcap.
+    The attention softcap keeps grok-1's attention in plain torch in both
+    backends, as in the reference: no flash launch."""
+    from repro_torch.core import use
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LanguageModel
+    name = f"serve_{tag}"
+    cfg, reduced = _arch_cfg(arch, layers, training=False)
+    L, moe = cfg.num_layers, bool(cfg.num_experts)
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device="cuda", seed=0)
+    drawn = _draw_leaves(torch, model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(torch, cfg.vocab_size)
+    routes = {"engine": [], "torch": []}
+    with use(backend="engine", fused="auto", device="cuda"):
+        generate(model, prompts, 2)  # warm: plans, first launches
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        res = generate(model, prompts, GEN)
+        counts = _read_counts()
+        peak_mem = torch.cuda.max_memory_allocated()
+        with _routing("record" if moe else None, routes["engine"]), \
+                _block0_input(model) as x0:
+            logits = _prefill_logits(torch, model, prompts)
+    toks = res["tokens"]
+    if tuple(toks.shape) != (BATCH, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{name}: bad tokens {tuple(toks.shape)}")
+    # One prefill and GEN - 1 decode steps; flash in the prefill only.
+    flash = _flash_calls(cfg)
+    want = {**_gemm_want(cfg, GEN), "flash_fwd_fused": flash,
+            "flash_fwd_dense": 0, "engine_flash_launches": flash,
+            "flash_bwd_fused": 0}
+    if moe:
+        experts = GEN * (3 if cfg.mlp_gated else 2) * L
+        want.update(grouped_fused=experts, engine_grouped_launches=experts,
+                    grouped_padded=0, grouped_bwd=0)
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if counts["gemm_fused"] + counts["gemm_region"] != \
+            counts["engine_gemm_launches"]:
+        bad["gemm kernels vs engine"] = (
+            counts["gemm_fused"] + counts["gemm_region"],
+            counts["engine_gemm_launches"])
+    with use(backend="torch", device="cuda"):
+        with _routing("replay" if moe else None, routes["engine"]):
+            ref = _prefill_logits(torch, model, prompts)
+        if moe:
+            with _routing("record", routes["torch"]):
+                ref_free = _prefill_logits(torch, model, prompts)
+    gap, spread, rel = _logit_gap(torch, logits, ref)
+    extra = {}
+    if moe:
+        free_gap, _, free_rel = _logit_gap(torch, logits, ref_free)
+        e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+        extra = dict(routing="the torch backend replays the engine's",
+                     logits_vs_torch_free_routing_max_abs=free_gap,
+                     logits_rel_free_routing=free_rel,
+                     **_flips(routes["engine"], routes["torch"]),
+                     bank_cast_bytes_per_layer_call=(
+                         3 if cfg.mlp_gated else 2) * e * d * f * 2)
+    # Block 0's input: the table's rows in bf16, times sqrt(d) under
+    # embed_scale, within three bf16 roundings (the row, the scale, the
+    # product: 2^-9 relative each).
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else 1.0
+    want_x0 = model.embed.table[prompts].float() * scale
+    embed_err = ((x0[0].float() - want_x0).abs()
+                 / want_x0.abs().clamp_min(1e-30)).max().item()
+    logit_max = logits.abs().max().item()
+    cap = cfg.final_logit_softcap
+    emit(phase=name, model=cfg.name, params=cfg.param_count(),
+         fp32_master_bytes=4 * cfg.param_count(), reduced=reduced,
+         layers=L, d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, norm=cfg.norm_type,
+         experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+         drawn_leaves=len(drawn), batch=BATCH, prompt=PROMPT,
+         new_tokens=GEN, fused="auto", init_seconds=init_s,
+         attention="plain torch: attn_logit_softcap keeps it off the flash "
+                   "kernels, as in the reference" if cfg.attn_logit_softcap
+         else "flash_fwd_fused",
+         prefill_seconds=res["prefill_seconds"],
+         prefill_tokens_per_s=BATCH * PROMPT / res["prefill_seconds"],
+         decode_seconds=res["decode_seconds"],
+         decode_tokens_per_s=BATCH * (GEN - 1) / res["decode_seconds"],
+         peak_memory_bytes=peak_mem, launches=counts, expected=want,
+         logits_vs_torch_max_abs=gap, logits_spread=spread, logits_rel=rel,
+         logits_bound=LOGIT_BOUND, embed_scale=cfg.embed_scale,
+         embed_max_rel_err=embed_err, embed_bound=EMBED_TOL,
+         final_logit_softcap=cap, logits_max_abs=logit_max, **extra)
+    if bad:
+        fail(f"{name} launch counts (got, want): {bad}")
+    if not len(drawn):
+        fail(f"{name}: no bias or norm leaf drawn")
+    if not embed_err <= EMBED_TOL:
+        fail(f"{name}: block 0's input is off the scaled table by "
+             f"{embed_err:.4g} (bound {EMBED_TOL})")
+    if cap and not logit_max <= cap:
+        fail(f"{name}: logits reach {logit_max} past the softcap {cap}")
+    if rel > LOGIT_BOUND:
+        fail(f"{name}: engine vs torch prefill logits differ by {rel:.4f} "
+             f"of their range (bound {LOGIT_BOUND})")
+    phase_profile(torch, model, prompts, name=f"{name}_profile")
+    return counts
+
+
+def phase_arch_runs(torch):
+    """Every run of ``ARCH_RUNS``: each configuration served, then trained
+    where the card holds its training state.  Returns each path's
+    counts."""
+    counts = {}
+    for arch, tag, serve_layers, train_layers in ARCH_RUNS:
+        counts[f"serve_{tag}"] = phase_serve_arch(torch, arch, tag,
+                                                  serve_layers)
+        torch.cuda.empty_cache()
+        if train_layers == 0:
+            continue
+        cfg, reduced = _arch_cfg(arch, train_layers, training=True)
+        state_gb = 16 * cfg.param_count() / 1e9
+        counts[f"train_{tag}"] = phase_train(
+            torch, name=f"train_{tag}", cfg=cfg, draw=True, resume=False,
+            extra={"reduced": reduced, "checkpoint": (
+                f"none: two checkpoints of the {0.75 * state_gb:.1f} GB of "
+                f"parameters and moments would pass the {CKPT_WRITE_GIB} GiB "
+                f"the card's machine lets a run write")})
+        torch.cuda.empty_cache()
     return counts
 
 

@@ -1,8 +1,9 @@
 """ModelConfig dataclass + architecture registry (``--arch <id>``).
 
 A copy of the reference package's config schema, so a configuration means
-the same model in both packages.  The port registers ``qwen3-0.6b``,
-``mamba2-130m`` and ``phi3.5-moe-42b`` so far."""
+the same model in both packages.  The port registers the decoders
+(``qwen3-0.6b``, ``qwen2.5-3b``, ``phi3-mini-3.8b``, ``starcoder2-15b``),
+the MoE models (``phi3.5-moe-42b``, ``grok-1-314b``) and ``mamba2-130m``."""
 from __future__ import annotations
 
 import dataclasses
@@ -76,6 +77,15 @@ class ModelConfig:
     source: str = ""  # citation + verification tier
 
     # -------------------------------------------------------------------------
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k: no global full-attention block."""
+        return all(k in ("rec", "ssm", "local") for k in self.block_pattern)
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all assigned archs decode (enc-dec included)
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
@@ -115,6 +125,16 @@ class ModelConfig:
             total += self.num_layers * per_kind["attn"]  # cross-attn
         return total
 
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top-k of E experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        per_expert = (3 if self.mlp_gated else 2) * d * f
+        inactive = self.num_layers * (self.num_experts - self.num_experts_per_tok) \
+            * per_expert
+        return self.param_count() - inactive
+
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
@@ -128,6 +148,10 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs():
+    return sorted(_REGISTRY)
 
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -15,9 +15,12 @@
         python -m repro_torch.launch.serve --arch qwen3-0.6b --continuous \\
             [--prompt-len 64 --gen 32] [--device cpu]
 
-``--arch mamba2-130m`` serves the Mamba-2 SSD model by the static path (its
-decode state is O(1) per slot); continuous batching of SSM models is not
-ported and raises.
+``--arch`` takes every registered configuration (``list_configs()``):
+the dense decoders qwen3-0.6b, qwen2.5-3b, phi3-mini-3.8b and
+starcoder2-15b (LayerNorm, biased linears) by either mode; the mixtures of
+experts phi3.5-moe-42b and grok-1-314b and the Mamba-2 SSD model
+mamba2-130m by the static path (an SSM's decode state is O(1) per slot);
+continuous batching of MoE and SSM models is not ported and raises.
 
 Runs ``reduced_config`` of the architecture, like the reference's CLI, on
 the card unless ``--device cpu`` is given.  AOT warm-start
@@ -31,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import get_config, list_configs, reduced_config
 from repro_torch.core import engine
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step, \
     model_for
@@ -123,7 +126,7 @@ def static_oracle(model, reqs, outputs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_configs())
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

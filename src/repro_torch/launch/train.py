@@ -7,6 +7,8 @@ supervisor of ``repro_torch.runtime.train_loop``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --device cpu --steps 3
+
+``--arch`` takes every registered configuration (``list_configs()``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import tempfile
 
 import torch
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import get_config, list_configs, reduced_config
 from repro_torch.core import configure, resolve_device
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.optim import adamw, warmup_cosine
@@ -27,7 +29,7 @@ from repro_torch.runtime.train_loop import TrainLoopConfig, run_with_restarts
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_configs())
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

@@ -97,10 +97,35 @@ class RMSNorm(nn.Module):
         return rmsnorm(self.scale, x, eps)
 
 
-def make_norm(kind: str, d: int, init: Init) -> RMSNorm:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm_type={kind!r} is not ported")
-    return RMSNorm(d, init)
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """Layer norm in fp32 whatever the activation dtype: mean, biased
+    variance, ``rsqrt(var + eps)``, then scale and bias, in the
+    reference's order."""
+    x32 = x.float()
+    xc = x32 - x32.mean(-1, keepdim=True)
+    var = xc.square().mean(-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, init: Init):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=init.device))
+        self.bias = nn.Parameter(torch.zeros(d, device=init.device))
+
+    def forward(self, x, eps: float):
+        return layernorm(self.scale, self.bias, x, eps)
+
+
+def make_norm(kind: str, d: int, init: Init) -> nn.Module:
+    """The norm ``cfg.norm_type`` names: "rmsnorm" or "layernorm"."""
+    if kind == "rmsnorm":
+        return RMSNorm(d, init)
+    if kind == "layernorm":
+        return LayerNorm(d, init)
+    raise NotImplementedError(f"norm_type={kind!r} is not ported")
 
 
 class Embedding(nn.Module):
