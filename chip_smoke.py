@@ -104,6 +104,19 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 the count, the static-path oracle, one decode step's
                 logits against the static dense path's, and a profile of
                 two decode steps;
+     continuous_warm -- the same model and trace twice: a cold run with
+                autotune on (a tuning cache in a temporary directory, the
+                descriptor manifest saved), then, every cache dropped, a
+                warm run through run_continuous(warm_start=manifest)
+                preloading that cache; gated: the warm serving phase times
+                nothing and misses no plan, no autotune candidate and no
+                warmup build failed, the warmup served from the cache as
+                many plans as the cold run autotuned, and the greedy tokens
+                of both runs are bit-identical; printed: both runs'
+                latency and tokens/s, the read-out's autotuned lowerings,
+                calibrate(H100_SXM)'s probes beside the pinned constants
+                and a refit of the cold cache with the misranks before and
+                after;
      continuous_quant -- the same model quantized W8A16 in place
                 (quantize_model) with KV-int8 pools (PageSpec(kv_quant=
                 "int8")) on the same trace: every request finishes, every
@@ -136,6 +149,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      serve_ssm_prefill_profile -- torch.profiler over one full-width mamba2
                 prefill (batch 4 x 1000): wall against device, the busy
                 share and the kernels that take it;
+     continuous_ssm -- the same model through continuous batching: 12
+                requests at 0.5 a tick, prompts of 128-1024 tokens, 16-48
+                new tokens, 8 slots over 160 pages of 16, which evicts;
+                gated as continuous (one ssd_scan_fused a layer an
+                admission, 49 GEMM calls a forward, no flash launch), the
+                first paged step's logits against the static dense path,
+                and an all-inactive step leaving every slot's state
+                bit-equal;
      train_ssm -- full-width mamba2-130m training as phase 7 at batch 8 x
                 1024 (four chunks a row, so the reverse walk crosses seams):
                 one ssd_scan_fused (with states) and one ssd_scan_bwd launch
@@ -146,6 +167,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 routings that differ between the backends counted, and
                 layer 0's MoE input through both backends' moe_apply;
      serve_moe_off -- the same under fused="off": grouped_padded only;
+     continuous_moe -- the same model through continuous batching on the
+                continuous phase's trace and pool: gated as continuous
+                (three grouped_fused a layer a forward, four projections a
+                layer and the read-out on the GEMM kernels), the first
+                paged step's logits against the static dense path with
+                its routing replayed; identical_requests and the
+                free-routing gap printed;
      serve_moe_quant -- the same under use(quant="int8"): three
                 grouped_quant launches a layer a forward, logits against the
                 torch backend (wide einsums, routing replayed), the gap to
@@ -272,6 +300,14 @@ CONT_SLOTS, CONT_PAGES, CONT_PAGE, CONT_BLOCKS = 8, 96, 16, 24
 CONT_TRACE = dict(num_requests=12, rate=1.0, prompt_len=(96, 256),
                   max_new=(16, 48), seed=0)
 
+# mamba2-130m through continuous batching: 12 requests at 0.5 a tick,
+# prompts of 128-1024 tokens (a re-admitted context stays within 5 chunks
+# of 256: the scan's route A), 16-48 new tokens, 8 slots over 160 pages of
+# 16 (at most 68 a sequence): this trace evicts once in growth.
+SSM_CONT_PAGES, SSM_CONT_BLOCKS = 160, 68
+SSM_CONT_TRACE = dict(num_requests=12, rate=0.5, prompt_len=(128, 1024),
+                      max_new=(16, 48), seed=0)
+
 # mamba2-130m: static serving at batch 4 with a 1000-token prompt (not a
 # multiple of the 256-token chunk: it pads to 4 chunks, so the carried
 # state crosses 3 seams), 16 new tokens; training at batch 8 x 1024 (the
@@ -372,6 +408,7 @@ def main():
     phase_profile(torch, model, prompts)
     phase_prefill_profile(torch, model, prompts)
     counts_cont, wide_cont = phase_continuous(torch, model)
+    counts_cont_warm = phase_continuous_warm(torch, model)
     # Quantizes the serving model in place: the last phase to use it.
     counts_cont_quant = phase_continuous_quant(torch, model, wide_cont)
     del model, logits  # free the serving model before training
@@ -382,6 +419,7 @@ def main():
     counts_ssm, model, prompts, logits = phase_serve_ssm(torch)
     counts_ssm_off = phase_serve_ssm_off(torch, model, prompts, logits)
     phase_serve_ssm_prefill_profile(torch, model, prompts)
+    counts_cont_ssm = phase_continuous_ssm(torch, model)
     del model, logits
     torch.cuda.empty_cache()
     counts_train_ssm = phase_train(torch, "mamba2-130m", SSM_TRAIN_SEQ,
@@ -389,6 +427,7 @@ def main():
     torch.cuda.empty_cache()
     counts_moe, model, prompts, logits = phase_serve_moe(torch)
     counts_moe_off = phase_serve_moe_off(torch, model, prompts, logits)
+    counts_cont_moe = phase_continuous_moe(torch, model)
     counts_moe_quant = phase_serve_moe_quant(torch, model, prompts, logits)
     del model, logits
     torch.cuda.empty_cache()
@@ -408,7 +447,10 @@ def main():
                "train_moe": counts_train_moe,
                "gemm_transpose": counts_transpose,
                "continuous_quant": counts_cont_quant,
-               "serve_moe_quant": counts_moe_quant, **counts_archs}
+               "serve_moe_quant": counts_moe_quant,
+               "continuous_moe": counts_cont_moe,
+               "continuous_ssm": counts_cont_ssm,
+               "continuous_warm": counts_cont_warm, **counts_archs}
     # Every wide GEMM of the main path reads TMA-legal operands: route C
     # (loads through registers) is for operands off it.
     routes = {p: {r: c.get(f"gemm_route_{r}", 0) for r in ("A", "B", "C",
@@ -477,6 +519,7 @@ def main():
     if off_a:
         fail(f"main-path paged decode left route A: {off_a}")
     for p, kname in (("continuous", "flash_decode"),
+                     ("continuous_moe", "flash_decode"),
                      ("continuous_quant", "flash_decode_int8")):
         if decode_routes[p]["A"] != by_path[p][kname]:
             fail(f"{p}: {decode_routes[p]['A']} route-A decode calls, "
@@ -512,6 +555,7 @@ def main():
         fail(f"main-path SSD forwards left route A: {off_a}")
     for p, kname in (("serve_ssm", "ssd_scan_fused"),
                      ("train_ssm", "ssd_scan_fused"),
+                     ("continuous_ssm", "ssd_scan_fused"),
                      ("serve_ssm_off", "ssd_chunk_diag")):
         if not by_path[p][kname] or \
                 fwd_routes[p]["A"] != by_path[p][kname]:
@@ -2858,32 +2902,41 @@ def phase_continuous(torch, model):
     return counts, res
 
 
-def _continuous_logits(torch, model, reqs):
+def _continuous_logits(torch, model, reqs, name="continuous",
+                       blocks=CONT_BLOCKS, moe=False, state_check=False):
     """Prefill the first 8 requests into the slots of a paged pool, and
     hold the first decode step's paged logits of every slot against the
     static dense path's on the same context (``generate``'s prefill and
-    first dense-cache decode step).  Then profile two paged decode steps
-    over the 8 slots."""
+    first dense-cache decode step).  With ``moe`` the paged step replays
+    the dense steps' routing (each slot's token is its own routing group
+    in both, so only the kernels' rounding can flip a choice), and the
+    free-routing gap is printed beside it.  With ``state_check`` one
+    all-inactive paged step must leave every slot's SSM ``conv`` and ``s``
+    bit-equal.  Then profile two paged decode steps over the 8 slots."""
     from repro_torch.core import use
     from repro_torch.models.attention import PageSpec
+    from repro_torch.models.ssd import SSMState
     from repro_torch.runtime.pages import (PagePool, init_serving_cache,
                                            refresh_tables, write_prefill)
     from repro_torch.runtime.steps import (make_paged_serve_step,
                                            make_prefill_step, make_serve_step)
-    spec = PageSpec(CONT_SLOTS * CONT_BLOCKS, CONT_PAGE, CONT_BLOCKS)
+    spec = PageSpec(CONT_SLOTS * blocks, CONT_PAGE, blocks)
     with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
         pool = PagePool(spec, CONT_SLOTS)
         cache = init_serving_cache(model, CONT_SLOTS, spec)
-        toks, dense = [], []
+        toks, dense, routes = [], [], []
         for slot, r in enumerate(reqs[:CONT_SLOTS]):
             L = len(r.prompt)
             prompt = torch.from_numpy(r.prompt).long().cuda()[None]
             logits, dcache = make_prefill_step(model, L + 1)(
                 {"tokens": prompt})
             tok = torch.argmax(logits, -1)[:, None]
-            step, _, _ = make_serve_step(model)(
-                dcache, tok, torch.tensor(L, dtype=torch.int32,
-                                          device="cuda"))
+            rec = []
+            with _routing("record" if moe else None, rec):
+                step, _, _ = make_serve_step(model)(
+                    dcache, tok, torch.tensor(L, dtype=torch.int32,
+                                              device="cuda"))
+            routes.append(rec)
             dense.append(step[0].float())
             ids = pool.grow(slot, L)
             _, pcache = make_prefill_step(model, L)({"tokens": prompt})
@@ -2896,16 +2949,42 @@ def _continuous_logits(torch, model, reqs):
         lengths = torch.tensor([len(r.prompt) for r in reqs[:CONT_SLOTS]],
                                device="cuda")
         active = torch.ones(CONT_SLOTS, dtype=torch.bool, device="cuda")
-        paged, _, _ = model.apply(tokens, positions=lengths.to(
-            torch.int32)[:, None], cache=cache)
+        positions = lengths.to(torch.int32)[:, None]
+        replay = [torch.cat([rec[i] for rec in routes])
+                  for i in range(len(routes[0]))]
+        with _routing("replay" if moe else None, replay):
+            paged, _, _ = model.apply(tokens, positions=positions,
+                                      cache=cache)
         gaps = [_logit_gap(torch, paged[slot, -1].float(), dense[slot])[2]
                 for slot in range(CONT_SLOTS)]
-        emit(phase="continuous_logits", slots=CONT_SLOTS, rel_gaps=gaps,
-             bound=LOGIT_BOUND)
-        if max(gaps) > LOGIT_BOUND:
-            fail(f"paged vs dense decode logits differ by {max(gaps):.4f} "
-                 f"of their range (bound {LOGIT_BOUND})")
+        extra = {}
+        if moe:
+            free, _, _ = model.apply(tokens, positions=positions,
+                                     cache=cache)
+            extra["rel_gaps_free_routing"] = [
+                _logit_gap(torch, free[slot, -1].float(), dense[slot])[2]
+                for slot in range(CONT_SLOTS)]
         step_fn = make_paged_serve_step(model)
+        if state_check:
+            before = [(c.conv.clone(), c.s.clone()) for c in cache
+                      if isinstance(c, SSMState)]
+            _, idle, _ = step_fn(cache, tokens, lengths,
+                                 torch.zeros_like(active))
+            after = [(c.conv, c.s) for c in idle if isinstance(c, SSMState)]
+            extra["inactive_state_bit_equal"] = all(
+                torch.equal(a, b) for pair_a, pair_b in zip(before, after)
+                for a, b in zip(pair_a, pair_b))
+            extra["state_layers"] = len(before)
+        emit(phase=f"{name}_logits", slots=CONT_SLOTS, rel_gaps=gaps,
+             bound=LOGIT_BOUND, **({"routing": "the dense steps' replayed"}
+                                   if moe else {}), **extra)
+        if max(gaps) > LOGIT_BOUND:
+            fail(f"{name}: paged vs dense decode logits differ by "
+                 f"{max(gaps):.4f} of their range (bound {LOGIT_BOUND})")
+        if state_check and not (extra["state_layers"]
+                                and extra["inactive_state_bit_equal"]):
+            fail(f"{name}: an all-inactive paged step changed SSM state "
+                 f"rows ({extra['state_layers']} state layers)")
         state = {"tokens": torch.argmax(paged[:, -1], -1)[:, None],
                  "lengths": lengths + 1}
 
@@ -2913,8 +2992,312 @@ def _continuous_logits(torch, model, reqs):
             state["tokens"], _, state["lengths"] = step_fn(
                 cache, state["tokens"], state["lengths"], active)
 
-        emit(phase="continuous_profile", decode_steps=2,
+        emit(phase=f"{name}_profile", decode_steps=2,
              active_slots=CONT_SLOTS, **_device_profile(torch, step, 2))
+
+
+def _continuous_gated(torch, model, name, run_kw, want_fn, cfg_kw=None):
+    """One continuous run through ``run_continuous`` (engine, fused="auto"),
+    counted alone, then the static-path oracle outside the count.  Gated:
+    every request finishes with its tokens in vocabulary, growth evicted at
+    least once, every page is free at the end, and the launch counts are
+    ``want_fn(admissions, steps)``.  Returns (counts, result, oracle)."""
+    from repro_torch.core import use
+    from repro_torch.launch.serve import run_continuous, static_oracle
+    cfg = model.cfg
+    with use(backend="engine", fused="auto", device="cuda", **(cfg_kw or {})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = run_continuous(model, check=False, **run_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        oracle = static_oracle(model, res["trace"], res["outputs"])
+        oracle_s = time.perf_counter() - t0
+    m, reqs, pool = res["metrics"], res["trace"], res["pool"]
+    steps = m["decode_steps"]
+    admissions = len(reqs) + m["evictions"]
+    want = want_fn(admissions, steps)
+    emit(phase=name, model=cfg.name, layers=cfg.num_layers, run=run_kw,
+         prompt_lens=[len(r.prompt) for r in reqs],
+         max_new=[r.max_new for r in reqs],
+         tokens_per_s=m["tokens_per_s"], total_tokens=m["total_tokens"],
+         p50_token_latency_s=m["p50_token_latency_s"],
+         p99_token_latency_s=m["p99_token_latency_s"],
+         phase_seconds=m["phase_seconds"], decode_steps=steps,
+         evictions=m["evictions"], evicted=res["evictions"],
+         admissions=admissions, run_seconds=m["wall_seconds"],
+         wall_seconds=wall, oracle_seconds=oracle_s,
+         peak_memory_bytes=peak, launches=counts, expected=want,
+         identical_requests=oracle["identical_requests"],
+         requests=len(reqs))
+    for r in reqs:
+        out = res["outputs"].get(r.rid)
+        if out is None or len(out) != r.max_new or not (
+                (out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"{name}: request {r.rid} did not finish with {r.max_new} "
+                 f"in-vocab tokens: {out}")
+    if m["evictions"] < 1:
+        fail(f"{name}: the trace evicted nothing")
+    pool.check_invariants([0] * run_kw["num_slots"])
+    if pool.free_pages != run_kw["num_pages"]:
+        fail(f"{name}: {run_kw['num_pages'] - pool.free_pages} pages still "
+             f"owned at the end")
+    bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if counts["gemm_fused"] + counts["gemm_region"] != \
+            counts["engine_gemm_launches"]:
+        bad["gemm kernels vs engine"] = (
+            counts["gemm_fused"] + counts["gemm_region"],
+            counts["engine_gemm_launches"])
+    if bad:
+        fail(f"{name} launch counts (got, want): {bad}")
+    return counts, res, oracle
+
+
+def phase_continuous_moe(torch, model):
+    """phi3.5-moe-42b at its published widths and MOE_SERVE_LAYERS layers
+    (``serve_moe``'s model, before ``serve_moe_quant`` quantizes it)
+    through continuous batching on Qwen3's trace and pool.  A decode step
+    routes every slot, inactive ones included, as the reference's does.
+    Gated as ``continuous`` (requests, evictions, pages, launches: three
+    grouped_fused a MoE layer a forward, four projections a layer and the
+    read-out on the GEMM kernels, flash once a layer a prefill and
+    flash_decode once a layer a step), and the first paged decode step's
+    logits against the static dense path with its routing replayed.
+    ``identical_requests`` and the free-routing gap are printed: a mixture
+    of experts promises no token identity across batch compositions."""
+    L = model.cfg.num_layers
+    run_kw = dict(num_slots=CONT_SLOTS, num_pages=CONT_PAGES,
+                  page_size=CONT_PAGE, max_blocks=CONT_BLOCKS, **CONT_TRACE)
+
+    def want(admissions, steps):
+        forwards = admissions + steps
+        return {"grouped_fused": forwards * 3 * L,
+                "engine_grouped_launches": forwards * 3 * L,
+                "grouped_padded": 0, "grouped_bwd": 0,
+                "engine_gemm_calls": forwards * (4 * L + 1),
+                "flash_fwd_fused": admissions * L,
+                "engine_flash_launches": admissions * L,
+                "flash_fwd_dense": 0,
+                "flash_decode": steps * L,
+                "engine_decode_launches": steps * L}
+
+    counts, res, _ = _continuous_gated(torch, model, "continuous_moe",
+                                       run_kw, want)
+    _continuous_logits(torch, model, res["trace"], name="continuous_moe",
+                       moe=True)
+    return counts
+
+
+def phase_continuous_ssm(torch, model):
+    """mamba2-130m at full depth (``serve_ssm``'s model) through continuous
+    batching: 12 requests at 0.5 a tick, prompts of 128-1024 tokens (at
+    most 5 chunks of 256 with a re-admitted context: the scan's route A),
+    16-48 new tokens, 8 slots over SSM_CONT_PAGES pages of 16 (small
+    enough that growth evicts).  Gated as ``continuous``, with one
+    ssd_scan_fused a layer an admission, 49 GEMM calls a forward, no flash
+    launch; the first paged decode step's logits against the static dense
+    path; one all-inactive step leaving every slot's conv and s
+    bit-equal.  ``identical_requests`` is printed."""
+    L = model.cfg.num_layers
+    run_kw = dict(num_slots=CONT_SLOTS, num_pages=SSM_CONT_PAGES,
+                  page_size=CONT_PAGE, max_blocks=SSM_CONT_BLOCKS,
+                  **SSM_CONT_TRACE)
+
+    def want(admissions, steps):
+        return {"ssd_scan_fused": admissions * L,
+                "engine_ssd_launches": admissions * L,
+                "ssd_chunk_diag": 0, "ssd_scan_bwd": 0,
+                "engine_gemm_calls": (admissions + steps) * (2 * L + 1),
+                "flash_fwd_fused": 0, "flash_fwd_dense": 0,
+                "engine_flash_launches": 0, "flash_decode": 0,
+                "engine_decode_launches": 0}
+
+    counts, res, oracle = _continuous_gated(torch, model, "continuous_ssm",
+                                            run_kw, want)
+    _continuous_logits(torch, model, res["trace"], name="continuous_ssm",
+                       blocks=SSM_CONT_BLOCKS, state_check=True)
+    return counts
+
+
+def _stat_sum(stats, key):
+    return sum(row.get(key, 0) for row in stats.values())
+
+
+def _readout_searches(vocab):
+    """The autotuner's timed lowerings of the tied read-out (the ``nt``
+    GEMM against the vocabulary), one entry per searched shape."""
+    from repro_torch.core import autotune
+    out = []
+    for key, log in autotune.TIMED.items():
+        d = log[0][0].desc
+        if key[0] != "gemm" or d.layout != "nt" or d.n != vocab:
+            continue
+        ok = [(p, s) for p, s in log if s is not None]
+        best = min(ok, key=lambda x: x[1])[0] if ok else None
+        out.append({"m": d.m, "n": d.n, "k": d.k, "winner": None if best is
+                    None else dict(fused=best.fused,
+                                   regions=len(best.regions),
+                                   blocks=sorted({(r.bm, r.bn)
+                                                  for r in best.regions})),
+                    "timed": [dict(fused=p.fused, regions=len(p.regions),
+                                   blocks=sorted({(r.bm, r.bn)
+                                                  for r in p.regions}),
+                                   ms=None if s is None else s * 1e3)
+                              for p, s in log]})
+    return sorted(out, key=lambda e: e["m"])
+
+
+def _refit_of(path):
+    """A refit of one tuning cache onto H100_SXM, and the analytical
+    tier's misranks on the run's measured pairs (each search's model
+    favourite against every other timed candidate) before and after."""
+    from repro_torch.core import autotune, refit
+    from repro_torch.core.machine import H100_SXM
+    entries = json.load(open(path))["entries"]
+    model = refit.fit_cache_entries(entries, H100_SXM, mode="cuda")
+    fitted = refit.apply_fit(H100_SXM, model)
+    pairs = [(log[0][0], p, log[0][1] * 1e6, s * 1e6)
+             for log in autotune.TIMED.values() if log[0][1] is not None
+             for p, s in log[1:] if s is not None]
+    before = refit.count_misranks(pairs, H100_SXM)
+    after = refit.count_misranks(pairs, fitted)
+    return {"entries": model["entries"], "fitted": model["fitted"],
+            "coefficients": model["coefficients"],
+            "pinned": {k: getattr(H100_SXM, k)
+                       for k in model["coefficients"]},
+            "residual_us": model["residual_us"],
+            "misranks_before": before[0], "misranks_after": after[0],
+            "pairs_considered": before[1]}
+
+
+def _calibration():
+    """``calibrate(H100_SXM)``'s probes at full size beside the pinned
+    constants they would replace."""
+    from repro_torch.core.machine import H100_SXM, MachineModel
+    from repro_torch.core.microbench import characterize
+    probes = characterize(H100_SXM, size=8192, mbytes=1024, device="cuda")
+    cal = MachineModel.from_probes(probes, base=H100_SXM,
+                                   name="calibrated_host")
+    return {"probes": {k: [p.value, p.unit] for k, p in probes.items()},
+            "calibrated": {"peak_flops": cal.peak_flops, "hbm_bw": cal.hbm_bw,
+                           "step_overhead_s": cal.step_overhead_s,
+                           "launch_overhead_s": cal.launch_overhead_s},
+            "pinned": {"peak_flops": H100_SXM.peak_flops,
+                       "hbm_bw": H100_SXM.hbm_bw,
+                       "step_overhead_s": H100_SXM.step_overhead_s,
+                       "launch_overhead_s": H100_SXM.launch_overhead_s}}
+
+
+def phase_continuous_warm(torch, model):
+    """Qwen3-0.6B (before ``continuous_quant`` quantizes it) through the
+    continuous phase's trace twice.  Cold: every cache dropped, autotune on
+    with a tuning cache in a temporary directory, the descriptor manifest
+    saved at the end.  Warm, after dropping every cache again (a restart):
+    ``run_continuous(warm_start=manifest)`` preloading that tuning cache,
+    counted from just before it.  Gated: the warm run's serving phase
+    times nothing and misses no plan, no candidate and no warmup build
+    failed, the warmup served from the cache exactly the descriptors the
+    cold run autotuned, and the warm run's greedy tokens are the cold
+    run's, bit for bit.  Printed: both runs' latency and tokens/s, the
+    autotuned read-out with every timed lowering, the calibration probes
+    beside the pinned constants, and a refit of the cold cache with the
+    misranks before and after."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import autotune, engine, use
+    from repro_torch.launch.serve import run_continuous
+    cfg = model.cfg
+    L = cfg.num_layers
+    kw = dict(num_slots=CONT_SLOTS, num_pages=CONT_PAGES, page_size=CONT_PAGE,
+              max_blocks=CONT_BLOCKS, check=False, **CONT_TRACE)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache, manifest = f"{tmp}/tune.json", f"{tmp}/manifest.json"
+        engine.reset_stats(entries=True)
+        autotune.reset_tuning_caches()
+        with use(backend="engine", fused="auto", device="cuda",
+                 autotune=True, tuning_cache=cache):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cold = run_continuous(model, warm_start=manifest, **kw)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        readout = _readout_searches(cfg.vocab_size)
+        refit = _refit_of(cache)
+        cold_st = cold["engine_stats"]
+        entries = len(json.load(open(cache))["entries"])
+        manifest_n = len(json.load(open(manifest))["descriptors"])
+        engine.reset_stats(entries=True)
+        autotune.reset_tuning_caches()
+        with use(backend="engine", fused="auto", device="cuda",
+                 tuning_cache_preload=cache):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            warm = run_continuous(model, warm_start=manifest, **kw)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            counts = _read_counts()
+    engine.reset_stats(entries=True)
+    autotune.reset_tuning_caches()
+    w, cm, wm = warm["warmup"], cold["metrics"], warm["metrics"]
+    warm_st = w["engine_stats"]
+    tuned = _stat_sum(cold_st, "plan_source_autotuned")
+    gates = {
+        "post_autotune_timings": w["post_autotune_timings"],
+        "post_plan_misses": w["post_plan_misses"],
+        "autotune_failures": _stat_sum(cold_st, "autotune_failures"),
+        "warmup_failures": _stat_sum(warm_st, "warmup_failures"),
+        "autotuned_cold": tuned,
+        "tuned_cache_warm": _stat_sum(warm_st, "plan_source_tuned_cache"),
+        "tokens_identical": sorted(cold["outputs"]) == sorted(
+            warm["outputs"]) and all(
+            np.array_equal(cold["outputs"][rid], warm["outputs"][rid])
+            for rid in cold["outputs"]),
+    }
+    emit(phase="continuous_warm", model=cfg.name, trace=CONT_TRACE,
+         cold=dict(wall_seconds=cold_s, run_seconds=cm["wall_seconds"],
+                   tokens_per_s=cm["tokens_per_s"],
+                   p50_token_latency_s=cm["p50_token_latency_s"],
+                   p99_token_latency_s=cm["p99_token_latency_s"],
+                   autotune_timings=_stat_sum(cold_st, "autotune_timings"),
+                   plan_sources={s: _stat_sum(cold_st, f"plan_source_{s}")
+                                 for s in ("tuned_cache", "autotuned",
+                                           "model")},
+                   tuning_cache_entries=entries, manifest_entries=manifest_n,
+                   decode_steps=cm["decode_steps"],
+                   evictions=cm["evictions"]),
+         warm=dict(wall_seconds=warm_s, run_seconds=wm["wall_seconds"],
+                   warmup_seconds=w["seconds"], warmed=w["kernels"],
+                   prefill_lengths=len(w["prefill_lengths"]),
+                   tokens_per_s=wm["tokens_per_s"],
+                   p50_token_latency_s=wm["p50_token_latency_s"],
+                   p99_token_latency_s=wm["p99_token_latency_s"],
+                   decode_steps=wm["decode_steps"],
+                   evictions=wm["evictions"]),
+         gates=gates, launches=counts, readout=readout, refit=refit,
+         calibration=_calibration())
+    bad = {k: v for k, v in gates.items()
+           if k in ("post_autotune_timings", "post_plan_misses",
+                    "autotune_failures", "warmup_failures") and v}
+    if bad:
+        fail(f"continuous_warm: {bad}")
+    if not tuned or gates["tuned_cache_warm"] != tuned:
+        fail(f"continuous_warm: the warmup served "
+             f"{gates['tuned_cache_warm']} plans from the tuning cache, the "
+             f"cold run autotuned {tuned}")
+    if not gates["tokens_identical"]:
+        fail("continuous_warm: the warm run's tokens differ from the cold "
+             "run's")
+    if wm["flash_decode_launches"] != wm["decode_steps"] * L:
+        fail(f"continuous_warm: {wm['flash_decode_launches']} flash_decode "
+             f"launches, {wm['decode_steps']} steps x {L} layers")
+    return counts
 
 
 def phase_reduced(torch):

@@ -6,17 +6,21 @@
   * ``blocking``   -- machine-model tile planners (§IV-B)
   * ``schedule``   -- tile tables the fused kernels walk
   * ``jit_cache``  -- LRU plan and kernel registries
-  * ``engine``     -- family registry, planning and dispatch
+  * ``engine``     -- family registry, three-tier planning, dispatch, warmup
+  * ``autotune``   -- candidate timing and the persistent tuning cache
+  * ``warmstart``  -- descriptor manifests and zero-operand synthesis
+  * ``refit``      -- cost-coefficient refit from tuning-cache timings
+  * ``microbench`` -- device probes that calibrate a machine model
   * ``matmul``     -- the GEMM front door every model layer calls
 """
 from repro_torch.core.descriptor import (  # noqa: F401
     FlashBwdDescriptor, FlashDecodeDescriptor, FlashDescriptor,
     GemmDescriptor, GroupedGemmBwdDescriptor, GroupedGemmDescriptor,
     KernelDescriptor, QuantSpec, SsdChunkBwdDescriptor, SsdChunkDescriptor,
-    TransposeDescriptor, resolve_quant)
+    TransposeDescriptor, descriptor_from_cache_key, resolve_quant)
 from repro_torch.core.blocking import (  # noqa: F401
     BlockingPlan, FlashDecodePlan, FlashPlan, GroupedGemmPlan, Region,
-    flash_bwd_fused_legal, flash_decode_legal, flash_fused_legal, fused_legal,
+    candidate_plans, flash_bwd_fused_legal, flash_decode_legal, flash_fused_legal, fused_legal,
     grouped_bwd_fused_legal, grouped_fused_legal, palette, plan_flash,
     plan_flash_bwd, plan_flash_decode, plan_gemm, plan_grouped,
     plan_grouped_bwd, plan_ssd, plan_ssd_bwd, plan_transpose,
@@ -31,4 +35,4 @@ from repro_torch.core.config import (  # noqa: F401
 from repro_torch.core.matmul import matmul  # noqa: F401
 from repro_torch.core.jit_cache import (  # noqa: F401
     GLOBAL_KERNEL_CACHE, KernelCache, LruCache)
-from repro_torch.core import engine  # noqa: F401
+from repro_torch.core import autotune, engine, warmstart  # noqa: F401

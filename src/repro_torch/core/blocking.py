@@ -11,6 +11,11 @@ plans exactly and ``H100_SXM`` plans only the block shapes the CUDA
 kernel instantiates.  The cost model is the reference's napkin math:
 max(compute on issued MACs, memory traffic) plus per-step and per-launch
 overheads, with the fused-versus-multi-launch terms.
+
+Every plan carries ``plan_source``: ``"model"`` from a planner here,
+``"autotuned"`` for a timed winner (fresh or replayed from a tuning
+cache).  :func:`candidate_plans` ranks every plan the machine allows by the
+same cost model, for the autotuner to time.
 """
 from __future__ import annotations
 
@@ -75,6 +80,8 @@ class BlockingPlan:
     bk: int
     heterogeneous: bool
     fused: bool = False
+    # "model" (a planner's) or "autotuned" (a timed winner).
+    plan_source: str = "model"
 
     def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE) -> float:
         return _predict_seconds(self.regions, self.desc, self.bk, machine,
@@ -291,6 +298,7 @@ class FlashPlan:
     block_q: int
     block_k: int
     fused: bool = False
+    plan_source: str = "model"  # see BlockingPlan.plan_source
 
     def tile_schedule(self) -> FlashTileSchedule:
         d = self.desc
@@ -406,6 +414,7 @@ class FlashDecodePlan:
 
     desc: FlashDecodeDescriptor
     fused: bool = True
+    plan_source: str = "model"  # see BlockingPlan.plan_source
 
     def tile_schedule(self) -> DecodeTileSchedule:
         """The runtime-table schedule this step walks (one row per live KV
@@ -466,6 +475,7 @@ class SsdChunkPlan:
     desc: SsdChunkDescriptor
     fits_vmem: bool
     fused: bool = False
+    plan_source: str = "model"  # see BlockingPlan.plan_source
 
     def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE
                           ) -> float:
@@ -590,6 +600,7 @@ class GroupedGemmPlan:
     bk: int
     bn: int
     fused: bool = False
+    plan_source: str = "model"  # see BlockingPlan.plan_source
 
     @property
     def t_padded(self) -> int:
@@ -747,6 +758,7 @@ class TransposePlan:
 
     desc: TransposeDescriptor
     bt: int
+    plan_source: str = "model"  # see BlockingPlan.plan_source
 
     def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE
                           ) -> float:
@@ -787,3 +799,98 @@ def plan_transpose(desc: TransposeDescriptor,
     best = min(_transpose_legal(desc, machine),
                key=lambda bt: _predict_transpose_seconds(desc, bt, machine))
     return TransposePlan(desc, best)
+
+
+# ---------------------------------------------------------------------------
+# Candidate enumeration (the autotuner's search space)
+# ---------------------------------------------------------------------------
+
+def _executable(plan, machine: MachineModel) -> bool:
+    """Does the machine's executor run ``plan`` on one of its kernels?  On a
+    machine whose kernels stream (``H100_SXM``) a quantized plan runs a
+    kernel only fused (the region and pad/scatter kernels are wide only,
+    and the non-fused quant lowering is a kernel-free composition), and a
+    GEMM's K panel is the kernel's own (``k_panel``).  A machine that
+    stages whole operands takes every plan its planners build."""
+    if machine.stages_whole_operands:
+        return True
+    if getattr(plan.desc, "quant", None) is not None and not plan.fused:
+        return False
+    if isinstance(plan, BlockingPlan) and machine.k_panel is not None:
+        return plan.bk == machine.k_panel
+    return True
+
+
+def candidate_plans(desc, machine: MachineModel = DEFAULT_MACHINE,
+                    top_k: int = 8) -> List:
+    """Top-``top_k`` machine-legal candidate plans for one descriptor,
+    cheapest first by the planners' cost model, deduplicated by their
+    knobs: the search space the autotuner times.  The fused and unfused
+    lowerings of one tiling are separate candidates, so a search can pick
+    a lowering the planner never selects.  Under ``TPU_V5E`` the list is
+    the reference's; under a machine whose kernels stream it holds only
+    plans its executors run on a kernel (:func:`_executable`).  The
+    reference's mesh branch is not ported."""
+    fam = desc.family
+    cands: List = []
+    seen = set()
+
+    def add(plan, knob_key):
+        if knob_key not in seen and _executable(plan, machine):
+            seen.add(knob_key)
+            cands.append(plan)
+
+    if fam == "gemm":
+        fused_ok = fused_legal(desc, machine)
+        for shape in palette(machine.acc_budget_elems, machine,
+                             desc.in_dtype):
+            for het in (True, False):
+                p = plan_gemm(desc, machine, heterogeneous=het,
+                              force_block=shape)
+                for fused in ((True, False) if fused_ok else (False,)):
+                    q = dataclasses.replace(p, fused=fused)
+                    add(q, (q.regions, q.bk, fused))
+    elif fam == "flash_attention":
+        fused_ok = flash_fused_legal(desc, machine)
+        for bq, bk in _flash_legal(desc, machine):
+            for fused in ((True, False) if fused_ok else (False,)):
+                add(FlashPlan(desc, bq, bk, fused=fused), (bq, bk, fused))
+    elif fam == "grouped_gemm":
+        fused_ok = grouped_fused_legal(desc, machine)
+        for bm, bk, bn in _grouped_legal(desc, machine):
+            for fused in ((True, False) if fused_ok else (False,)):
+                add(GroupedGemmPlan(desc, bm, bk, bn, fused=fused),
+                    (bm, bk, bn, fused))
+    elif fam == "flash_attention_bwd":
+        # One (scheduled) lowering: the unfused backward differentiates
+        # the reference outside the engine.
+        fused_ok = flash_bwd_fused_legal(desc, machine)
+        for bq, bk in _flash_legal(desc, machine):
+            add(FlashPlan(desc, bq, bk, fused=fused_ok), (bq, bk))
+    elif fam == "grouped_gemm_bwd":
+        fused_ok = grouped_bwd_fused_legal(desc, machine)
+        for bm, bk, bn in _grouped_legal(desc, machine):
+            add(GroupedGemmPlan(desc, bm, bk, bn, fused=fused_ok),
+                (bm, bk, bn))
+    elif fam == "ssd_chunk_bwd":
+        add(plan_ssd_bwd(desc, machine), ())
+    elif fam == "flash_decode":
+        # No free knobs: the pool fixed the page size.
+        add(plan_flash_decode(desc, machine), ())
+    elif fam == "transpose":
+        for bt in _transpose_legal(desc, machine):
+            add(TransposePlan(desc, bt), (bt,))
+    elif fam == "ssd_chunk":
+        # No tiling knobs; the scan form still has two lowerings (the
+        # carried-state launch, or the diag kernel plus the recurrence).
+        p = plan_ssd(desc, machine)
+        if ssd_fused_legal(desc, machine):
+            for fused in (True, False):
+                add(dataclasses.replace(p, fused=fused), (fused,))
+        else:
+            add(dataclasses.replace(p, fused=False), ())
+    else:
+        raise KeyError(f"no candidate enumerator for family {fam!r}")
+
+    cands.sort(key=lambda p: p.predicted_seconds(machine))
+    return cands[:max(1, top_k)]

@@ -18,7 +18,20 @@
     QuantSpec` or a shorthand (``"int8"``/``"w8a16"``/``"fp8"``).  Per
     call, ``quant=False`` opts out; in ``use``/``configure``,
     ``quant=False`` clears it.  ``REPRO_QUANT=int8|w8a16|fp8`` seeds the
-    process default.
+    process default;
+  * ``autotune`` -- let ``engine.dispatch`` time the top ``autotune_budget``
+    candidate plans on the call's operands instead of trusting the cost
+    model (``REPRO_AUTOTUNE=1``, ``REPRO_AUTOTUNE_BUDGET=K``; a malformed
+    budget warns and keeps 8);
+  * ``tuning_cache`` -- the JSON file autotuned winners persist in, read
+    before any search (``REPRO_TUNING_CACHE``);
+  * ``tuning_cache_preload`` -- a read-only, fleet-merged tuning cache
+    consulted after ``tuning_cache`` misses (``REPRO_TUNING_CACHE_PRELOAD``);
+  * ``warm_start`` -- a descriptor manifest (``engine.save_manifest``) that
+    ``engine.warmup()`` replays with no arguments (``REPRO_WARM_START``).
+
+For the three paths, ``""`` is the explicit off switch (``None`` leaves the
+setting as it is).
 
 Configuration is layered: a process-wide default (``configure``) under a
 thread-local override stack (``use``).
@@ -50,11 +63,19 @@ class EngineConfig:
     machine: MachineModel = DEFAULT_MACHINE
     fused: str = "auto"
     quant: Optional[QuantSpec] = None
+    autotune: bool = False
+    autotune_budget: int = 8
+    tuning_cache: Optional[str] = None
+    tuning_cache_preload: Optional[str] = None
+    warm_start: Optional[str] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")
+        if self.autotune_budget < 1:
+            raise ValueError(f"autotune_budget must be >= 1, "
+                             f"got {self.autotune_budget}")
         if self.fused not in FUSED_MODES:
             raise ValueError(f"fused must be one of {FUSED_MODES}, "
                              f"got {self.fused!r}")
@@ -77,6 +98,16 @@ class EngineConfig:
 
 
 def _env_default() -> EngineConfig:
+    budget = EngineConfig.autotune_budget
+    raw = os.environ.get("REPRO_AUTOTUNE_BUDGET")
+    if raw:
+        try:
+            budget = int(raw)
+            if budget < 1:
+                raise ValueError("must be >= 1")
+        except ValueError as e:
+            warnings.warn(f"ignoring REPRO_AUTOTUNE_BUDGET={raw!r}: {e}")
+            budget = EngineConfig.autotune_budget
     fused = os.environ.get("REPRO_FUSED", "").lower()
     if fused in ("1", "true", "yes"):
         fused = "on"
@@ -94,7 +125,15 @@ def _env_default() -> EngineConfig:
             quant = resolve_quant(raw)
         except ValueError as e:
             warnings.warn(f"ignoring REPRO_QUANT={raw!r}: {e}")
-    return EngineConfig(fused=fused, quant=quant)
+    return EngineConfig(
+        fused=fused, quant=quant,
+        autotune=os.environ.get("REPRO_AUTOTUNE", "").lower()
+        in ("1", "true", "yes", "on"),
+        autotune_budget=budget,
+        tuning_cache=os.environ.get("REPRO_TUNING_CACHE") or None,
+        tuning_cache_preload=os.environ.get("REPRO_TUNING_CACHE_PRELOAD")
+        or None,
+        warm_start=os.environ.get("REPRO_WARM_START") or None)
 
 
 _DEFAULT = _env_default()
@@ -115,23 +154,38 @@ def get_config() -> EngineConfig:
 
 
 def configure(*, backend: Optional[str] = None, device=None, machine=None,
-              fused: Optional[str] = None, quant=None) -> EngineConfig:
+              fused: Optional[str] = None, quant=None,
+              autotune: Optional[bool] = None,
+              autotune_budget: Optional[int] = None,
+              tuning_cache: Optional[str] = None,
+              tuning_cache_preload: Optional[str] = None,
+              warm_start: Optional[str] = None) -> EngineConfig:
     """Mutate the process-wide default (all threads without an override)."""
     global _DEFAULT
     with _default_lock:
-        _DEFAULT = _DEFAULT.replace(backend=backend, device=device,
-                                    machine=machine, fused=fused, quant=quant)
+        _DEFAULT = _DEFAULT.replace(
+            backend=backend, device=device, machine=machine, fused=fused,
+            quant=quant, autotune=autotune, autotune_budget=autotune_budget,
+            tuning_cache=tuning_cache,
+            tuning_cache_preload=tuning_cache_preload, warm_start=warm_start)
         return _DEFAULT
 
 
 @contextlib.contextmanager
 def use(*, backend: Optional[str] = None, device=None, machine=None,
-        fused: Optional[str] = None, quant=None):
+        fused: Optional[str] = None, quant=None,
+        autotune: Optional[bool] = None,
+        autotune_budget: Optional[int] = None,
+        tuning_cache: Optional[str] = None,
+        tuning_cache_preload: Optional[str] = None,
+        warm_start: Optional[str] = None):
     """Thread-local override: ``with use(backend="torch"): ...``."""
     stack = _stack()
-    stack.append(get_config().replace(backend=backend, device=device,
-                                      machine=machine, fused=fused,
-                                      quant=quant))
+    stack.append(get_config().replace(
+        backend=backend, device=device, machine=machine, fused=fused,
+        quant=quant, autotune=autotune, autotune_budget=autotune_budget,
+        tuning_cache=tuning_cache, tuning_cache_preload=tuning_cache_preload,
+        warm_start=warm_start))
     try:
         yield stack[-1]
     finally:

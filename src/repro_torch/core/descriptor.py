@@ -171,7 +171,8 @@ class GemmDescriptor(KernelDescriptor):
 
     @classmethod
     def from_operands(cls, a, b, layout="nn", accumulate=False, epilogue=None,
-                      acc_dtype="float32", out_dtype=None, quant=None):
+                      acc_dtype="float32", out_dtype=None, edge="mask",
+                      quant=None):
         if a.ndim != b.ndim:
             raise ValueError(f"rank mismatch: A{tuple(a.shape)} vs B{tuple(b.shape)}")
         batch = 0
@@ -199,8 +200,8 @@ class GemmDescriptor(KernelDescriptor):
         return cls(m=m, n=n, k=k, layout=layout, in_dtype=in_dtype,
                    acc_dtype=canonical_dtype(acc_dtype),
                    out_dtype=canonical_dtype(out_dtype or acc_dtype),
-                   accumulate=accumulate, epilogue=epilogue, batch=batch,
-                   quant=quant)
+                   accumulate=accumulate, epilogue=epilogue, edge=edge,
+                   batch=batch, quant=quant)
 
     @property
     def flops(self) -> int:
@@ -664,3 +665,54 @@ class TransposeDescriptor(KernelDescriptor):
     @property
     def out_bytes(self) -> int:
         return self.in_bytes
+
+
+# ---------------------------------------------------------------------------
+# Cache-key round trip
+# ---------------------------------------------------------------------------
+
+# Family name -> descriptor class, for rebuilding a descriptor from its
+# engine cache key (tuning-cache entries and warm-start manifests).
+_FAMILY_DESCRIPTORS = {
+    cls.family: cls for cls in (
+        GemmDescriptor, FlashDescriptor, FlashBwdDescriptor,
+        FlashDecodeDescriptor, GroupedGemmDescriptor,
+        GroupedGemmBwdDescriptor, SsdChunkDescriptor, SsdChunkBwdDescriptor,
+        TransposeDescriptor)
+}
+
+
+def descriptor_from_cache_key(key) -> KernelDescriptor:
+    """Rebuild the descriptor a ``cache_key()`` tuple names.
+
+    ``cache_key()`` is ``(family,) + dataclasses.astuple(desc)``, the
+    nested :class:`QuantSpec` recursed into a plain tuple, so the key is
+    invertible.  Raises ``ValueError`` on an unknown family, a field-count
+    mismatch (a key written by another descriptor schema) or a mesh spec
+    (the mesh axis is not ported)."""
+    key = tuple(key)
+    if not key:
+        raise ValueError("empty cache key")
+    family, values = key[0], key[1:]
+    cls = _FAMILY_DESCRIPTORS.get(family)
+    if cls is None:
+        raise ValueError(f"unknown descriptor family {family!r}; "
+                         f"known: {sorted(_FAMILY_DESCRIPTORS)}")
+    fields = dataclasses.fields(cls)
+    if len(values) != len(fields):
+        raise ValueError(
+            f"{family} cache key carries {len(values)} fields, the "
+            f"descriptor schema has {len(fields)}: written by another "
+            f"version?")
+    kwargs = {}
+    for f, v in zip(fields, values):
+        if v is not None:
+            if f.name == "quant":
+                v = QuantSpec(*v)
+            elif f.name == "mesh":
+                raise ValueError(f"{family} cache key names a mesh {v!r}; "
+                                 f"the mesh axis is not ported")
+            elif isinstance(v, list):
+                v = tuple(v)
+        kwargs[f.name] = v
+    return cls(**kwargs)

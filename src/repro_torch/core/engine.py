@@ -7,20 +7,39 @@ dispatch cache.  A family registers two callables:
   * ``execute(desc, plan, *operands, **kw) -> result`` -- runs the cached
     kernel build for that plan.
 
-``dispatch(desc, *operands)`` serves the plan from an LRU plan cache
-(analytical machine-model planner on a miss) and calls the executor,
-which serves kernel builds -- with their device-resident tile tables --
-from the LRU kernel cache via :func:`build_cached`.  Families register
-when their ``kernels/<family>/ops`` module is imported, which
-:func:`get_family` does lazily on first use.
+``dispatch(desc, *operands)`` serves the plan from an LRU plan cache and
+calls the executor, which serves kernel builds -- with their
+device-resident tile tables -- from the LRU kernel cache via
+:func:`build_cached`.  A plan-cache miss resolves through three tiers,
+as in the reference:
+
+  1. **tuned cache** -- the winners on disk (``config.tuning_cache``, then
+     the read-only ``config.tuning_cache_preload``);
+  2. **autotune** -- with ``config.autotune`` and operands to time, the
+     top candidates timed for real (:mod:`repro_torch.core.autotune`),
+     the winner stored in the writable cache;
+  3. **model** -- the family planner.
+
+``stats()`` shows per family which tier served each resolution
+(``plan_source_{tuned_cache,autotuned,model}``), how many candidate runs
+were timed (``autotune_timings``) and how many candidates failed
+(``autotune_failures``).  For warm starts every dispatch records its
+descriptor (:func:`seen_descriptors`, :func:`save_manifest`), and
+:func:`warmup` resolves and builds a recorded population before the
+first request.  Families register when their ``kernels/<family>/ops``
+module is imported, which :func:`get_family` does lazily on first use.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 import threading
-from typing import Any, Callable, Dict, Optional
+import warnings
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
+import torch
+
+from . import autotune as _autotune
 from .config import get_config
 from .descriptor import KernelDescriptor
 from .jit_cache import GLOBAL_KERNEL_CACHE, LruCache
@@ -59,13 +78,36 @@ _plan_calls: Dict[str, int] = {}
 # plan, one per region for a multi-launch GEMM plan.  The port runs
 # eagerly, so these are true per-call counts.
 _launches: Dict[str, int] = {}
+# Which tier served each plan-cache miss, per family.
+PLAN_SOURCES = ("tuned_cache", "autotuned", "model")
+_plan_sources: Dict[str, Dict[str, int]] = {}
+# Candidate runs the autotuner timed, candidates that failed, descriptors
+# warmed and warmup builds that failed, per family.
+_autotune_timings: Dict[str, int] = {}
+_autotune_failures: Dict[str, int] = {}
+_warmups: Dict[str, int] = {}
+_warmup_failures: Dict[str, int] = {}
+# Every distinct descriptor dispatched since the last full reset, by cache
+# key: the population a warm-start manifest records.
+_seen_descs: Dict[tuple, KernelDescriptor] = {}
+
+
+def _bump(counter: Dict[str, int], family: str, n: int = 1):
+    with _counters_lock:
+        counter[family] = counter.get(family, 0) + n
+
+
+def _note_source(family: str, source: str):
+    with _counters_lock:
+        bucket = _plan_sources.setdefault(family,
+                                          {s: 0 for s in PLAN_SOURCES})
+        bucket[source] += 1
 
 
 def count_launches(family: str, n: int = 1):
     """Family executors call this once per execute() with the number of
     kernel launches they emit (``stats()[family]["launches"]``)."""
-    with _counters_lock:
-        _launches[family] = _launches.get(family, 0) + n
+    _bump(_launches, family, n)
 
 
 def register_family(name: str, planner, execute) -> Family:
@@ -92,27 +134,148 @@ def get_family(name: str) -> Family:
     return fam
 
 
-def plan_for(desc: KernelDescriptor,
-             machine: Optional[MachineModel] = None) -> Any:
-    """Plan-cache lookup: (descriptor, machine) -> family plan."""
+def _device_mode(operands: Optional[tuple], kw: Optional[dict], cfg) -> str:
+    """The tuning-cache mode of a resolution: the operands' device type,
+    else the configured device's."""
+    mode = _autotune.operand_mode(operands or (), kw or {})
+    return mode or torch.device(cfg.device).type
+
+
+def _resolve_plan(desc: KernelDescriptor, cfg, *,
+                  machine: Optional[MachineModel] = None,
+                  operands: Optional[tuple] = None,
+                  kw: Optional[dict] = None) -> Any:
+    """Plan-cache lookup; a miss walks the three tiers."""
     fam = get_family(desc.family)
-    machine = machine or get_config().machine
-    key = desc.cache_key() + ("plan", machine.name, machine.fingerprint)
+    machine = machine or cfg.machine
+    kw = kw or {}
+    mode = _device_mode(operands, kw, cfg)
+    autotunable = (cfg.autotune and operands is not None
+                   and _autotune.can_autotune(operands, kw))
+    tier = "autotune" if autotunable else \
+        ("tuned" if (cfg.tuning_cache or cfg.tuning_cache_preload)
+         else "model")
+
+    def key_for(t):
+        # The machine by name and constants, the tier (a model plan cached
+        # without operands never masks a later autotune), the device mode
+        # and both cache paths.
+        return desc.cache_key() + ("plan", machine.name, machine.fingerprint,
+                                   t, mode, cfg.tuning_cache or "",
+                                   cfg.tuning_cache_preload or "")
 
     def build_plan():
-        with _counters_lock:
-            _plan_calls[desc.family] = _plan_calls.get(desc.family, 0) + 1
+        # Tier 1: the tuned caches, the writable one first.
+        for path in (cfg.tuning_cache, cfg.tuning_cache_preload):
+            if not path:
+                continue
+            record = _autotune.get_tuning_cache(path).lookup(
+                machine.tuning_key, desc, mode=mode)
+            if record is not None:
+                plan = _autotune.plan_from_record(desc, record)
+                if plan is not None:
+                    _note_source(desc.family, "tuned_cache")
+                    return plan
+        # Tier 2: time the model's top candidates on these operands.
+        if autotunable:
+            cache = (_autotune.get_tuning_cache(cfg.tuning_cache)
+                     if cfg.tuning_cache else None)
+            plan, timed = _autotune.search(
+                fam.execute, desc, machine, operands, kw,
+                budget=cfg.autotune_budget, tuning_cache=cache,
+                on_failure=lambda: _bump(_autotune_failures, desc.family))
+            _bump(_autotune_timings, desc.family, timed)
+            if plan is not None:
+                _note_source(desc.family, "autotuned")
+                if cfg.tuning_cache:
+                    # A resolution without operands may have cached a model
+                    # plan under the tuned-tier key: the winner replaces it.
+                    PLAN_CACHE.put(key_for("tuned"), plan)
+                return plan
+        # Tier 3: the analytical planner.
+        _bump(_plan_calls, desc.family)
+        _note_source(desc.family, "model")
         return fam.planner(desc, machine)
 
-    return PLAN_CACHE.get_or_build(key, build_plan)
+    return PLAN_CACHE.get_or_build(key_for(tier), build_plan)
+
+
+def plan_for(desc: KernelDescriptor,
+             machine: Optional[MachineModel] = None) -> Any:
+    """Plan-cache lookup: (descriptor, machine) -> family plan.  With no
+    operands there is nothing to time: the tuned caches (when configured)
+    and the model serve it."""
+    return _resolve_plan(desc, get_config(), machine=machine)
 
 
 def dispatch(desc: KernelDescriptor, *operands, plan: Any = None, **kw) -> Any:
-    """Run one kernel request: plan (cached unless given), then execute."""
+    """Run one kernel request: plan (three tiers behind the plan cache,
+    unless ``plan`` is given), then execute."""
     fam = get_family(desc.family)
+    _seen_descs.setdefault(desc.cache_key(), desc)
     if plan is None:
-        plan = plan_for(desc)
+        plan = _resolve_plan(desc, get_config(), operands=operands, kw=kw)
     return fam.execute(desc, plan, *operands, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Warm start
+# ---------------------------------------------------------------------------
+
+def seen_descriptors() -> List[KernelDescriptor]:
+    """Every distinct descriptor dispatched since the last full reset, in
+    cache-key order: the population a warm-start manifest records."""
+    return [_seen_descs[k] for k in sorted(_seen_descs, key=repr)]
+
+
+def save_manifest(path: str,
+                  descriptors: Optional[Iterable[KernelDescriptor]] = None
+                  ) -> int:
+    """Record a descriptor manifest for :func:`warmup` (default: every
+    descriptor this process dispatched).  Returns the entry count."""
+    from . import warmstart as _warmstart
+    descs = list(descriptors) if descriptors is not None \
+        else seen_descriptors()
+    return _warmstart.save_manifest(path, descs)
+
+
+def warmup(descriptors: Optional[Iterable[KernelDescriptor]] = None, *,
+           manifest: Optional[str] = None, build: bool = True
+           ) -> Dict[str, int]:
+    """Resolve plans and build kernels before the first request.
+
+    For each descriptor (given, loaded from ``manifest``, or from
+    ``config.warm_start``) the plan resolves through the tiers without
+    operands, so nothing is timed and a preloaded tuning cache serves the
+    tuned tier; with ``build`` the family then runs once on zero operands
+    on the configured device (``warmstart.synth_operands``), so its
+    kernel state is cached and its kernel built.  A build that fails warns
+    and counts as ``warmup_failures``; its plan stays warm.  Returns
+    ``{family: descriptors warmed}``, also counted as ``warmups``."""
+    from . import warmstart as _warmstart
+    cfg = get_config()
+    if descriptors is None:
+        path = manifest if manifest is not None else cfg.warm_start
+        if not path:
+            raise ValueError(
+                "warmup() needs descriptors, a manifest path, or "
+                "configure(warm_start=...) / REPRO_WARM_START")
+        descriptors = _warmstart.load_manifest(path)
+    counts: Dict[str, int] = {}
+    for desc in descriptors:
+        fam = get_family(desc.family)
+        plan = _resolve_plan(desc, cfg)
+        if build:
+            try:
+                operands, kw = _warmstart.synth_operands(desc, cfg.device)
+                fam.execute(desc, plan, *operands, **kw)
+            except Exception as e:
+                warnings.warn(f"warmup build failed for {desc.family} "
+                              f"{desc.cache_key()!r}: {e}")
+                _bump(_warmup_failures, desc.family)
+        counts[desc.family] = counts.get(desc.family, 0) + 1
+        _bump(_warmups, desc.family)
+    return counts
 
 
 def resolve_fused(plan: Any) -> bool:
@@ -133,11 +296,14 @@ def build_cached(key: tuple, builder: Callable[[], Any]) -> Any:
 
 
 _STAT_KEYS = ("plan_hits", "plan_misses", "plan_evictions", "planner_calls",
-              "launches", "kernel_hits", "kernel_misses", "kernel_evictions")
+              *(f"plan_source_{s}" for s in PLAN_SOURCES),
+              "autotune_timings", "autotune_failures", "launches",
+              "warmups", "warmup_failures",
+              "kernel_hits", "kernel_misses", "kernel_evictions")
 
 
 def stats() -> Dict[str, Dict[str, int]]:
-    """Per-family engine stats across both cache layers.
+    """Per-family engine stats across both cache layers and the tiers.
 
     A backward family (``<family>_bwd``) folds into its forward family's
     row under ``*_bwd`` keys (``launches_bwd``, ``plan_hits_bwd``, ...),
@@ -157,12 +323,19 @@ def stats() -> Dict[str, Dict[str, int]]:
         b["plan_hits" + sfx], b["plan_misses" + sfx] = c["hits"], c["misses"]
         b["plan_evictions" + sfx] = c["evictions"]
     with _counters_lock:
-        for fam, n in _plan_calls.items():
+        for name, counter in (("planner_calls", _plan_calls),
+                              ("launches", _launches),
+                              ("autotune_timings", _autotune_timings),
+                              ("autotune_failures", _autotune_failures),
+                              ("warmups", _warmups),
+                              ("warmup_failures", _warmup_failures)):
+            for fam, n in counter.items():
+                b, sfx = slot(fam)
+                b[name + sfx] = n
+        for fam, sources in _plan_sources.items():
             b, sfx = slot(fam)
-            b["planner_calls" + sfx] = n
-        for fam, n in _launches.items():
-            b, sfx = slot(fam)
-            b["launches" + sfx] = n
+            for src, n in sources.items():
+                b[f"plan_source_{src}{sfx}"] = n
     for fam, c in GLOBAL_KERNEL_CACHE.family_stats().items():
         b, sfx = slot(fam)
         b["kernel_hits" + sfx], b["kernel_misses" + sfx] = \
@@ -172,14 +345,21 @@ def stats() -> Dict[str, Dict[str, int]]:
 
 
 def reset_stats(*, entries: bool = True):
-    """Reset all engine counters; ``entries=True`` also drops cached plans
-    and built kernels, ``entries=False`` keeps both caches warm."""
+    """Reset all engine counters.  ``entries=True`` also drops cached plans,
+    built kernels, the tuning caches' in-memory mirrors (the files stay: a
+    fresh mirror re-reads them, as a restarted process would) and the
+    dispatched-descriptor record; ``entries=False`` keeps all of them warm,
+    so a phase's counts stand alone."""
     if entries:
         PLAN_CACHE.clear()
         GLOBAL_KERNEL_CACHE.clear()
+        _autotune.reset_tuning_caches()
+        _seen_descs.clear()
     else:
         PLAN_CACHE.reset_stats()
         GLOBAL_KERNEL_CACHE.reset_stats()
     with _counters_lock:
-        _plan_calls.clear()
-        _launches.clear()
+        for counter in (_plan_calls, _launches, _plan_sources,
+                        _autotune_timings, _autotune_failures, _warmups,
+                        _warmup_failures):
+            counter.clear()

@@ -59,6 +59,18 @@ class LruCache:
                 self._bucket(_family_of(key))["hits"] += 1
             return self._store[key]
 
+    def put(self, key: Hashable, value: Any) -> None:
+        """Insert or overwrite ``key`` (refreshing recency), no hit or miss
+        counted: the engine puts a fresh autotuned winner on the tuned
+        tier's key, over any model plan resolved there before."""
+        with self._lock:
+            self._store[key] = value
+            self._store.move_to_end(key)
+            while len(self._store) > self._max:
+                evicted_key, _ = self._store.popitem(last=False)
+                self.evictions += 1
+                self._bucket(_family_of(evicted_key))["evictions"] += 1
+
     def family_stats(self) -> Dict[str, Dict[str, int]]:
         with self._lock:
             return {fam: dict(c) for fam, c in self._by_family.items()}

@@ -34,15 +34,25 @@ kernels accept rather than from a scratchpad size:
   * the transpose kernel takes the square tile edges ``transpose_tiles``
     (the ones ``csrc/transpose.cu`` instantiates).
 
-The dispatch overheads are pinned assumptions, not measurements; a later
-calibration replaces them.
+The dispatch overheads are pinned assumptions, not measurements.  Two
+sources replace them, as in the reference: :meth:`MachineModel.from_probes`
+folds ``repro_torch.core.microbench`` probe results (matmul rate per dtype,
+copy bandwidth, launch latency) into a copy of a base model, and
+:func:`load_refit_model` overlays the cost coefficients that
+``repro_torch.core.refit`` fitted to a tuning cache's timings, stamping a
+``+refit`` provenance on ``fingerprint`` and ``tuning_key``.  The
+reference's network fields (``ici_bandwidth_gbps``, ``+net``) are not
+ported: the port has no multi-device path yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import hashlib
-from typing import Dict, Optional, Tuple
+import json
+import math
+import warnings
+from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -51,6 +61,22 @@ DEFAULT_LAUNCH_OVERHEAD_S = 2.0e-6
 DEFAULT_FUSED_TILE_DECODE_S = 6e-7
 DEFAULT_EXTRA_LAUNCH_FACTOR = 0.25
 DEFAULT_STITCH_DISCOUNT = 0.25
+
+# Version of the refit-model JSON that ``tools/tune_torch.py refit`` writes
+# and :func:`load_refit_model` reads (the reference's format).
+REFIT_MODEL_VERSION = 1
+
+# Coefficients a refit model may carry; a file naming anything else was
+# written by a newer tool and is refused.  The reference's list, its
+# network coefficients included, so that the two packages read each
+# other's files; the port's model has no network fields to overlay them on.
+REFIT_COEFFICIENTS = (
+    "step_overhead_s", "launch_overhead_s", "extra_launch_factor",
+    "fused_tile_decode_s", "stitch_discount",
+    "ici_bandwidth_gbps", "collective_launch_s", "collective_efficiency",
+)
+_NETWORK_COEFFICIENTS = ("ici_bandwidth_gbps", "collective_launch_s",
+                         "collective_efficiency")
 
 # The e4m3 wire dtype of the quant axis (``jnp.float8_e4m3fn`` in the
 # reference): 4 exponent bits, 3 mantissa bits, no infinities, +-448.
@@ -149,12 +175,29 @@ class MachineModel:
     # Square tile edges the transpose kernel instantiates; None: legality
     # is the VMEM fit of a staged (bt, bt) tile.
     transpose_tiles: Optional[Tuple[int, ...]] = None
+    # Fingerprint of the offline refit model whose cost coefficients
+    # replaced the pinned or probed ones (:func:`load_refit_model`); None:
+    # not refitted.
+    refit_fingerprint: Optional[str] = None
+
+    @property
+    def _provenance(self) -> str:
+        return "+refit" if self.refit_fingerprint else ""
 
     @functools.cached_property
     def fingerprint(self) -> str:
-        """Short digest of every model constant (plan-cache keys)."""
+        """Short digest of every model constant (plan-cache keys), with a
+        ``+refit`` suffix for refitted coefficients."""
         blob = repr(dataclasses.astuple(self)).encode()
-        return hashlib.md5(blob).hexdigest()[:8]
+        return hashlib.md5(blob).hexdigest()[:8] + self._provenance
+
+    @property
+    def tuning_key(self) -> str:
+        """The machine's name in tuning-cache entry keys: ``name``, plus
+        ``+refit`` for a refitted model, so that winners ranked under
+        fitted and under probed coefficients never serve each other.
+        Probe drift on one host keeps the key (unlike ``fingerprint``)."""
+        return self.name + self._provenance
 
     def peak(self, dtype) -> float:
         return self.peak_flops[canonical_dtype(dtype)]
@@ -162,6 +205,45 @@ class MachineModel:
     def reg_tile(self, dtype) -> Tuple[int, int]:
         """(row, column) alignment granule of an accumulator block."""
         return (self.sublanes[canonical_dtype(dtype)], self.lanes)
+
+    @classmethod
+    def from_probes(cls, probes: Union[Mapping[str, object], Iterable],
+                    base: Optional["MachineModel"] = None,
+                    name: str = "calibrated") -> "MachineModel":
+        """A calibrated copy of ``base`` (default ``DEFAULT_MACHINE``) from
+        ``repro_torch.core.microbench`` probes (``characterize``'s dict or
+        any iterable of its ``ProbeResult``s):
+
+          * ``matmul_<dtype>``   [GFLOP/s] -> ``peak_flops[dtype]``
+          * ``copy_bw``          [GB/s]    -> ``hbm_bw``
+          * ``dispatch_latency`` [us]      -> ``step_overhead_s`` and
+            ``launch_overhead_s``
+
+        Other probes (the ``target_*`` echoes) are ignored, and a missing
+        probe leaves the base constant, so a partial run still gives a
+        model.  Only the single-device probes are ported."""
+        base = base if base is not None else DEFAULT_MACHINE
+        if isinstance(probes, Mapping):
+            probes = probes.values()
+        peak = dict(base.peak_flops)
+        hbm_bw = base.hbm_bw
+        overhead = base.step_overhead_s
+        launch = base.launch_overhead_s
+        for p in probes:
+            pname, value = p.name, p.value
+            if pname.startswith("matmul_"):
+                dtype = pname[len("matmul_"):]
+                if dtype in peak and value > 0:
+                    peak[dtype] = value * 1e9
+            elif pname == "copy_bw" and value > 0:
+                hbm_bw = value * 1e9
+            elif pname == "dispatch_latency" and value > 0:
+                # One whole dispatch round trip: the per-step and the
+                # per-launch cost alike.
+                overhead = launch = value * 1e-6
+        return dataclasses.replace(base, name=name, peak_flops=peak,
+                                   hbm_bw=hbm_bw, step_overhead_s=overhead,
+                                   launch_overhead_s=launch)
 
 
 TPU_V5E = MachineModel(
@@ -229,3 +311,66 @@ DEFAULT_MACHINE = H100_SXM
 def get_machine(name: str) -> MachineModel:
     """Look up a built-in machine model by name."""
     return {"tpu_v5e": TPU_V5E, "h100_sxm": H100_SXM}[name]
+
+
+def _validate_refit(data, base: MachineModel) -> Optional[str]:
+    """The reason a refit-model payload cannot be applied, or None."""
+    if not isinstance(data, dict):
+        return "not a JSON object"
+    if data.get("kind") != "machine-refit":
+        return f"kind={data.get('kind')!r}, expected 'machine-refit'"
+    if data.get("version") != REFIT_MODEL_VERSION:
+        return (f"version={data.get('version')!r}, expected "
+                f"{REFIT_MODEL_VERSION} (stale model or stale reader)")
+    fp = data.get("fingerprint")
+    if not isinstance(fp, str) or not fp:
+        return "missing provenance fingerprint"
+    if data.get("base") not in (None, base.name):
+        return (f"fitted against base {data.get('base')!r}, "
+                f"refusing to overlay onto {base.name!r}")
+    coeffs = data.get("coefficients")
+    if not isinstance(coeffs, dict) or not coeffs:
+        return "missing coefficients"
+    for key, value in coeffs.items():
+        if key not in REFIT_COEFFICIENTS:
+            return f"unknown coefficient {key!r} (stale reader?)"
+        if key == "collective_efficiency":
+            if not isinstance(value, dict) or not all(
+                    isinstance(k, str) and isinstance(v, (int, float))
+                    and math.isfinite(v) and v > 0
+                    for k, v in value.items()):
+                return "collective_efficiency must map names to ratios > 0"
+        elif (not isinstance(value, (int, float)) or isinstance(value, bool)
+              or not math.isfinite(value) or value < 0):
+            return f"coefficient {key}={value!r} is not a finite number >= 0"
+    return None
+
+
+def apply_refit(base: MachineModel, coefficients: dict,
+                fingerprint: str) -> MachineModel:
+    """``base`` with fitted cost coefficients and the ``+refit`` stamp.
+    Network coefficients (a mesh fit's) have no field here and are
+    dropped."""
+    kw = {k: v for k, v in coefficients.items()
+          if k not in _NETWORK_COEFFICIENTS}
+    return dataclasses.replace(base, **kw, refit_fingerprint=fingerprint)
+
+
+def load_refit_model(path: str,
+                     base: Optional[MachineModel] = None) -> MachineModel:
+    """Overlay an offline-refit coefficient model onto ``base`` (default
+    ``DEFAULT_MACHINE``): the versioned JSON ``tools/tune_torch.py refit``
+    writes.  A missing, corrupt, stale, wrong-base or out-of-range file
+    warns and returns ``base`` unchanged."""
+    base = base if base is not None else DEFAULT_MACHINE
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        warnings.warn(f"ignoring refit model {path}: {e}")
+        return base
+    reason = _validate_refit(data, base)
+    if reason is not None:
+        warnings.warn(f"ignoring refit model {path}: {reason}")
+        return base
+    return apply_refit(base, data["coefficients"], data["fingerprint"])

@@ -35,15 +35,19 @@ ACTIVATIONS = ("gelu", "silu", "relu", "bias_gelu", "bias_silu")
 
 def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
            *, layout: str = "nn", epilogue: Optional[str] = None,
-           bias: Optional[torch.Tensor] = None,
-           out_dtype=None) -> torch.Tensor:
+           bias: Optional[torch.Tensor] = None, out_dtype=None,
+           plan=None, backend_override: Optional[str] = None
+           ) -> torch.Tensor:
     """Planned (batched) GEMM: ``out = epilogue(c? + a @ op(b))``.
 
     ``a``: (..., M, K).  ``b``: (K, N) | (nb, K, N) for layout "nn",
     (N, K) | (nb, N, K) for "nt".  Leading dims of ``a`` are flattened
-    into M when ``b`` is rank-2 (the dense-layer case).
+    into M when ``b`` is rank-2 (the dense-layer case).  ``plan`` (a
+    :class:`~repro_torch.core.blocking.BlockingPlan` of the flattened
+    problem) bypasses plan resolution on the engine backend;
+    ``backend_override`` names the backend for this call.
     """
-    be = get_config().backend
+    be = backend_override or get_config().backend
     out_dtype = out_dtype or a.dtype
     check_bias(epilogue, bias)
     from repro_torch.optim.compression import QuantizedTensor
@@ -58,7 +62,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
         a = a.reshape(-1, a.shape[-1])
         if c is not None:
             c = c.reshape(-1, c.shape[-1])
-    out = _EngineGemm.apply(a, b, c, bias, layout, epilogue, out_dtype)
+    out = _EngineGemm.apply(a, b, c, bias, layout, epilogue, out_dtype, plan)
     if lead is not None:
         out = out.reshape(*lead, out.shape[-1])
     return out
@@ -98,14 +102,14 @@ class _EngineGemm(torch.autograd.Function):
     epilogue, then :func:`_dot_bwd` for the operands."""
 
     @staticmethod
-    def forward(ctx, a, b, c, bias, layout, epilogue, out_dtype):
+    def forward(ctx, a, b, c, bias, layout, epilogue, out_dtype, plan):
         from repro_torch.core import engine
         desc = GemmDescriptor.from_operands(
             a, b, layout=layout, accumulate=c is not None, epilogue=epilogue,
             out_dtype=out_dtype)
         ctx.save_for_backward(a, b, c, bias)
         ctx.opts = (layout, epilogue)
-        return engine.dispatch(desc, a, b, bias=bias, c=c)
+        return engine.dispatch(desc, a, b, plan=plan, bias=bias, c=c)
 
     @staticmethod
     def backward(ctx, g):
@@ -127,7 +131,7 @@ class _EngineGemm(torch.autograd.Function):
         dbias = g.reshape(-1, g.shape[-1]).sum(0).to(bias.dtype) \
             if need_bias else None
         da, db = _dot_bwd(a, b, g, layout, need_a, need_b)
-        return da, db, dc, dbias, None, None, None
+        return da, db, dc, dbias, None, None, None, None
 
 
 def _product32(a, b, layout):

@@ -12,6 +12,14 @@ bit):
 
 Both report their launch counts through ``engine.count_launches``.
 
+Edge strategies of the multi-launch lowering (``desc.edge``): ``"mask"``
+runs each region at its exact shape, the kernel masking the ragged edges;
+``"pad"`` zero-pads each region's operands to its block multiples (rows to
+``bm``, columns to ``bn``, K to the plan's ``bk``) outside the kernel, runs
+the same region kernel on the padded shape and slices the result back (the
+copy-based strategy the paper's predication avoids).  The fused lowering
+masks whatever the edge.
+
 A quantized descriptor (``desc.quant``) runs ONE ``gemm_quant`` launch
 over the same tile table when the plan is fused; the region kernel has no
 quant form, so its non-fused lowering is the reference's ``_xla_quant_gemm``
@@ -32,7 +40,7 @@ from repro_torch.core.config import get_config, use
 from repro_torch.core.descriptor import (GemmDescriptor, check_bias,
                                          resolve_quant)
 from repro_torch.core.machine import torch_dtype
-from repro_torch.core.schedule import plan_launches
+from repro_torch.core.schedule import plan_launches, round_up
 from repro_torch.kernels.gemm.kernel import (K_PANEL, FusedGemm, gemm_fused,
                                              gemm_quant, gemm_region)
 from repro_torch.kernels.gemm.ref import ref_quant_gemm
@@ -40,7 +48,9 @@ from repro_torch.kernels.gemm.ref import ref_quant_gemm
 
 def _fused_executor(desc: GemmDescriptor, plan: BlockingPlan, device):
     """Build (and cache) one plan's fused kernel state on ``device``."""
-    key = desc.cache_key() + ("fused", plan.regions, plan.bk, str(device))
+    # The fused walk masks edges: both edge strategies share its state.
+    key = dataclasses.replace(desc, edge="mask").cache_key() + (
+        "fused", plan.regions, plan.bk, str(device))
     return engine.build_cached(key, lambda: FusedGemm(plan.tile_schedule(),
                                                       device))
 
@@ -55,9 +65,6 @@ def execute(desc: GemmDescriptor, plan: BlockingPlan, a, b, *, bias=None,
     ``sb`` are a quantized descriptor's dense f32 dequant vectors (``(m,)``
     row scales for full quant, ``(n,)`` column scales for any spec)."""
     check_bias(desc.epilogue, bias)
-    if desc.edge != "mask":
-        raise NotImplementedError(f"edge={desc.edge!r} is not ported; the "
-                                  f"kernels mask edges")
     if a.is_cuda and plan.bk != K_PANEL:
         raise NotImplementedError(f"plan bk={plan.bk}, but the CUDA GEMM's "
                                   f"K panel is {K_PANEL}; plan with the "
@@ -89,8 +96,40 @@ def execute(desc: GemmDescriptor, plan: BlockingPlan, a, b, *, bias=None,
         out = torch.empty((a3.shape[0], desc.m, desc.n), dtype=out_dtype,
                           device=a.device)
         for region in plan.regions:
-            gemm_region(a3, b3, out, region, **kw)
+            if desc.edge == "pad":
+                _padded_region(a3, b3, out, region, plan.bk, **kw)
+            else:
+                gemm_region(a3, b3, out, region, **kw)
     return out if desc.batch else out[0]
+
+
+def _pad(t, *sizes):
+    """``t`` zero-padded at the end of its trailing dims to ``sizes``."""
+    pad = []
+    for dim, size in zip(reversed(range(t.ndim)), reversed(sizes)):
+        pad += [0, size - t.shape[dim]]
+    return torch.nn.functional.pad(t, pad).contiguous()
+
+
+def _padded_region(a3, b3, out, region, bk, *, layout, epilogue, bias, c):
+    """One region under ``edge="pad"``: its operand slices zero-padded to
+    whole blocks, the region kernel over the padded rectangle, the
+    region's rows and columns copied into ``out``."""
+    r0, c0, rows, cols = region.row0, region.col0, region.rows, region.cols
+    rows_p, cols_p = round_up(rows, region.bm), round_up(cols, region.bn)
+    k_p = round_up(a3.shape[-1], bk)
+    a_r = _pad(a3[:, r0:r0 + rows], rows_p, k_p)
+    b_r = _pad(b3[:, :, c0:c0 + cols], k_p, cols_p) if layout == "nn" \
+        else _pad(b3[:, c0:c0 + cols], cols_p, k_p)
+    bias_r = None if bias is None else _pad(bias[c0:c0 + cols], cols_p)
+    c_r = None if c is None else _pad(c[:, r0:r0 + rows, c0:c0 + cols],
+                                      rows_p, cols_p)
+    out_r = torch.empty((a3.shape[0], rows_p, cols_p), dtype=out.dtype,
+                        device=out.device)
+    gemm_region(a_r, b_r, out_r, dataclasses.replace(
+        region, row0=0, col0=0, rows=rows_p, cols=cols_p), layout=layout,
+        epilogue=epilogue, bias=bias_r, c=c_r)
+    out[:, r0:r0 + rows, c0:c0 + cols] = out_r[:, :rows, :cols]
 
 
 engine.register_family("gemm", planner=plan_gemm, execute=execute)
@@ -98,13 +137,16 @@ engine.register_family("gemm", planner=plan_gemm, execute=execute)
 
 def gemm(a, b, c: Optional[torch.Tensor] = None, *, layout: str = "nn",
          epilogue: Optional[str] = None, bias: Optional[torch.Tensor] = None,
-         out_dtype=None, fused: Optional[bool] = None,
+         out_dtype=None, edge: str = "mask",
+         plan: Optional[BlockingPlan] = None, fused: Optional[bool] = None,
          quant=None) -> torch.Tensor:
     """Planned, shape-specialised (batched) GEMM via the engine.
 
     ``a``: (..., M, K); ``b``: (..., K, N) for layout "nn" or (..., N, K)
     for "nt"; optional ``c`` of shape (..., M, N).  ``fused=True/False``
-    pins the single-launch or multi-launch lowering for this call.
+    pins the single-launch or multi-launch lowering for this call, ``plan``
+    the plan itself; ``edge`` is the multi-launch lowering's edge strategy
+    (``"mask"`` or ``"pad"``, see the module docstring).
 
     ``quant`` selects the low-precision axis: a
     :class:`~repro_torch.core.descriptor.QuantSpec`, a shorthand
@@ -141,6 +183,7 @@ def gemm(a, b, c: Optional[torch.Tensor] = None, *, layout: str = "nn",
                 a, sa = quantize_operand(a, spec, axis=0)
     desc = GemmDescriptor.from_operands(
         a, b, layout=layout, accumulate=c is not None, epilogue=epilogue,
-        out_dtype=out_dtype or a.dtype, quant=spec)
+        out_dtype=out_dtype or a.dtype, edge=edge, quant=spec)
     with use(fused=None if fused is None else ("on" if fused else "off")):
-        return engine.dispatch(desc, a, b, bias=bias, c=c, sa=sa, sb=sb)
+        return engine.dispatch(desc, a, b, plan=plan, bias=bias, c=c, sa=sa,
+                               sb=sb)

@@ -6,7 +6,9 @@ norm -> MLP or mixture of experts -> residual.  Mixer kinds ported:
 ``i`` has kind ``block_pattern[i % len(block_pattern)]``.  The stack is
 an ``nn.ModuleList`` run in a Python loop (the reference scans stacked
 parameters; the port runs eagerly) and sums the blocks' MoE auxiliary
-losses.  Other kinds ("rec", "local") and cross-attention raise.
+losses.  Its decode cache is one leaf per layer, dense or (for the
+continuous-batching runtime) paged.  Other kinds ("rec", "local") and
+cross-attention raise.
 """
 from __future__ import annotations
 
@@ -83,46 +85,39 @@ class Block(nn.Module):
 
 
 def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
-    """One decode cache per layer: for "attn" layers a dense KV cache, or
-    with ``paged`` (a :class:`~repro_torch.models.attention.PageSpec`) a
-    paged pool with ``batch`` block-table rows, the continuous-batching
-    serving cache (every layer maps its pool through the same slots'
-    pages, so the layers share one block-table tensor); for "ssm" layers
-    a dense slot-major :class:`~repro_torch.models.ssd.SSMState`, O(1) in
-    the sequence length.  Paged pools are refused for a model with any
-    "ssm" layer (the continuous runtime does not carry plain state leaves
-    yet) and for a mixture of experts (continuous MoE is not held to the
-    reference yet)."""
+    """One decode cache per layer.  An "attn" layer gets a dense KV cache,
+    or with ``paged`` (a :class:`~repro_torch.models.attention.PageSpec`)
+    a paged pool with ``batch`` block-table rows, the continuous-batching
+    serving cache: every attention layer maps its pool through the same
+    slots' pages, so those layers share one block-table tensor.  An "ssm"
+    layer gets a slot-major :class:`~repro_torch.models.ssd.SSMState` of
+    ``batch`` rows either way (O(1) in the sequence length), as the
+    reference's ``block_cache`` gives it."""
     dt = torch_dtype(cfg.kv_cache_dtype)
-    kinds = layer_kinds(cfg)
-    if paged is not None and set(kinds) != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: paged serving caches hold attention KV only; "
-            f"continuous batching of SSM state leaves is not ported")
-    if paged is not None and cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: continuous batching of a mixture of experts is "
-            f"not ported")
-    if paged is not None:
-        leaves = [init_paged_kv_cache(batch, paged, cfg.num_kv_heads,
-                                      cfg.head_dim, dt, device)
-                  for _ in range(cfg.num_layers)]
-        for leaf in leaves[1:]:
-            leaf.tables = leaves[0].tables
-        return leaves
-    return [init_ssm_state(batch, cfg, device) if kind == "ssm" else
-            init_kv_cache(batch, capacity, cfg.num_kv_heads, cfg.head_dim,
-                          dt, device)
-            for kind in kinds]
+    leaves, tables = [], None
+    for kind in layer_kinds(cfg):
+        if kind == "ssm":
+            leaves.append(init_ssm_state(batch, cfg, device))
+        elif paged is None:
+            leaves.append(init_kv_cache(batch, capacity, cfg.num_kv_heads,
+                                        cfg.head_dim, dt, device))
+        else:
+            leaf = init_paged_kv_cache(batch, paged, cfg.num_kv_heads,
+                                       cfg.head_dim, dt, device)
+            if tables is None:
+                tables = leaf.tables
+            leaf.tables = tables
+            leaves.append(leaf)
+    return leaves
 
 
 def stack_apply(blocks: nn.ModuleList, x, positions, *, cache=None):
     """Run every block in order; returns (x, caches or None, the sum of
     the blocks' aux losses).  A paged decode step's per-slot state is
-    built once, for every layer."""
+    built once, from the first paged leaf, for every attention layer."""
     new_cache = [] if cache is not None else None
-    step = paged_step(cache[0], positions) \
-        if cache and isinstance(cache[0], PagedKVCache) else None
+    paged = [c for c in cache or () if isinstance(c, PagedKVCache)]
+    step = paged_step(paged[0], positions) if paged else None
     aux_total = torch.zeros((), device=x.device)
     for i, block in enumerate(blocks):
         x, c, aux = block(x, positions,

@@ -73,7 +73,7 @@ class LanguageModel(nn.Module):
 
     def init_cache(self, batch: int, capacity: int, paged=None):
         """Dense per-layer decode caches (KV caches, SSM states), or with
-        ``paged`` (a ``PageSpec``, attention-only models) the
-        continuous-batching serving cache: paged pools and block
-        tables."""
+        ``paged`` (a ``PageSpec``) the continuous-batching serving cache:
+        paged pools sharing one block-table tensor, and slot-major SSM
+        states."""
         return stack_cache(self.cfg, batch, capacity, self.device, paged)

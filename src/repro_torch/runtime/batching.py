@@ -25,9 +25,14 @@ greedy-token-identical to an uninterrupted run):
     under greedy decoding reproduces the exact token stream.
   * Admission overflow never crashes: requests simply wait.
 
-Host-side state is numpy and Python; the device sees the step's inputs in
-one non-blocking copy, and the one host sync per decode step is reading
-the new tokens back.  ``warmup`` (AOT warm-start manifests) is not ported.
+Every ported family serves: attention layers through paged pools, SSM
+layers through slot-major states (merged back for inactive slots), MoE
+layers as they are (an inactive slot's garbage row routes and takes
+capacity, as in the reference).  Host-side state is numpy and Python; the
+device sees the step's inputs in one non-blocking copy, and the one host
+sync per decode step is reading the new tokens back.  :meth:`warmup`
+resolves and builds a recorded descriptor population, every prefill
+length and the decode step before traffic.
 """
 from __future__ import annotations
 
@@ -117,6 +122,34 @@ class ContinuousBatchingEngine:
         self.phase_seconds: Dict[str, float] = {
             "admission": 0.0, "prefill": 0.0, "decode": 0.0,
             "eviction": 0.0}
+
+    # -- warm start ---------------------------------------------------------
+
+    def warmup(self, prompt_lens=(), *, manifest: Optional[str] = None
+               ) -> Dict:
+        """Resolve and build what a serving run will touch, before traffic:
+        ``engine.warmup`` over a descriptor manifest (or
+        ``config.warm_start``), through the tuned tier, building each kernel
+        once; one prefill per distinct length in ``prompt_lens``; one
+        decode step on an all-inactive batch (no slot active: the pools and
+        the state rows stay as they are).  A serving run with the same
+        shapes then resolves no plan.  Returns a summary."""
+        from repro_torch.core.config import get_config
+        t0 = time.perf_counter()
+        kernels: Dict[str, int] = {}
+        if manifest is not None or get_config().warm_start:
+            kernels = engine.warmup(manifest=manifest)
+        lengths = sorted({int(L) for L in prompt_lens})
+        for L in lengths:
+            self._prefill_fn(L)({"tokens": torch.zeros(
+                (1, L), dtype=torch.long, device=self.device)})
+        zeros = torch.zeros(self.num_slots, dtype=torch.long,
+                            device=self.device)
+        _, self.cache, _ = self._step(self.cache, zeros[:, None], zeros,
+                                      zeros.bool())
+        _sync(self.device)
+        return {"seconds": time.perf_counter() - t0, "kernels": kernels,
+                "prefill_lengths": lengths}
 
     # -- submission ---------------------------------------------------------
 

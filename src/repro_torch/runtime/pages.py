@@ -1,4 +1,4 @@
-"""Paged KV cache for the continuous-batching serving runtime.
+"""Paged KV and state cache for the continuous-batching serving runtime.
 
 The serving cache replaces the dense, capacity-sized per-slot KV of the
 static batch path with a *pool* of fixed-size pages plus per-slot block
@@ -7,15 +7,18 @@ tables:
   * :class:`PagePool` -- the host-side free-list allocator.  It owns the
     int32 block tables as numpy state; admission, growth and eviction move
     page *indices* on the host, never KV bytes on the device.
-  * :func:`init_serving_cache` -- the device cache: one
-    :class:`~repro_torch.models.attention.PagedKVCache` pool per layer.
+  * :func:`init_serving_cache` -- the device cache, one leaf per layer:
+    an "attn" layer's :class:`~repro_torch.models.attention.PagedKVCache`
+    pool, an "ssm" layer's slot-major
+    :class:`~repro_torch.models.ssd.SSMState` (O(1) per slot, so it stays
+    dense).
   * :func:`write_prefill` -- copies one sequence's freshly prefilled dense
-    cache (batch 1, capacity = length) into its slot's pool pages, in place.
-  * :func:`refresh_tables` -- rewrites every layer's device block tables in
-    place after the allocator moved pages.
+    cache (batch 1, capacity = length) into its slot, in place: KV rows into
+    the slot's pool pages, state rows into the slot's row.
+  * :func:`refresh_tables` -- rewrites every paged layer's device block
+    tables in place after the allocator moved pages.
 
-Only "attn" blocks are ported, so every cache leaf is a ``PagedKVCache``;
-the reference's ring (local attention) and recurrent leaves are not
+The reference's ring (local attention) and recurrent leaves are not ported
 (``LanguageModel`` raises for such configs through ``check_ported``).
 """
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.models.attention import (PagedKVCache, PageSpec,
                                           quantize_kv_rows)
+from repro_torch.models.ssd import SSMState
 
 
 class OutOfPages(RuntimeError):
@@ -159,9 +163,10 @@ def init_serving_cache(model, num_slots: int, spec: PageSpec):
 
 
 def _check_leaf(leaf) -> None:
-    if not isinstance(leaf, PagedKVCache):
+    if not isinstance(leaf, (PagedKVCache, SSMState)):
         raise NotImplementedError(f"serving-cache leaf {type(leaf).__name__}: "
-                                  f"only paged attention caches are ported")
+                                  f"only paged attention caches and SSM "
+                                  f"states are ported")
 
 
 def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
@@ -169,12 +174,15 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
     """Copy a batch-1 dense prefill cache into serving slot ``slot``.
 
     ``page_ids``: the slot's block-table prefix (from
-    ``PagePool.grow``/``owned_pages``); it must cover ``length``.  The
-    dense prefill ran with capacity == length, so ``dense.k[0, :length]``
-    is position-ordered: it is padded to whole pages and scattered into
-    the pools at the slot's pages, in place.  Into int8 pools the rows
-    (padding included) go quantized per token, with the decode write's
-    scaling, and their scales beside them.  Returns the serving cache."""
+    ``PagePool.grow``/``owned_pages``); it must cover ``length``.  For a
+    paged leaf the dense prefill ran with capacity == length, so
+    ``dense.k[0, :length]`` is position-ordered: it is padded to whole
+    pages and scattered into the pools at the slot's pages, in place.  Into
+    int8 pools the rows (padding included) go quantized per token, with the
+    decode write's scaling, and their scales beside them.  An SSM state
+    leaf is a slot-major row copy, the conv tail and ``s`` alike, cast to
+    the serving leaf's dtype (the reference's plain-leaf branch).  Returns
+    the serving cache."""
     assert len(page_ids) == pages_for(length, page_size), \
         (len(page_ids), length, page_size)
     n = len(page_ids)
@@ -182,6 +190,10 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
     ids = None
     for sv, dv in zip(serving, dense):
         _check_leaf(sv)
+        if isinstance(sv, SSMState):
+            for pool, rows in zip(sv, dv):
+                pool[slot] = rows[0].to(pool.dtype)
+            continue
         if ids is None:
             ids = to_device(np.asarray(page_ids, np.int64), sv.k.device)
         for pool, spool, rows in ((sv.k, sv.k_scale, dv.k),
@@ -198,13 +210,16 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
 
 
 def refresh_tables(cache, tables):
-    """Rewrite every layer's block tables in place with ``tables``
+    """Rewrite every paged layer's block tables in place with ``tables``
     ((num_slots, max_blocks) int32, host or device); called after the
     allocator moved pages.  Layers that share one table tensor
-    (``stack_cache``) are written once.  Returns the cache."""
+    (``stack_cache``) are written once; state leaves have no tables.
+    Returns the cache."""
     t = done = None
     for leaf in cache:
         _check_leaf(leaf)
+        if not isinstance(leaf, PagedKVCache):
+            continue
         if t is None:
             t = tables if isinstance(tables, torch.Tensor) \
                 else to_device(np.asarray(tables, np.int32), leaf.tables.device)

@@ -145,17 +145,40 @@ def make_serve_step(model):
 # continuous batching
 # ---------------------------------------------------------------------------
 
+def _merge_inactive(new_cache, old_cache, active):
+    """Keep the state rows of inactive slots from the previous step (the
+    reference's ``_merge_inactive``).
+
+    Inactive slots run through the forward at position -1: their paged KV
+    writes are already dropped (the shared pools pass through as they
+    are), but an SSM layer computes a garbage update for every row, which
+    is masked back to the old state here, with ``torch.where`` on the slot
+    axis.  A layer's forward returns a new :class:`~repro_torch.models.ssd.
+    SSMState` and leaves the old one's tensors alone, so ``old_cache`` still
+    holds the state before the step.  The merged leaf takes the promoted
+    dtype of the two, as ``jnp.where`` gives it."""
+    from repro_torch.models.ssd import SSMState
+
+    def where(new, old):
+        dt = torch.promote_types(new.dtype, old.dtype)
+        mask = active.reshape(-1, *([1] * (new.ndim - 1)))
+        return torch.where(mask, new.to(dt), old.to(dt))
+
+    return [SSMState(*(where(n, o) for n, o in zip(new, old)))
+            if isinstance(new, SSMState) else new
+            for new, old in zip(new_cache, old_cache)]
+
+
 def make_paged_serve_step(model):
     """One continuous-batching decode step over the paged serving cache.
 
     ``(cache, tokens (S, 1), lengths (S,), active (S,)) -> (next_tokens
     (S, 1), cache, lengths')``: greedy argmax decode.  Inactive slots run
-    at position -1: they leave the pools unchanged and keep their length,
-    and their token rows are garbage the scheduler ignores.  Every ported
-    cache leaf is a shared paged pool, so there is no per-slot state to
-    merge back (the reference's ``_merge_inactive`` restores ring and
-    recurrent rows, which are not ported).  The batch composition reaches
-    the kernels only through the block tables' and lengths' values.
+    at position -1: they leave the pools unchanged, their SSM state rows
+    are merged back from before the step (:func:`_merge_inactive`), their
+    length is kept, and their token rows are garbage the scheduler
+    ignores.  The batch composition reaches the kernels only through the
+    block tables' and lengths' values.
     """
 
     @torch.no_grad()
@@ -163,6 +186,7 @@ def make_paged_serve_step(model):
         positions = torch.where(active, lengths, -1).to(torch.int32)[:, None]
         logits, new_cache, _ = forward(model, {"tokens": tokens}, cache=cache,
                                        positions=positions)
+        new_cache = _merge_inactive(new_cache, cache, active)
         tok = torch.argmax(logits[:, -1], -1)
         new_lengths = torch.where(active, lengths + 1, lengths)
         return tok[:, None], new_cache, new_lengths

@@ -123,14 +123,22 @@ def test_launch_counts_fused_and_multi():
 
 @pytest.mark.parametrize("fused", [True, False])
 def test_pad_edge_is_not_ported(fused):
-    """The kernels mask edges; a padded-edge descriptor raises on either
-    lowering instead of running as a masked one."""
+    """A padded-edge descriptor runs: the fused walk masks its edges, the
+    multi-launch lowering pads each region's operands to whole blocks and
+    slices the result back, as the reference's does; both equal the
+    reference's Pallas GEMM under the same TPU_V5E plan (atol = rtol =
+    1e-4, fp32)."""
     ops = _operands(20, 70, 40, "nn")
-    _, (ta, tb, _, _) = _both(ops, "float32")
-    desc = GemmDescriptor(m=20, n=70, k=40, edge="pad")
-    with use(fused="on" if fused else "off"), \
-            pytest.raises(NotImplementedError, match="edge='pad'"):
-        engine.dispatch(desc, ta, tb)
+    (ja, jb, _, _), (ta, tb, _, _) = _both(ops, "float32")
+    with jcore.use(backend="pallas"):
+        want = j_gemm(ja, jb, edge="pad", fused=fused)
+    with use(machine="tpu_v5e"):
+        engine.reset_stats()
+        got = gemm(ta, tb, edge="pad", fused=fused)
+        desc = GemmDescriptor(m=20, n=70, k=40, edge="pad")
+        assert engine.stats()["gemm"]["launches"] == \
+            (1 if fused else len(plan_gemm(desc).regions))
+    _close(got, want, "float32")
 
 
 def test_cpu_wrappers_run_plain_versions_and_count_nothing():

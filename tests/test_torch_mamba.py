@@ -232,11 +232,13 @@ def test_unported_recurrent_and_paged_paths_raise(setup):
     rg = ModelConfig(**{f: getattr(jr, f) for f in cfg.__dataclass_fields__})
     with pytest.raises(NotImplementedError, match="block kinds"):
         check_ported(rg)
-    with pytest.raises(NotImplementedError, match="SSM"):
-        model.init_cache(2, 16, paged=PageSpec(8, 4, 4))
-    with use(device="cpu"), pytest.raises(NotImplementedError,
-                                          match="continuous"):
-        run_continuous(model)
+    # The paged serving cache and continuous batching are ported: every
+    # layer's leaf is a slot-major SSM state, and the continuous run's
+    # tokens are the static path's.
+    paged = model.init_cache(2, 16, paged=PageSpec(8, 4, 4))
+    assert all(isinstance(c, SSMState) and c.s.shape[0] == 2 for c in paged)
+    with use(device="cpu"):
+        assert run_continuous(model)["token_identical"]
     with pytest.raises(NotImplementedError):
         LanguageModel(dataclasses.replace(cfg, block_pattern=("ssm", "rec")),
                       device="cpu")

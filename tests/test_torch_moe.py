@@ -257,11 +257,16 @@ def test_weight_decay_ranks_are_the_reference(setup):
 
 def test_continuous_path_raises_for_moe(setup):
     _, _, _, model, _ = setup
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        model.init_cache(2, 16, paged=PageSpec(8, 4, 4))
-    with use(device="cpu"), pytest.raises(NotImplementedError,
-                                          match="continuous"):
-        run_continuous(model)
+    # Continuous batching of a mixture of experts is ported: paged pools
+    # sharing one block table, and a run that serves every request in
+    # vocabulary (token identity with the static path is not promised).
+    paged = model.init_cache(2, 16, paged=PageSpec(8, 4, 4))
+    assert all(c.tables is paged[0].tables for c in paged)
+    with use(device="cpu"):
+        res = run_continuous(model)
+    assert res["metrics"]["requests"] == 6
+    assert all(((t >= 0) & (t < model.cfg.vocab_size)).all()
+               for t in res["outputs"].values())
 
 
 def test_serve_and_train_clis_on_cpu(capsys, tmp_path):

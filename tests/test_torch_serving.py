@@ -511,8 +511,15 @@ def test_run_continuous_and_cli_on_cpu(setup, capsys, monkeypatch):
                              prompt_len=10, max_new=8, seed=1)
     assert res["token_identical"] and res["identical_requests"] == 4
     assert res["metrics"]["evictions"] > 0
-    with pytest.raises(NotImplementedError, match="warm-start"):
-        run_continuous(model, warm_start="manifest.json")
+    # The warm start is ported: a first run records the manifest, the next
+    # warms up on it and serves resolving no plan.
+    import tempfile
+    with tempfile.TemporaryDirectory() as d, \
+            use(backend="engine", device="cpu"):
+        manifest = f"{d}/manifest.json"
+        run_continuous(model, warm_start=manifest, check=False)
+        warm = run_continuous(model, warm_start=manifest, check=False)
+    assert warm["warmup"]["post_plan_misses"] == 0
     # The CLI configures the process-wide default: put it back afterwards.
     from repro_torch.core import config as engine_config
     monkeypatch.setattr(engine_config, "_DEFAULT", engine_config._DEFAULT)
