@@ -18,8 +18,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 192 groups with the entering states; the diag form
                 flattened), of phi3-mini-3.8b (its prefill and training
                 attention at head dim 96), starcoder2-15b (its biased gelu
-                up projection) and grok-1-314b (its gelu gate at the 8 x
-                6144 x 32,768 expert bank)
+                up projection), recurrentgemma-9b (lin_y with its bias and
+                gelu, the GeGLU gate, the 256,000-column read-out) and
+                grok-1-314b (its gelu gate at the 8 x 6144 x 32,768 expert
+                bank)
                 and ragged cases, with errors, kernel / plain /
                 library times (CUDA events) and the bound; the GEMM rows
                 also on cases that drive each route of gemm.cu (every
@@ -229,7 +231,27 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 8 and 2 layers, with drawn bias and norm leaves and no
                 checkpoint (13-37 GB a checkpoint: two would pass what the
                 card's machine lets a run write);
- 11. the ``kernels`` line (the GEMM rows with their large-M and decode
+ 11. serve_rg -- recurrentgemma-9b (RG-LRU and sliding-window attention
+                layers) at full width and depth (38 layers, 41.8 GB of fp32
+                masters) as serve_qwen2p5: five GEMMs a "rec" layer (lin_y
+                with its bias and gelu fused), four a "local" layer, three
+                for the gated MLP, one read-out, no flash launch;
+     serve_rg_ring -- the same model at batch 1 with a 3,072-token prompt
+                (the sliding path; rings of the last 2,048 positions), then
+                16 decode steps, each against a full forward;
+     continuous_rg -- the same model through continuous batching (the
+                continuous trace, three prompts of 2,560 tokens, an
+                eviction), gated as continuous_ssm (rings and states
+                bit-equal after an all-inactive step);
+     rglru_scan -- the RG-LRU scan (plain torch) timed at its shapes;
+     train_rg -- 2 pattern groups (6 layers) at full width with remat and
+                scalable_adamw at 2 x 3,072 tokens; its optimizer state's
+                bytes against AdamW's;
+     Every train phase runs with cfg.remat (each pattern group's forward
+                recomputed in the backward, counted in its launch gates);
+                train first runs one step with and one without remat
+                (train_remat: equal losses, a higher peak without);
+ 12. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
                 times and every case's route, ``flash_routes``, the
@@ -245,7 +267,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 ``transpose_routes``),
                 then the
                 card's nvidia-smi line, then
- 12. the last line: {"ok": true, "device": {...}}.
+ 13. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
 """
@@ -344,6 +366,28 @@ CKPT_WRITE_GIB = 45
 # embed_scale), elementwise relative: three bf16 roundings of 2^-9.
 EMBED_TOL = 1e-2
 
+# recurrentgemma-9b at full width and depth (38 layers, 41.8 GB of fp32
+# masters): served at the batches above (serve_rg); at batch 1 with a
+# 3,072-token prompt, past window + Q_CHUNK = 2,560, so prefill takes the
+# sliding path and the rings wrap, then 16 decode steps (serve_rg_ring);
+# through continuous batching on the continuous trace with three prompts of
+# 2,560 tokens (past the window), 16 new tokens each, over a page pool
+# small enough that growth evicts (continuous_rg).  Trained at its widths,
+# cut to RG_TRAIN_GROUPS pattern groups, with cfg.remat and the reference's
+# optimizer for a model past 10 B parameters (scalable_adamw), at 2 x 3,072
+# tokens (train_rg).
+RG_ARCH = "recurrentgemma-9b"
+RG_RING_PROMPT = 3072
+RG_CONT_LONG, RG_CONT_LONG_RIDS = 2560, (1, 4, 7)
+# 350 pages: growth evicts request 7 (2,560 tokens) once, and its
+# re-admission re-slots a ring from a context past the window.
+RG_CONT_PAGES, RG_CONT_BLOCKS = 350, 162
+RG_CONT_TRACE = dict(num_requests=12, rate=1.0, prompt_len=(96, 256),
+                     max_new=16, seed=0)
+RG_TRAIN_GROUPS, RG_TRAIN_BATCH, RG_TRAIN_SEQ = 2, 2, 3072
+# The same step with and without remat: the forward is the same work.
+REMAT_LOSS_TOL = 1e-6
+
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
@@ -414,7 +458,7 @@ def main():
     del model, logits  # free the serving model before training
     phase_reduced(torch)
     torch.cuda.empty_cache()
-    counts_train = phase_train(torch)
+    counts_train = phase_train(torch, remat_check=True)
     torch.cuda.empty_cache()
     counts_ssm, model, prompts, logits = phase_serve_ssm(torch)
     counts_ssm_off = phase_serve_ssm_off(torch, model, prompts, logits)
@@ -438,6 +482,7 @@ def main():
         extra={"reduced": _moe_reduced(MOE_TRAIN_LAYERS)})
     torch.cuda.empty_cache()
     counts_archs = phase_arch_runs(torch)
+    counts_rg = phase_rg_runs(torch)
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
                "continuous": counts_cont, "train": counts_train,
@@ -450,7 +495,8 @@ def main():
                "serve_moe_quant": counts_moe_quant,
                "continuous_moe": counts_cont_moe,
                "continuous_ssm": counts_cont_ssm,
-               "continuous_warm": counts_cont_warm, **counts_archs}
+               "continuous_warm": counts_cont_warm, **counts_archs,
+               **counts_rg}
     # Every wide GEMM of the main path reads TMA-legal operands: route C
     # (loads through registers) is for operands off it.
     routes = {p: {r: c.get(f"gemm_route_{r}", 0) for r in ("A", "B", "C",
@@ -903,6 +949,14 @@ def gemm_cases():
     # training) rows.
     cases.append(("starcoder2_prefill_up_bias_gelu", BATCH * PROMPT, 24576,
                   6144, "nn", "bias_gelu"))
+    # recurrentgemma-9b (d 4096, RG-LRU width 4096, d_ff 12,288): lin_y with
+    # its bias and the gelu fused and the GeGLU gate at the serving prefill
+    # rows, and the untied read-out (vocab 256,000) at decode.
+    cases += [("rg_prefill_lin_y_bias_gelu", BATCH * PROMPT, 4096, 4096, "nn",
+               "bias_gelu"),
+              ("rg_prefill_gate_gelu", BATCH * PROMPT, 12288, 4096, "nn",
+               "gelu"),
+              ("rg_decode_readout", BATCH, 256000, 4096, "nn", None)]
     cases = [c + ("bfloat16", False, 0, True) for c in cases]
     # The kernel's routes off the main path: every epilogue with and
     # without C_in, batches of 3, K below one panel and K off the ring's
@@ -2641,7 +2695,10 @@ def _read_counts():
             "engine_flash_launches_bwd": st.get("flash_attention", {})
             .get("launches_bwd", 0),
             "engine_decode_launches": st.get("flash_decode", {})
-            .get("launches", 0)}
+            .get("launches", 0),
+            "engine_plan_misses": sum(v for row in st.values()
+                                      for k, v in row.items()
+                                      if k.startswith("plan_misses"))}
 
 
 def _prompts(torch, vocab):
@@ -2911,11 +2968,11 @@ def _continuous_logits(torch, model, reqs, name="continuous",
     the dense steps' routing (each slot's token is its own routing group
     in both, so only the kernels' rounding can flip a choice), and the
     free-routing gap is printed beside it.  With ``state_check`` one
-    all-inactive paged step must leave every slot's SSM ``conv`` and ``s``
-    bit-equal.  Then profile two paged decode steps over the 8 slots."""
+    all-inactive paged step must leave every layer's local ring and
+    recurrent or SSM state bit-equal.  Then profile two paged decode steps
+    over the 8 slots."""
     from repro_torch.core import use
     from repro_torch.models.attention import PageSpec
-    from repro_torch.models.ssd import SSMState
     from repro_torch.runtime.pages import (PagePool, init_serving_cache,
                                            refresh_tables, write_prefill)
     from repro_torch.runtime.steps import (make_paged_serve_step,
@@ -2966,13 +3023,16 @@ def _continuous_logits(torch, model, reqs, name="continuous",
                 for slot in range(CONT_SLOTS)]
         step_fn = make_paged_serve_step(model)
         if state_check:
-            before = [(c.conv.clone(), c.s.clone()) for c in cache
-                      if isinstance(c, SSMState)]
+            before = [tuple(t.clone() for t in _state_tensors(c))
+                      for c in cache if _state_tensors(c)]
             _, idle, _ = step_fn(cache, tokens, lengths,
                                  torch.zeros_like(active))
-            after = [(c.conv, c.s) for c in idle if isinstance(c, SSMState)]
+            after = [_state_tensors(c) for c in idle if _state_tensors(c)]
+            # (a bf16 conv tail comes back promoted to the activations'
+            # dtype, as jnp.where promotes it: compared in its own dtype)
             extra["inactive_state_bit_equal"] = all(
-                torch.equal(a, b) for pair_a, pair_b in zip(before, after)
+                torch.equal(a, b.to(a.dtype))
+                for pair_a, pair_b in zip(before, after)
                 for a, b in zip(pair_a, pair_b))
             extra["state_layers"] = len(before)
         emit(phase=f"{name}_logits", slots=CONT_SLOTS, rel_gaps=gaps,
@@ -2983,7 +3043,7 @@ def _continuous_logits(torch, model, reqs, name="continuous",
                  f"{max(gaps):.4f} of their range (bound {LOGIT_BOUND})")
         if state_check and not (extra["state_layers"]
                                 and extra["inactive_state_bit_equal"]):
-            fail(f"{name}: an all-inactive paged step changed SSM state "
+            fail(f"{name}: an all-inactive paged step changed ring or state "
                  f"rows ({extra['state_layers']} state layers)")
         state = {"tokens": torch.argmax(paged[:, -1], -1)[:, None],
                  "lengths": lengths + 1}
@@ -2996,11 +3056,36 @@ def _continuous_logits(torch, model, reqs, name="continuous",
              active_slots=CONT_SLOTS, **_device_profile(torch, step, 2))
 
 
-def _continuous_gated(torch, model, name, run_kw, want_fn, cfg_kw=None):
-    """One continuous run through ``run_continuous`` (engine, fused="auto"),
-    counted alone, then the static-path oracle outside the count.  Gated:
-    every request finishes with its tokens in vocabulary, growth evicted at
-    least once, every page is free at the end, and the launch counts are
+def _run_trace(model, reqs, *, num_slots, num_pages, page_size, max_blocks):
+    """``run_continuous`` on a given list of requests."""
+    from repro_torch.models.attention import PageSpec
+    from repro_torch.runtime.batching import ContinuousBatchingEngine
+    serving = ContinuousBatchingEngine(
+        model, num_slots=num_slots,
+        spec=PageSpec(num_pages, page_size, max_blocks))
+    res = serving.run(reqs)
+    res.update(trace=reqs, pool=serving.pool)
+    return res
+
+
+def _state_tensors(leaf):
+    """A serving leaf's per-slot tensors: a local ring's (k, v, pos), a
+    recurrent or SSM state's own; () for a paged pool."""
+    from repro_torch.models.attention import KVCache, PagedKVCache
+    if isinstance(leaf, PagedKVCache):
+        return ()
+    if isinstance(leaf, KVCache):
+        return (leaf.k, leaf.v, leaf.pos)
+    return tuple(leaf)
+
+
+def _continuous_gated(torch, model, name, run_kw, want_fn, cfg_kw=None,
+                      reqs=None):
+    """One continuous run through ``run_continuous`` (engine, fused="auto";
+    on ``reqs`` when given, with ``run_kw``'s pool), counted alone, then
+    the static-path oracle outside the count.  Gated: every request
+    finishes with its tokens in vocabulary, growth evicted at least once,
+    every page is free at the end, and the launch counts are
     ``want_fn(admissions, steps)``.  Returns (counts, result, oracle)."""
     from repro_torch.core import use
     from repro_torch.launch.serve import run_continuous, static_oracle
@@ -3010,7 +3095,8 @@ def _continuous_gated(torch, model, name, run_kw, want_fn, cfg_kw=None):
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        res = run_continuous(model, check=False, **run_kw)
+        res = run_continuous(model, check=False, **run_kw) if reqs is None \
+            else _run_trace(model, reqs, **run_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _read_counts()
@@ -3368,22 +3454,24 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _train_parts(torch, cfg, seq, draw=False):
+def _train_parts(torch, cfg, seq, draw=False, batch=TRAIN_BATCH, opt=None):
     """(make_state, batch_fn, step_fn); ``draw`` redraws every bias and norm
     leaf of each fresh model (:func:`_draw_leaves`), the same values each
-    time."""
+    time; ``opt`` replaces the reference CLI's AdamW."""
+    from repro_torch.convert import reference_shapes
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.models import LanguageModel
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.runtime.steps import make_train_step
-    ds = SyntheticLMDataset(cfg.vocab_size, seq, TRAIN_BATCH)
-    opt = adamw(warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
+    ds = SyntheticLMDataset(cfg.vocab_size, seq, batch)
+    opt = opt or adamw(warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
 
     def make_state():
         model = LanguageModel(cfg, device="cuda", seed=0)
         if draw:
             _draw_leaves(torch, model)
-        return model, opt.init(dict(model.named_parameters()))
+        return model, opt.init(dict(model.named_parameters()),
+                               shapes=reference_shapes(cfg, model))
 
     def batch_fn(step):
         return {k: torch.from_numpy(v).to("cuda")
@@ -3443,55 +3531,88 @@ def _backend_gap(torch, cfg, make_state, batch_fn, name):
              f" gradient gap {grad_gap:.4g} (bound {GRAD_BOUND})")
 
 
+def _layer_passes(cfg, recompute):
+    """How many times each layer's forward runs in a step: once, and once
+    more in the backward for a layer of a checkpointed group (``cfg.remat``:
+    the first ``num_layers // len(block_pattern)`` groups; the remainder
+    layers are not checkpointed)."""
+    pat = len(cfg.block_pattern)
+    grouped = cfg.num_layers // pat * pat if recompute and cfg.remat else 0
+    return [2 if i < grouped else 1 for i in range(cfg.num_layers)]
+
+
 def _train_want(cfg):
-    """Launches per training step that the model's structure implies."""
+    """Launches per training step that the model's structure implies.  With
+    ``cfg.remat`` a checkpointed group's forward runs again in the backward,
+    so its forward GEMM, flash, SSD and grouped launches count twice;
+    remainder layers and the read-out once."""
     L = cfg.num_layers
+    fwd = sum(_layer_passes(cfg, True))
     if cfg.num_experts:
-        # the attention projections and the read-out; per layer the three
-        # expert GEMMs forward (up, gate with its silu, down) and, in the
-        # backward, the gate's pre-activation recomputed to peel the silu
-        # off, then one backward walk per expert GEMM
-        return {"engine_gemm_calls": 4 * L + 1,
-                "flash_fwd_fused": L, "flash_fwd_dense": 0,
-                "flash_bwd_fused": L, "engine_flash_launches": L,
+        # the attention projections and the read-out; per layer pass the
+        # three expert GEMMs forward (up, gate with its silu, down) and, in
+        # the backward, the gate's pre-activation recomputed to peel the
+        # silu off, then one backward walk per expert GEMM
+        return {"engine_gemm_calls": 4 * fwd + 1,
+                "flash_fwd_fused": fwd, "flash_fwd_dense": 0,
+                "flash_bwd_fused": L, "engine_flash_launches": fwd,
                 "engine_flash_launches_bwd": L,
-                "grouped_fused": 4 * L, "grouped_padded": 0,
-                "grouped_bwd": 3 * L, "engine_grouped_launches": 4 * L,
+                "grouped_fused": 3 * fwd + L, "grouped_padded": 0,
+                "grouped_bwd": 3 * L, "engine_grouped_launches": 3 * fwd + L,
                 "engine_grouped_launches_bwd": 3 * L}
     if cfg.block_pattern == ("ssm",):
-        # two projections a layer and the tied read-out; the scan with its
-        # entering states forward, the reverse walk backward
-        return {"engine_gemm_calls": 2 * L + 1, "ssd_scan_fused": L,
+        # two projections a layer pass and the tied read-out; the scan with
+        # its entering states forward, the reverse walk backward
+        return {"engine_gemm_calls": 2 * fwd + 1, "ssd_scan_fused": fwd,
                 "ssd_chunk_diag": 0, "ssd_scan_bwd": L,
-                "engine_ssd_launches": L, "engine_ssd_launches_bwd": L,
+                "engine_ssd_launches": fwd, "engine_ssd_launches_bwd": L,
                 "flash_fwd_fused": 0, "flash_bwd_fused": 0}
-    # a dense decoder: its GEMMs and flash once a layer each way, or none
-    # where the attention softcap keeps attention in plain torch
+    # an attention or hybrid decoder: its GEMMs each layer pass, flash once
+    # a global-attention layer pass forward and once backward (none where
+    # the attention softcap keeps attention in plain torch, none for
+    # sliding-window layers)
     flash = _flash_calls(cfg)
-    return {**_gemm_want(cfg, 1), "flash_fwd_fused": flash,
+    return {**_gemm_want(cfg, 1, recompute=True),
+            "flash_fwd_fused": _flash_calls(cfg, recompute=True),
             "flash_fwd_dense": 0, "flash_bwd_fused": flash,
-            "engine_flash_launches": flash,
+            "engine_flash_launches": _flash_calls(cfg, recompute=True),
             "engine_flash_launches_bwd": flash}
 
 
-def _flash_calls(cfg):
-    """Flash forwards of one forward pass: one a layer, none where the
-    attention softcap keeps attention off the flash kernels (grok-1, as in
-    the reference)."""
-    return 0 if cfg.attn_logit_softcap else cfg.num_layers
+def _flash_calls(cfg, recompute=False):
+    """Flash forwards of one forward pass (with ``recompute``, of a training
+    step under remat): one a global-attention layer pass; none for
+    sliding-window layers or where the attention softcap keeps attention
+    off the flash kernels (grok-1), as in the reference."""
+    if cfg.attn_logit_softcap:
+        return 0
+    return sum(n for n, kind in zip(_layer_passes(cfg, recompute),
+                                    _kinds(cfg)) if kind == "attn")
 
 
-def _gemm_want(cfg, forwards):
+def _kinds(cfg):
+    pat = cfg.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
+# GEMMs of one layer's mixer: q, k, v and o for attention ("attn", "local");
+# lin_y (bias and gelu fused), lin_x, gate_a, gate_x and lin_out for RG-LRU.
+MIXER_GEMMS = {"attn": 4, "local": 4, "rec": 5}
+
+
+def _gemm_want(cfg, forwards, recompute=False):
     """GEMM calls and kernel launches of ``forwards`` forward passes of an
-    attention model: q, k, v and o a layer, the dense MLP's GEMMs (three
-    gated, two not; a mixture of experts runs its experts on the grouped
-    kernels) and the read-out, one GEMM tied or untied.  Every plan of
-    these shapes is one fused launch, except a read-out whose vocab is off
-    the 128-column tiles (phi3-mini's and phi3.5-moe's 32,064 = 250 x 128
-    + 64): the planner covers it with two regions, two gemm_region
-    launches."""
+    attention or hybrid model (with ``recompute``, of a training step
+    under remat): each layer pass its mixer's GEMMs (``MIXER_GEMMS``) and
+    the dense MLP's (three gated, two not; a mixture of experts runs its
+    experts on the grouped kernels), and the read-out, one GEMM tied or
+    untied.  Every plan of these shapes is one fused launch, except a
+    read-out whose vocab is off the 128-column tiles (phi3-mini's and
+    phi3.5-moe's 32,064 = 250 x 128 + 64): the planner covers it with two
+    regions, two gemm_region launches."""
     mlp = 0 if cfg.num_experts else 3 if cfg.mlp_gated else 2
-    proj = (4 + mlp) * cfg.num_layers
+    proj = sum(n * (MIXER_GEMMS[kind] + mlp) for n, kind in
+               zip(_layer_passes(cfg, recompute), _kinds(cfg)))
     ragged = cfg.vocab_size % 128 != 0
     return {"engine_gemm_calls": forwards * (proj + 1),
             "gemm_fused": forwards * (proj + (0 if ragged else 1)),
@@ -3499,11 +3620,15 @@ def _gemm_want(cfg, forwards):
 
 
 def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
-                cfg=None, resume=True, extra=None, draw=False):
+                cfg=None, resume=True, extra=None, draw=False,
+                batch=TRAIN_BATCH, opt=None, remat_check=False):
     """Training at full width through ``run_with_restarts``.  ``cfg``
     overrides ``get_config(arch)``; ``resume=False`` writes no checkpoint
     and skips the resume check; ``extra`` joins the phase's line; ``draw``
-    redraws the bias and norm leaves (:func:`_draw_leaves`)."""
+    redraws the bias and norm leaves (:func:`_draw_leaves`); ``batch`` and
+    ``opt`` replace the reference CLI's batch and AdamW; ``remat_check``
+    first runs :func:`_remat_check`.  A step after the first resolves no
+    plan: the recompute under remat hits the plans its forward built."""
     import os
     import shutil
     import tempfile
@@ -3512,7 +3637,11 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
     from repro_torch.runtime.train_loop import (TrainLoopConfig,
                                                 run_with_restarts)
     cfg = cfg or get_config(arch)
-    make_state, batch_fn, step_fn = _train_parts(torch, cfg, seq, draw)
+    make_state, batch_fn, step_fn = _train_parts(torch, cfg, seq, draw,
+                                                 batch, opt)
+    if remat_check:
+        _remat_check(torch, cfg, seq, batch, name)
+        torch.cuda.empty_cache()
     with use(backend="engine", fused="auto", device="cuda"):
         _backend_gap(torch, cfg, make_state, batch_fn, name)
     torch.cuda.empty_cache()
@@ -3542,9 +3671,10 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
         losses = [m["loss"] for m in hist]
         step_s = [m["step_seconds"] for m in hist]
         want = _train_want(cfg)
-        tokens = TRAIN_BATCH * seq
+        tokens = batch * seq
         emit(phase=name, model=cfg.name, params=cfg.param_count(),
-             batch=TRAIN_BATCH, seq=seq, steps=len(hist),
+             layers=cfg.num_layers, remat=cfg.remat,
+             batch=batch, seq=seq, steps=len(hist),
              losses=losses, nll=[m["nll"] for m in hist],
              grad_norm=[m["grad_norm"] for m in hist],
              step_seconds=step_s,
@@ -3563,6 +3693,9 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
                 bad["gemm kernels vs engine"] = (
                     counts["gemm_fused"] + counts["gemm_region"],
                     counts["engine_gemm_launches"])
+            if i and counts["engine_plan_misses"]:
+                bad["plan misses after step 0"] = (
+                    counts["engine_plan_misses"], 0)
             if bad:
                 fail(f"{name} step {i}: launch counts (got, want) {bad}")
         if resume:
@@ -3572,6 +3705,7 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
             fail(f"{name} wrote a checkpoint: {os.listdir(ckpt)}")
         else:
             model, opt_state = out["model"], out["opt_state"]
+        emit(phase=f"{name}_opt_state", **_opt_state_bytes(opt_state))
         del out
         with use(backend="engine", fused="auto", device="cuda"):
             batch = batch_fn(TRAIN_STEPS)
@@ -3585,6 +3719,73 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
         for k, n in counts.items():
             total[k] = total.get(k, 0) + n
     return total
+
+
+def _remat_check(torch, cfg, seq, batch, name):
+    """One train step with ``cfg.remat`` and one without, each from fresh
+    state (the same seed) on the same batch: the losses must agree (the
+    forward is the same work, so they are expected bit-equal) and the
+    peak memory of the forward and backward (read as the optimizer update
+    starts) must be higher without remat.  Both steps' whole peaks and
+    times are printed beside it."""
+    import dataclasses
+    from repro_torch.core import use
+    out = {}
+    for label, c in (("remat", cfg),
+                     ("no_remat", dataclasses.replace(cfg, remat=False))):
+        make_state, batch_fn, step_fn = _train_parts(torch, c, seq,
+                                                     batch=batch)
+        model, opt_state = make_state()
+        data = batch_fn(0)
+        seen = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with use(backend="engine", fused="auto", device="cuda"), \
+                _peak_at_update(torch, seen):
+            t0 = time.perf_counter()
+            metrics = step_fn(model, opt_state, data, 0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        out[label] = dict(loss=float(metrics["loss"]), step_seconds=dt,
+                          peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                          fwd_bwd_peak_memory_bytes=seen["peak"])
+        del model, opt_state, data, metrics
+        torch.cuda.empty_cache()
+    gap = _rel(out["no_remat"]["loss"], out["remat"]["loss"])
+    higher = out["no_remat"]["fwd_bwd_peak_memory_bytes"] > \
+        out["remat"]["fwd_bwd_peak_memory_bytes"]
+    emit(phase=f"{name}_remat", batch=batch, seq=seq, **out,
+         loss_rel_gap=gap, loss_bound=REMAT_LOSS_TOL,
+         loss_bit_equal=out["no_remat"]["loss"] == out["remat"]["loss"],
+         peak_higher_without_remat=higher)
+    if not gap <= REMAT_LOSS_TOL:
+        fail(f"{name}: the loss with remat differs from the loss without by "
+             f"{gap:.3g} (bound {REMAT_LOSS_TOL})")
+    if not higher:
+        fail(f"{name}: the forward and backward peak without remat is not "
+             f"above the one with it: {out}")
+
+
+@contextlib.contextmanager
+def _peak_at_update(torch, seen):
+    """Record ``torch.cuda.max_memory_allocated()`` when an optimizer update
+    starts (the peak of the step's forward and backward) into
+    ``seen["peak"]``: ``make_train_step`` calls ``clip_by_global_norm``
+    first in every update."""
+    import importlib
+    # (the package's ``adamw`` attribute is the function: fetch the module)
+    adamw_mod = importlib.import_module("repro_torch.optim.adamw")
+    clip = adamw_mod.clip_by_global_norm
+
+    def spy(grads, max_norm):
+        seen["peak"] = torch.cuda.max_memory_allocated()
+        return clip(grads, max_norm)
+
+    adamw_mod.clip_by_global_norm = spy
+    try:
+        yield
+    finally:
+        adamw_mod.clip_by_global_norm = clip
 
 
 def _resume(torch, cfg, make_state, batch_fn, step_fn, ckpt, out, name):
@@ -4341,7 +4542,7 @@ def _block0_input(model):
         hook.remove()
 
 
-def phase_serve_arch(torch, arch, tag, layers):
+def phase_serve_arch(torch, arch, tag, layers, keep=False):
     """One of the remaining decoder configurations at its published widths
     (depth cut to ``layers`` where the card cannot hold more) through
     ``generate`` (engine, fused="auto"), with its bias and norm leaves
@@ -4351,7 +4552,9 @@ def phase_serve_arch(torch, arch, tag, layers):
     free-routing gap beside it); block 0's input against the table's rows
     (times sqrt(d) under ``embed_scale``); logits within the final softcap.
     The attention softcap keeps grok-1's attention in plain torch in both
-    backends, as in the reference: no flash launch."""
+    backends, as in the reference: no flash launch; sliding-window layers
+    (recurrentgemma's "local") stay off the flash kernels too.  With
+    ``keep`` returns (counts, model)."""
     from repro_torch.core import use
     from repro_torch.launch.serve import generate
     from repro_torch.models import LanguageModel
@@ -4430,7 +4633,10 @@ def phase_serve_arch(torch, arch, tag, layers):
          new_tokens=GEN, fused="auto", init_seconds=init_s,
          attention="plain torch: attn_logit_softcap keeps it off the flash "
                    "kernels, as in the reference" if cfg.attn_logit_softcap
+         else "plain torch: sliding-window layers stay off the flash "
+              "kernels, as in the reference" if not _flash_calls(cfg)
          else "flash_fwd_fused",
+         block_pattern=cfg.block_pattern,
          prefill_seconds=res["prefill_seconds"],
          prefill_tokens_per_s=BATCH * PROMPT / res["prefill_seconds"],
          decode_seconds=res["decode_seconds"],
@@ -4453,7 +4659,7 @@ def phase_serve_arch(torch, arch, tag, layers):
         fail(f"{name}: engine vs torch prefill logits differ by {rel:.4f} "
              f"of their range (bound {LOGIT_BOUND})")
     phase_profile(torch, model, prompts, name=f"{name}_profile")
-    return counts
+    return (counts, model) if keep else counts
 
 
 def phase_arch_runs(torch):
@@ -4476,6 +4682,210 @@ def phase_arch_runs(torch):
                 f"parameters and moments would pass the {CKPT_WRITE_GIB} GiB "
                 f"the card's machine lets a run write")})
         torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma-9b: RG-LRU blocks and sliding-window attention
+# ---------------------------------------------------------------------------
+
+def _opt_state_bytes(state):
+    """The optimizer state's bytes by kind: the first moment, the factored
+    second moment's rows and columns, the unfactored second moment, beside
+    AdamW's 8 bytes a parameter (fp32 m and v)."""
+    from repro_torch.optim import is_factored_leaf
+    m = sum(t.numel() * t.element_size() for t in state.get("m", {}).values())
+    rc = unf = params = 0
+    for name, v in state["v"].items():
+        if is_factored_leaf(v):
+            rc += sum(t.numel() * t.element_size() for t in v.values())
+            params += v["r"].numel() * v["c"].shape[-1]
+        else:
+            unf += v.numel() * v.element_size()
+            params += v.numel()
+    return dict(m_bytes=m, m_dtype=str(next(iter(state["m"].values())).dtype)
+                if state.get("m") else None,
+                factored_v_rc_bytes=rc, unfactored_v_bytes=unf,
+                total_bytes=m + rc + unf, params=params,
+                adamw_bytes=8 * params,
+                bytes_per_param=(m + rc + unf) / params)
+
+
+def phase_serve_rg_ring(torch, model):
+    """recurrentgemma-9b at batch 1 with a RG_RING_PROMPT-token prompt,
+    longer than window + Q_CHUNK: the prefill's local layers take the
+    sliding path and write only their ring's last ``window`` positions;
+    then GEN decode steps wrap the rings.  Gated: after the prefill every
+    ring holds exactly the last ``window`` positions, and each decode step's
+    logits are within LOGIT_BOUND of their range of a full forward over
+    the prompt and the tokens generated so far (the card's form of the
+    reference's ring-buffer test)."""
+    from repro_torch.core import use
+    from repro_torch.models.attention import KVCache
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    cfg = model.cfg
+    P, W = RG_RING_PROMPT, cfg.attn_window
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=gen,
+                           device="cuda")
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        prefill = make_prefill_step(model, P + GEN)
+        serve = make_serve_step(model)
+        prefill({"tokens": prompt})  # warm: plans, first launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = prefill({"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        rings = [c for c in cache if isinstance(c, KVCache)]
+        ring_ok = all(c.k.shape[1] == W and sorted(c.pos[0].tolist())
+                      == list(range(P - W, P)) for c in rings)
+        tok = torch.argmax(logits, -1)[:, None]
+        seq, pos, gaps, decode_s = torch.cat([prompt, tok], 1), \
+            torch.tensor(P, dtype=torch.int32, device="cuda"), [], 0.0
+        for _ in range(GEN):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, cache, pos = serve(cache, tok, pos)
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            full, _, _ = model.apply(seq, logits_mode="last")
+            gaps.append(_logit_gap(torch, step[0].float(),
+                                   full[0, -1].float())[2])
+            tok = torch.argmax(step, -1)[:, None]
+            seq = torch.cat([seq, tok], 1)
+        peak_mem = torch.cuda.max_memory_allocated()
+    emit(phase="serve_rg_ring", model=cfg.name, layers=cfg.num_layers,
+         batch=1, prompt=P, window=W, decode_steps=GEN, local_rings=len(rings),
+         rings_hold_last_window=ring_ok, prefill_seconds=prefill_s,
+         prefill_tokens_per_s=P / prefill_s, decode_seconds=decode_s,
+         decode_tokens_per_s=GEN / decode_s, peak_memory_bytes=peak_mem,
+         rel_gaps_vs_full_forward=gaps, bound=LOGIT_BOUND)
+    if not (rings and ring_ok):
+        fail(f"serve_rg_ring: the {len(rings)} rings do not hold the last "
+             f"{W} of {P} positions after the prefill")
+    if max(gaps) > LOGIT_BOUND:
+        fail(f"serve_rg_ring: decode on the rings differs from the full "
+             f"forward by {max(gaps):.4f} of the logits' range (bound "
+             f"{LOGIT_BOUND})")
+
+
+def phase_continuous_rg(torch, model):
+    """recurrentgemma-9b at full depth (``serve_rg``'s model) through
+    continuous batching: the continuous trace's 12 requests (rate 1, prompts
+    of 96-256 tokens) with RG_CONT_LONG_RIDS' prompts replaced by
+    RG_CONT_LONG tokens (past the window: the rings wrap in the prefill
+    and a re-admitted one re-slots them), 16 new tokens each, 8 slots over
+    RG_CONT_PAGES pages of 16 (small enough that growth evicts).  Gated as
+    ``continuous`` (requests, evictions, pages, launches: each forward the
+    model's GEMM calls, fused or, for a ragged prefill, in regions; no
+    flash or decode-kernel launch), the first paged
+    decode step's logits against the static dense path, and one
+    all-inactive step leaving every ring and state bit-equal.
+    ``identical_requests`` is printed."""
+    import numpy as np
+    from repro_torch.runtime.batching import poisson_trace
+    cfg = model.cfg
+    reqs = poisson_trace(num_requests=RG_CONT_TRACE["num_requests"],
+                         rate=RG_CONT_TRACE["rate"],
+                         prompt_lens=RG_CONT_TRACE["prompt_len"],
+                         max_new=RG_CONT_TRACE["max_new"],
+                         vocab_size=cfg.vocab_size,
+                         seed=RG_CONT_TRACE["seed"])
+    rng = np.random.default_rng(5)
+    for rid in RG_CONT_LONG_RIDS:
+        reqs[rid].prompt = rng.integers(0, cfg.vocab_size, RG_CONT_LONG) \
+            .astype(np.int32)
+    run_kw = dict(num_slots=CONT_SLOTS, num_pages=RG_CONT_PAGES,
+                  page_size=CONT_PAGE, max_blocks=RG_CONT_BLOCKS)
+
+    def want(admissions, steps):
+        # (GEMM calls only: a ragged prefill's plans take kernel 2, two
+        # region launches a call, which the engine's launch count checks)
+        return {"engine_gemm_calls":
+                _gemm_want(cfg, admissions + steps)["engine_gemm_calls"],
+                "flash_fwd_fused": 0, "flash_fwd_dense": 0,
+                "engine_flash_launches": 0, "flash_decode": 0,
+                "engine_decode_launches": 0}
+
+    counts, res, _ = _continuous_gated(torch, model, "continuous_rg", run_kw,
+                                       want, reqs=reqs)
+    _continuous_logits(torch, model, res["trace"], name="continuous_rg",
+                       blocks=RG_CONT_BLOCKS, state_check=True)
+    return counts
+
+
+def phase_rglru_scan(torch):
+    """The RG-LRU scan (plain torch, no kernel replaces it: the reference's
+    ``lax.associative_scan``) timed alone with CUDA events at its main-path
+    shapes: the serving prefill (4 x 256), the long prompt (1 x 3,072)
+    and training (2 x 3,072, forward and backward), width 4,096; and per
+    forward of the model (26 "rec" layers of 38; 4 of train_rg's 6)."""
+    from repro_torch.models.rglru import _rglru_scan
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = {}
+    for label, b, s, grad, layers in (
+            ("prefill_4x256", BATCH, PROMPT, False, 26),
+            ("ring_prompt_1x3072", 1, RG_RING_PROMPT, False, 26),
+            ("train_2x3072_fwd_bwd", RG_TRAIN_BATCH, RG_TRAIN_SEQ, True,
+             2 * RG_TRAIN_GROUPS)):
+        xs = torch.randn((b, s, 4096), generator=gen, device="cuda")
+        la = -torch.rand((b, s, 4096), generator=gen, device="cuda") * 0.1
+        h0 = torch.randn((b, 4096), generator=gen, device="cuda")
+        if grad:
+            xs.requires_grad_(True)
+            la.requires_grad_(True)
+
+            def fn():
+                h = _rglru_scan(xs, la, h0)
+                torch.autograd.grad(h.sum(), (xs, la))
+        else:
+            def fn():
+                with torch.no_grad():
+                    _rglru_scan(xs, la, h0)
+        ms = time_ms(torch, fn, 5)
+        rows[label] = dict(ms=ms, rec_layers=layers, ms_per_forward=ms * layers)
+        del xs, la, h0
+    emit(phase="rglru_scan", **rows)
+
+
+def phase_rg_runs(torch):
+    """recurrentgemma-9b served (``serve_rg``, full depth), on the ring
+    (``serve_rg_ring``), continuously (``continuous_rg``), its scan timed,
+    then trained (``train_rg``).  Returns each path's counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.optim import scalable_adamw, warmup_cosine
+    counts = {}
+    counts["serve_rg"], model = phase_serve_arch(torch, RG_ARCH, "rg", None,
+                                                 keep=True)
+    phase_serve_rg_ring(torch, model)
+    counts["continuous_rg"] = phase_continuous_rg(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_rglru_scan(torch)
+    torch.cuda.empty_cache()
+    full = get_config(RG_ARCH)
+    layers = RG_TRAIN_GROUPS * len(full.block_pattern)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    opt = scalable_adamw(warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10,
+                                       TRAIN_STEPS))
+    counts["train_rg"] = phase_train(
+        torch, name="train_rg", cfg=cfg, seq=RG_TRAIN_SEQ,
+        batch=RG_TRAIN_BATCH, opt=opt, draw=True, resume=False,
+        extra={"reduced": {
+            "num_layers": f"{full.num_layers} -> {layers}",
+            "why": f"training state: {full.param_count() / 1e9:.2f} B "
+                   f"parameters at {full.num_layers} layers, "
+                   f"{cfg.param_count() / 1e9:.2f} B at {layers} (whole "
+                   f"pattern groups); fp32 masters and gradients, the "
+                   f"clipped gradients, the bf16 first moment and the "
+                   f"update's temporaries on the 1.05 B-row tables"},
+               "optimizer": "scalable_adamw (bf16 m, factored v): the "
+                            "reference's pick_optimizer past 10 B parameters",
+               "checkpoint": "none"})
+    torch.cuda.empty_cache()
     return counts
 
 

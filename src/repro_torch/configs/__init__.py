@@ -4,4 +4,4 @@ from repro_torch.configs.base import (  # noqa: F401
 # Imported for registration.
 from repro_torch.configs import (  # noqa: F401
     grok1_314b, mamba2_130m, phi3_mini_3p8b, phi3p5_moe_42b, qwen2p5_3b,
-    qwen3_0p6b, starcoder2_15b)
+    qwen3_0p6b, recurrentgemma_9b, starcoder2_15b)

@@ -3,7 +3,8 @@
 A copy of the reference package's config schema, so a configuration means
 the same model in both packages.  The port registers the decoders
 (``qwen3-0.6b``, ``qwen2.5-3b``, ``phi3-mini-3.8b``, ``starcoder2-15b``),
-the MoE models (``phi3.5-moe-42b``, ``grok-1-314b``) and ``mamba2-130m``."""
+the MoE models (``phi3.5-moe-42b``, ``grok-1-314b``), ``mamba2-130m`` and
+the hybrid ``recurrentgemma-9b``."""
 from __future__ import annotations
 
 import dataclasses

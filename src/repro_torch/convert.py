@@ -5,9 +5,13 @@
 -- a caller holding JAX arrays passes ``jax.tree.map(np.asarray, params)``
 -- and returns the port's state dict for ``LanguageModel(cfg)``.  Any
 tree shaped like the parameters converts the same way (gradients), and
-``opt_state_from_jax_numpy`` converts the reference's AdamW state
-``{"m": tree, "v": tree}``.  ``reference_ndims`` gives each of the port's
-parameters the rank it has in the reference, which decides weight decay.
+``opt_state_from_jax_numpy`` converts the reference's optimizer state:
+AdamW's ``{"m": tree, "v": tree}`` and ``scalable_adamw``'s, whose ``m``
+is bf16 (and kept so) or absent, and whose factored second-moment leaves
+are ``{"r", "c"}`` pairs.  ``reference_ndims`` and ``reference_shapes``
+give each of the port's parameters the rank and shape it has in the
+reference, which decide weight decay and which leaves ``scalable_adamw``
+factors.
 
 The reference stacks each layer group's parameters on a leading axis
 (``params["blocks"]["groups"]``, built with ``jax.vmap``) and keeps any
@@ -18,7 +22,7 @@ so the port plans the same GEMM descriptors as the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -26,20 +30,32 @@ import torch
 from repro_torch.core.config import resolve_device
 
 
-def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
-    if isinstance(tree, dict):
+def _is_factored(tree) -> bool:
+    return isinstance(tree, dict) and set(tree) == {"r", "c"}
+
+
+def _flatten(tree, prefix: str, out: Dict[str, object]) -> None:
+    """Leaves by dotted path; a factored ``{"r", "c"}`` pair stays one
+    leaf (a dict of two arrays)."""
+    if _is_factored(tree):
+        out[prefix[:-1]] = {k: np.asarray(v) for k, v in tree.items()}
+    elif isinstance(tree, dict):
         for key, value in tree.items():
             _flatten(value, f"{prefix}{key}.", out)
     else:
         out[prefix[:-1]] = np.asarray(tree)
 
 
-def params_from_jax_numpy(tree, cfg, device=None) -> Dict[str, torch.Tensor]:
-    """The port's ``LanguageModel`` state dict from a reference pytree of
-    numpy arrays, on ``device`` (the configured default if None)."""
-    dev = resolve_device(device)
+def _layer(leaf, g: int):
+    return {k: v[g] for k, v in leaf.items()} if isinstance(leaf, dict) \
+        else leaf[g]
+
+
+def _unstacked(tree, cfg) -> Dict[str, object]:
+    """The reference tree's leaves under the port's parameter names, each
+    scanned group's stack split into its layers."""
     pat = cfg.block_pattern
-    flat: Dict[str, np.ndarray] = {}
+    flat: Dict[str, object] = {}
     for key in ("embed", "final_norm", "lm_head"):
         if key in tree:
             _flatten(tree[key], f"{key}.", flat)
@@ -47,26 +63,73 @@ def params_from_jax_numpy(tree, cfg, device=None) -> Dict[str, torch.Tensor]:
     n_groups = cfg.num_layers // len(pat)
     if groups is not None:
         for i in range(len(pat)):
-            stacked: Dict[str, np.ndarray] = {}
+            stacked: Dict[str, object] = {}
             _flatten(groups[f"b{i}"], "", stacked)
-            for name, arr in stacked.items():
-                if arr.shape[0] != n_groups:
+            for name, leaf in stacked.items():
+                lead = {(v.shape[0] if v.ndim else None) for v in (
+                    leaf.values() if isinstance(leaf, dict) else [leaf])}
+                if lead != {n_groups}:
                     raise ValueError(f"blocks.groups.b{i}.{name}: leading "
-                                     f"axis {arr.shape[0]}, expected "
-                                     f"{n_groups} layer groups")
+                                     f"axis {lead}, expected {n_groups} "
+                                     f"layer groups")
                 for g in range(n_groups):
-                    flat[f"blocks.{g * len(pat) + i}.{name}"] = arr[g]
+                    flat[f"blocks.{g * len(pat) + i}.{name}"] = _layer(leaf, g)
     for j, block in enumerate(tree["blocks"]["rem"]):
         _flatten(block, f"blocks.{n_groups * len(pat) + j}.", flat)
-    return {name: torch.from_numpy(np.array(arr, dtype=np.float32)).to(dev)
-            for name, arr in flat.items()}
+    return flat
+
+
+def _tensor(arr: np.ndarray, dev, keep_bf16: bool) -> torch.Tensor:
+    """fp32 on ``dev``; a bf16 array stays bf16 with ``keep_bf16`` (the
+    fp32 detour is exact both ways)."""
+    t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dev)
+    return t.to(torch.bfloat16) if keep_bf16 and arr.dtype.name == \
+        "bfloat16" else t
+
+
+def params_from_jax_numpy(tree, cfg, device=None) -> Dict[str, torch.Tensor]:
+    """The port's ``LanguageModel`` state dict from a reference pytree of
+    numpy arrays, on ``device`` (the configured default if None)."""
+    dev = resolve_device(device)
+    return {name: _tensor(arr, dev, False)
+            for name, arr in _unstacked(tree, cfg).items()}
 
 
 def opt_state_from_jax_numpy(state, cfg, device=None):
-    """The port's AdamW state from the reference's ``{"m": tree, "v":
-    tree}`` (numpy leaves), unstacked like the parameters."""
-    return {k: params_from_jax_numpy(state[k], cfg, device)
-            for k in ("m", "v")}
+    """The port's optimizer state from the reference's (numpy leaves),
+    unstacked like the parameters: ``m`` (fp32 for AdamW, bf16 for
+    ``scalable_adamw``, which may have none) keeps its dtype, and a
+    factored ``v`` leaf stays an ``{"r", "c"}`` pair, each unstacked per
+    layer."""
+    dev = resolve_device(device)
+    out = {}
+    for key in ("m", "v"):
+        if key not in state:
+            continue
+        out[key] = {}
+        for name, leaf in _unstacked(state[key], cfg).items():
+            out[key][name] = {k: _tensor(v, dev, True)
+                              for k, v in leaf.items()} \
+                if isinstance(leaf, dict) else _tensor(leaf, dev, True)
+    return out
+
+
+def reference_shapes(cfg, model) -> Dict[str, Tuple[int, ...]]:
+    """Each parameter's shape as the reference holds it: a layer in a
+    scanned group is stacked on a leading axis of ``num_layers //
+    len(block_pattern)`` groups; remainder layers and the rest keep the
+    port's shape.  ``model`` is a ``LanguageModel`` or a dict of its named
+    tensors."""
+    named = model.items() if isinstance(model, dict) \
+        else model.named_parameters()
+    groups = cfg.num_layers // len(cfg.block_pattern)
+    stacked = groups * len(cfg.block_pattern)
+    out = {}
+    for name, p in named:
+        parts = name.split(".")
+        scanned = parts[0] == "blocks" and int(parts[1]) < stacked
+        out[name] = ((groups,) if scanned else ()) + tuple(p.shape)
+    return out
 
 
 def reference_ndims(cfg, model) -> Dict[str, int]:
@@ -74,13 +137,5 @@ def reference_ndims(cfg, model) -> Dict[str, int]:
     port's for layers in a scanned group (the reference stacks them on a
     leading layer axis), the port's own for remainder layers and the rest.
     ``model`` is a ``LanguageModel`` or a dict of its named tensors."""
-    named = model.items() if isinstance(model, dict) \
-        else model.named_parameters()
-    stacked = (cfg.num_layers // len(cfg.block_pattern)) \
-        * len(cfg.block_pattern)
-    out = {}
-    for name, p in named:
-        parts = name.split(".")
-        scanned = parts[0] == "blocks" and int(parts[1]) < stacked
-        out[name] = p.ndim + int(scanned)
-    return out
+    return {name: len(shape)
+            for name, shape in reference_shapes(cfg, model).items()}

@@ -192,6 +192,20 @@ def use(*, backend: Optional[str] = None, device=None, machine=None,
         stack.pop()
 
 
+@contextlib.contextmanager
+def pinned(cfg: EngineConfig):
+    """Thread-local override by a whole snapshot ``cfg`` (one that
+    ``get_config`` returned): work that runs on another thread, such as a
+    forward recomputed in the backward, which autograd runs on its device
+    thread for CUDA tensors, sees the configuration its caller saw."""
+    stack = _stack()
+    stack.append(cfg)
+    try:
+        yield cfg
+    finally:
+        stack.pop()
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else the
     configured default.  CUDA on a host without a usable card raises."""

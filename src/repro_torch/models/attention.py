@@ -16,7 +16,17 @@ half the KV bytes of bf16.  A decode step quantizes the new token's K and
 V as it writes them; the engine's decode kernel folds the scales into its
 score and PV algebra, and the gather path dequantizes in f32 first.
 
-Not ported (they raise): cross-attention and sliding-window attention.
+Sliding-window ("local") attention takes ``window``: keys more than
+``window - 1`` positions behind a query are masked.  It stays off the flash
+kernels, as in the reference: past ``Q_CHUNK`` queries each 512-query chunk
+attends a ``window + Q_CHUNK`` slice of a copy of K/V padded by
+``window``; its decode cache is a dense ring of ``min(capacity, window)``
+rows.  With gradients on, every query chunk of the chunked path runs under
+a non-reentrant ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body), so the backward never holds every
+chunk's fp32 scores at once.
+
+Not ported (it raises): cross-attention.
 """
 from __future__ import annotations
 
@@ -28,7 +38,7 @@ from torch import nn
 
 from repro_torch.core.config import get_config
 from repro_torch.core.machine import torch_dtype
-from repro_torch.models.common import Init, Linear, RMSNorm
+from repro_torch.models.common import Init, Linear, RMSNorm, checkpointed
 from repro_torch.models.rotary import apply_rope
 
 Q_CHUNK = 512
@@ -140,33 +150,82 @@ def _attend(q, k, v, mask, softcap: Optional[float]):
     return out.to(v.dtype)
 
 
-def _causal_mask(q_pos, k_pos):
-    m = (k_pos[None, :] <= q_pos[:, None]) & (k_pos >= 0)[None, :]
+def _causal_mask(q_pos, k_pos, window: Optional[int] = None):
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    m &= (k_pos >= 0)[None, :]
     return m[None, None]
 
 
-def _attention_seq(q, k, v, positions, softcap):
-    """Causal attention over a whole sequence (train / prefill)."""
+def _chunk(body, *args):
+    """``body(*args)``, under a non-reentrant checkpoint when gradients are
+    on (the reference checkpoints its chunk scan's body whatever
+    ``cfg.remat`` says)."""
+    return checkpointed(body, *args) if torch.is_grad_enabled() \
+        else body(*args)
+
+
+def _attention_seq(q, k, v, positions, window, softcap):
+    """Causal attention over a whole sequence (train / prefill), optionally
+    windowed; the score tensor stays linear in sq."""
     sq = q.shape[1]
-    if (get_config().backend == "engine" and not softcap
+    if (get_config().backend == "engine" and window is None and not softcap
             and sq == k.shape[1]):
         from repro_torch.kernels.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=True)
-    # Query chunks keep the score tensor linear in sq.
-    outs = [_attend(q[:, i:i + Q_CHUNK], k, v,
-                    _causal_mask(positions[i:i + Q_CHUNK], positions), softcap)
-            for i in range(0, sq, Q_CHUNK)]
+    if sq <= Q_CHUNK:
+        return _attend(q, k, v, _causal_mask(positions, positions, window),
+                       softcap)
+    # Query chunks of Q_CHUNK (the last one may be shorter).
+    if window is not None and k.shape[1] > window + Q_CHUNK:
+        # Sliding window: each chunk attends a window + Q_CHUNK KV slice of
+        # a copy padded by ``window`` rows at position -1.
+        pad = (0, 0, 0, 0, window, 0)
+        k_pad = torch.nn.functional.pad(k, pad)
+        v_pad = torch.nn.functional.pad(v, pad)
+        kp_pad = torch.cat([positions.new_full((window,), -1), positions])
+
+        def body(qc, qpc, ks, vs, kps):
+            return _attend(qc, ks, vs, _causal_mask(qpc, kps, window), softcap)
+
+        span = window + Q_CHUNK
+        outs = [_chunk(body, q[:, i:i + Q_CHUNK], positions[i:i + Q_CHUNK],
+                       k_pad[:, i:i + span], v_pad[:, i:i + span],
+                       kp_pad[i:i + span])
+                for i in range(0, sq, Q_CHUNK)]
+    else:
+        def body(qc, qpc):
+            return _attend(qc, k, v, _causal_mask(qpc, positions, window),
+                           softcap)
+
+        outs = [_chunk(body, q[:, i:i + Q_CHUNK], positions[i:i + Q_CHUNK])
+                for i in range(0, sq, Q_CHUNK)]
     return torch.cat(outs, dim=1)
 
 
 def _ring_write(cache: KVCache, k, v, pos2d) -> None:
-    """Dense-cache write at slot = pos % capacity, in place."""
+    """Dense-cache write at slot = pos % capacity, in place.  Only each
+    row's last ``capacity`` positions are written (a longer prefill would
+    map several positions to one slot, and duplicate indices leave the
+    winner undefined on CUDA), and a row at a negative position (an
+    inactive continuous-batching slot) writes nothing: it puts back what
+    its slot held."""
     b, s = k.shape[:2]
-    slots = (pos2d % cache.k.shape[1]).long()
+    cap = cache.k.shape[1]
+    if s > cap:
+        k, v, pos2d, s = k[:, -cap:], v[:, -cap:], pos2d[:, -cap:], cap
+    pos = pos2d.expand(b, s)
+    slots = (pos % cap).long()
     bidx = torch.arange(b, device=k.device)[:, None]
-    cache.k[bidx, slots] = k.to(cache.k.dtype)
-    cache.v[bidx, slots] = v.to(cache.v.dtype)
-    cache.pos[bidx, slots] = pos2d.expand(b, s).to(cache.pos.dtype)
+    keep = pos >= 0
+    rows = keep[..., None, None]
+    cache.k[bidx, slots] = torch.where(rows, k.to(cache.k.dtype),
+                                       cache.k[bidx, slots])
+    cache.v[bidx, slots] = torch.where(rows, v.to(cache.v.dtype),
+                                       cache.v[bidx, slots])
+    cache.pos[bidx, slots] = torch.where(keep, pos.to(cache.pos.dtype),
+                                         cache.pos[bidx, slots])
 
 
 class PagedStep(NamedTuple):
@@ -277,13 +336,11 @@ class Attention(nn.Module):
     def forward(self, x, positions, *, cache=None,
                 window: Optional[int] = None,
                 step: Optional[PagedStep] = None):
-        """Self-attention.  positions: (s,) or (b, s) absolute positions;
-        with a :class:`PagedKVCache`, (S, 1) per-slot positions (-1 marks
-        an inactive slot) and the step's :class:`PagedStep` (built here
-        when not given).  Returns (y, cache); with a cache and s == 1 this
-        is a decode step."""
-        if window is not None:
-            raise NotImplementedError("sliding-window attention is not ported")
+        """Self-attention, sliding-window with ``window``.  positions: (s,)
+        or (b, s) absolute positions; with a :class:`PagedKVCache`, (S, 1)
+        per-slot positions (-1 marks an inactive slot) and the step's
+        :class:`PagedStep` (built here when not given).  Returns (y,
+        cache); with a cache and s == 1 this is a decode step."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         b, s, _ = x.shape
@@ -314,7 +371,10 @@ class Attention(nn.Module):
             vf = _repeat_kv(cache.v.to(dt), g)
             qpos = pos2d[:, -1].reshape(-1, 1, 1, 1)
             cpos = cache.pos[:, None, None, :]
-            mask = (cpos <= qpos) & (cpos >= 0)
+            mask = cpos <= qpos
+            if window is not None:
+                mask &= cpos > qpos - window
+            mask &= cpos >= 0
             out = _attend(q, kf, vf, mask, cfg.attn_logit_softcap)
         else:
             if cache is not None:
@@ -323,6 +383,6 @@ class Attention(nn.Module):
                 raise NotImplementedError("per-row positions need a paged "
                                           "KV cache")
             out = _attention_seq(q, _repeat_kv(k, g), _repeat_kv(v, g),
-                                 positions, cfg.attn_logit_softcap)
+                                 positions, window, cfg.attn_logit_softcap)
         y = self.wo(out.reshape(b, s, hq * hd), compute_dtype=dt)
         return y, cache

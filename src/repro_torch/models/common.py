@@ -8,12 +8,15 @@ tied read-out the same ``nt`` one, as in the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import matmul
+from repro_torch.core.config import get_config, pinned
 
 
 class Init:
@@ -54,6 +57,19 @@ def cast_param(p, dtype):
 def tree_cast(params, dtype):
     """:func:`cast_param` over a dict of tensors (quantized ones pass)."""
     return {k: cast_param(p, dtype) for k, p in params.items()}
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``: only
+    the inputs are kept, and the forward runs again in the backward.  The
+    recompute runs under the engine configuration of the first run
+    (:func:`~repro_torch.core.config.pinned`): autograd runs a CUDA
+    backward on its own device thread, where the caller's thread-local
+    ``use`` overrides are not set."""
+    cfg = get_config()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          pinned(cfg)))
 
 
 class Linear(nn.Module):

@@ -3,7 +3,9 @@
   * ``LanguageModel(cfg, device=None, seed=0)`` -- builds the modules with
     seeded fp32 master weights on ``device`` (the configured default,
     CUDA unless the caller says otherwise);
-  * ``model.apply(tokens, ...) -> (logits, cache, aux)`` (also ``forward``);
+  * ``model.apply(tokens, ...) -> (logits, cache, aux)`` (also ``forward``;
+    with ``cfg.remat`` and gradients on, each layer group's forward is
+    recomputed in the backward);
   * ``model.init_cache(batch, capacity, paged=None) -> cache``.
 
 Decode is ``apply`` with a one-token input and a cache.
@@ -53,7 +55,9 @@ class LanguageModel(nn.Module):
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
         x, new_cache, aux = stack_apply(self.blocks, x, positions,
-                                        cache=cache)
+                                        cache=cache,
+                                        group=len(cfg.block_pattern),
+                                        remat=cfg.remat)
         x = self.final_norm(x, cfg.norm_eps)
         if logits_mode == "last":
             x = x[:, -1:]
@@ -72,8 +76,9 @@ class LanguageModel(nn.Module):
     apply = forward
 
     def init_cache(self, batch: int, capacity: int, paged=None):
-        """Dense per-layer decode caches (KV caches, SSM states), or with
-        ``paged`` (a ``PageSpec``) the continuous-batching serving cache:
-        paged pools sharing one block-table tensor, and slot-major SSM
-        states."""
+        """Dense per-layer decode caches (KV caches, local rings of
+        ``min(capacity, attn_window)`` rows, RG-LRU and SSM states), or
+        with ``paged`` (a ``PageSpec``) the continuous-batching serving
+        cache: paged pools sharing one block-table tensor for "attn"
+        layers, the same rings and slot-major states for the others."""
         return stack_cache(self.cfg, batch, capacity, self.device, paged)

@@ -9,17 +9,17 @@ tables:
     page *indices* on the host, never KV bytes on the device.
   * :func:`init_serving_cache` -- the device cache, one leaf per layer:
     an "attn" layer's :class:`~repro_torch.models.attention.PagedKVCache`
-    pool, an "ssm" layer's slot-major
-    :class:`~repro_torch.models.ssd.SSMState` (O(1) per slot, so it stays
-    dense).
+    pool; a "local" layer's dense ring
+    (:class:`~repro_torch.models.attention.KVCache`, O(window) per slot),
+    a "rec" layer's :class:`~repro_torch.models.rglru.RecurrentState` and
+    an "ssm" layer's :class:`~repro_torch.models.ssd.SSMState` (O(1) per
+    slot), all slot-major and dense.
   * :func:`write_prefill` -- copies one sequence's freshly prefilled dense
     cache (batch 1, capacity = length) into its slot, in place: KV rows into
-    the slot's pool pages, state rows into the slot's row.
+    the slot's pool pages, ring entries re-slotted into the slot's ring,
+    state rows into the slot's row.
   * :func:`refresh_tables` -- rewrites every paged layer's device block
     tables in place after the allocator moved pages.
-
-The reference's ring (local attention) and recurrent leaves are not ported
-(``LanguageModel`` raises for such configs through ``check_ported``).
 """
 from __future__ import annotations
 
@@ -28,8 +28,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.attention import (PagedKVCache, PageSpec,
+from repro_torch.models.attention import (KVCache, PagedKVCache, PageSpec,
                                           quantize_kv_rows)
+from repro_torch.models.rglru import RecurrentState
 from repro_torch.models.ssd import SSMState
 
 
@@ -163,10 +164,28 @@ def init_serving_cache(model, num_slots: int, spec: PageSpec):
 
 
 def _check_leaf(leaf) -> None:
-    if not isinstance(leaf, (PagedKVCache, SSMState)):
+    if not isinstance(leaf, (PagedKVCache, KVCache, RecurrentState,
+                             SSMState)):
         raise NotImplementedError(f"serving-cache leaf {type(leaf).__name__}: "
-                                  f"only paged attention caches and SSM "
-                                  f"states are ported")
+                                  f"not a paged pool, a local ring or a "
+                                  f"recurrent or SSM state")
+
+
+def _write_ring(sv: KVCache, dv: KVCache, slot: int) -> None:
+    """Re-slot a dense prefill ring's live entries into ring row ``slot``
+    by ``pos % capacity``.  The two rings may differ in capacity, so the
+    row is reset first: an evicted longer sequence would otherwise leave
+    stale positions inside the window of the re-admitted one."""
+    cap = sv.k.shape[1]
+    pos = dv.pos[0].long()
+    live = pos >= 0
+    tgt = pos[live] % cap
+    sv.k[slot].zero_()
+    sv.v[slot].zero_()
+    sv.pos[slot].fill_(-1)
+    sv.k[slot, tgt] = dv.k[0, live].to(sv.k.dtype)
+    sv.v[slot, tgt] = dv.v[0, live].to(sv.v.dtype)
+    sv.pos[slot, tgt] = pos[live].to(sv.pos.dtype)
 
 
 def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
@@ -179,10 +198,12 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
     ``dense.k[0, :length]`` is position-ordered: it is padded to whole
     pages and scattered into the pools at the slot's pages, in place.  Into
     int8 pools the rows (padding included) go quantized per token, with the
-    decode write's scaling, and their scales beside them.  An SSM state
-    leaf is a slot-major row copy, the conv tail and ``s`` alike, cast to
-    the serving leaf's dtype (the reference's plain-leaf branch).  Returns
-    the serving cache."""
+    decode write's scaling, and their scales beside them.  A local ring
+    is reset and its live entries re-slotted (:func:`_write_ring`).  A
+    recurrent or SSM state leaf is a slot-major row copy, each tensor cast
+    to the serving leaf's dtype (the reference's plain-leaf branch: a
+    conv tail lands in bf16 until a decode step has promoted the serving
+    leaf).  Returns the serving cache."""
     assert len(page_ids) == pages_for(length, page_size), \
         (len(page_ids), length, page_size)
     n = len(page_ids)
@@ -190,7 +211,10 @@ def write_prefill(serving, dense, *, slot: int, length: int, page_ids,
     ids = None
     for sv, dv in zip(serving, dense):
         _check_leaf(sv)
-        if isinstance(sv, SSMState):
+        if isinstance(sv, KVCache):
+            _write_ring(sv, dv, slot)
+            continue
+        if isinstance(sv, (RecurrentState, SSMState)):
             for pool, rows in zip(sv, dv):
                 pool[slot] = rows[0].to(pool.dtype)
             continue
@@ -213,7 +237,7 @@ def refresh_tables(cache, tables):
     """Rewrite every paged layer's block tables in place with ``tables``
     ((num_slots, max_blocks) int32, host or device); called after the
     allocator moved pages.  Layers that share one table tensor
-    (``stack_cache``) are written once; state leaves have no tables.
+    (``stack_cache``) are written once; rings and states have no tables.
     Returns the cache."""
     t = done = None
     for leaf in cache:

@@ -150,13 +150,15 @@ def _merge_inactive(new_cache, old_cache, active):
     reference's ``_merge_inactive``).
 
     Inactive slots run through the forward at position -1: their paged KV
-    writes are already dropped (the shared pools pass through as they
-    are), but an SSM layer computes a garbage update for every row, which
-    is masked back to the old state here, with ``torch.where`` on the slot
-    axis.  A layer's forward returns a new :class:`~repro_torch.models.ssd.
-    SSMState` and leaves the old one's tensors alone, so ``old_cache`` still
+    and local-ring writes are already dropped (those buffers pass through
+    as they are), but an RG-LRU or SSM layer computes a garbage update for
+    every row, which is masked back to the old state here, with
+    ``torch.where`` on the slot axis.  A layer's forward returns a new
+    state and leaves the old one's tensors alone, so ``old_cache`` still
     holds the state before the step.  The merged leaf takes the promoted
-    dtype of the two, as ``jnp.where`` gives it."""
+    dtype of the two, as ``jnp.where`` gives it (a bf16 conv tail turns
+    fp32 after the first step of an fp32 model)."""
+    from repro_torch.models.rglru import RecurrentState
     from repro_torch.models.ssd import SSMState
 
     def where(new, old):
@@ -164,8 +166,8 @@ def _merge_inactive(new_cache, old_cache, active):
         mask = active.reshape(-1, *([1] * (new.ndim - 1)))
         return torch.where(mask, new.to(dt), old.to(dt))
 
-    return [SSMState(*(where(n, o) for n, o in zip(new, old)))
-            if isinstance(new, SSMState) else new
+    return [type(new)(*(where(n, o) for n, o in zip(new, old)))
+            if isinstance(new, (RecurrentState, SSMState)) else new
             for new, old in zip(new_cache, old_cache)]
 
 
@@ -174,7 +176,7 @@ def make_paged_serve_step(model):
 
     ``(cache, tokens (S, 1), lengths (S,), active (S,)) -> (next_tokens
     (S, 1), cache, lengths')``: greedy argmax decode.  Inactive slots run
-    at position -1: they leave the pools unchanged, their SSM state rows
+    at position -1: they leave the pools and rings unchanged, their state rows
     are merged back from before the step (:func:`_merge_inactive`), their
     length is kept, and their token rows are garbage the scheduler
     ignores.  The batch composition reaches the kernels only through the

@@ -51,7 +51,8 @@ from repro_torch.runtime.steps import make_train_step
 
 ATOL = 1e-4
 ARCHS = ["qwen2.5-3b", "phi3-mini-3.8b", "starcoder2-15b", "grok-1-314b"]
-REGISTERED = sorted(ARCHS + ["qwen3-0.6b", "mamba2-130m", "phi3.5-moe-42b"])
+REGISTERED = sorted(ARCHS + ["qwen3-0.6b", "mamba2-130m", "phi3.5-moe-42b",
+                             "recurrentgemma-9b"])
 BACKENDS = ["torch", "engine"]
 
 

@@ -227,11 +227,21 @@ def test_weight_decay_ranks_are_the_reference(setup):
 
 
 def test_unported_recurrent_and_paged_paths_raise(setup):
+    """The configurations still unported raise (a modality frontend, an
+    encoder-decoder); recurrentgemma's kinds and a mixed ("ssm", "rec")
+    pattern build."""
     _, cfg, _, model, _ = setup
-    jr = j_reduced_config(j_get_config("recurrentgemma-9b"))
-    rg = ModelConfig(**{f: getattr(jr, f) for f in cfg.__dataclass_fields__})
-    with pytest.raises(NotImplementedError, match="block kinds"):
-        check_ported(rg)
+
+    def port_cfg(arch):
+        jr = j_reduced_config(j_get_config(arch))
+        return ModelConfig(**{f: getattr(jr, f)
+                              for f in cfg.__dataclass_fields__})
+
+    check_ported(port_cfg("recurrentgemma-9b"))
+    with pytest.raises(NotImplementedError, match="modality frontends"):
+        check_ported(port_cfg("internvl2-1b"))
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        check_ported(port_cfg("seamless-m4t-large-v2"))
     # The paged serving cache and continuous batching are ported: every
     # layer's leaf is a slot-major SSM state, and the continuous run's
     # tokens are the static path's.
@@ -239,9 +249,10 @@ def test_unported_recurrent_and_paged_paths_raise(setup):
     assert all(isinstance(c, SSMState) and c.s.shape[0] == 2 for c in paged)
     with use(device="cpu"):
         assert run_continuous(model)["token_identical"]
-    with pytest.raises(NotImplementedError):
-        LanguageModel(dataclasses.replace(cfg, block_pattern=("ssm", "rec")),
-                      device="cpu")
+    mixed = dataclasses.replace(cfg, block_pattern=("ssm", "rec"),
+                                rglru_width=cfg.d_model)
+    kinds = [b.kind for b in LanguageModel(mixed, device="cpu").blocks]
+    assert kinds == ["ssm", "rec"] * (cfg.num_layers // 2)
 
 
 def test_serve_and_train_clis_on_cpu(capsys, tmp_path):
