@@ -19,9 +19,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 flattened), of phi3-mini-3.8b (its prefill and training
                 attention at head dim 96), starcoder2-15b (its biased gelu
                 up projection), recurrentgemma-9b (lin_y with its bias and
-                gelu, the GeGLU gate, the 256,000-column read-out) and
+                gelu, the GeGLU gate, the 256,000-column read-out),
                 grok-1-314b (its gelu gate at the 8 x 6144 x 32,768 expert
-                bank)
+                bank), internvl2-1b (its projector's bias + gelu GEMM, its
+                d 64 prefill and training attention) and
+                seamless-m4t-large-v2 (its relu up projection; non-causal
+                flash at d 64: the encoder over 1,000 frames, the
+                cross-attention of a 256-token prefill and of a decode
+                step's one query row, and in training the encoder over 512
+                frames and cross-attention of 128 tokens, forward and
+                backward)
                 and ragged cases, with errors, kernel / plain /
                 library times (CUDA events) and the bound; the GEMM rows
                 also on cases that drive each route of gemm.cu (every
@@ -251,7 +258,33 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 recomputed in the backward, counted in its launch gates);
                 train first runs one step with and one without remat
                 (train_remat: equal losses, a higher peak without);
- 12. the ``kernels`` line (the GEMM rows with their large-M and decode
+ 12. serve_internvl -- internvl2-1b at full width and depth (24 layers,
+                every bias and norm leaf drawn): a prefill of 4 x (256
+                image tokens from seeded 1024-d features + 256 text tokens)
+                through make_prefill_step with modality_feats, then 15
+                decode steps from position 512; logits against the torch
+                backend, one flash launch a layer in the prefill, GEMM calls
+                as the structure implies (the projector's two, seven a
+                layer, the tied read-out);
+     continuous_internvl -- the same model text-only (as the reference
+                serves it) through continuous batching on the continuous
+                trace and pool, decode on flash_decode at GQA group 7
+                (route A), gated as continuous;
+     serve_seamless -- seamless-m4t-large-v2 at full width and depth (24
+                encoder + 24 decoder layers, drawn biases and norms):
+                encode of 4 x 1,000 seeded 160-d frames (timed alone), a
+                256-token prefill with enc_out, 15 decode steps passing it
+                again; logits (encoder and prefill) against the torch
+                backend; flash launches 24 in the encoder, 48 in the
+                prefill and 24 a step, each on route A; the read-out (vocab
+                256,206) over a bf16 copy padded to 256,208 columns, which
+                TMA reads: every GEMM on route A or B, none on route C;
+     train_internvl / train_seamless -- both at full depth with remat and
+                AdamW, no checkpoint: 8 x (256 image + 128 text) positions
+                with the loss on the text, and 8 x (512 frames, 128
+                tokens); gated as train_qwen2p5 (engine vs torch, launch
+                counts a step);
+ 13. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
                 times and every case's route, ``flash_routes``, the
@@ -267,7 +300,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 ``transpose_routes``),
                 then the
                 card's nvidia-smi line, then
- 13. the last line: {"ok": true, "device": {...}}.
+ 14. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the reference package.
 """
@@ -388,6 +421,21 @@ RG_TRAIN_GROUPS, RG_TRAIN_BATCH, RG_TRAIN_SEQ = 2, 2, 3072
 # The same step with and without remat: the forward is the same work.
 REMAT_LOSS_TOL = 1e-6
 
+# internvl2-1b (the vision prefix; 14 query / 2 KV heads of 64) at full
+# width and depth: served at the batches above with a prefix of VL_IMAGE
+# image tokens (1024-d features) before the PROMPT text tokens, the cache
+# sized for both and GEN new tokens (serve_internvl); text-only through
+# continuous batching on the continuous trace and pool (continuous_internvl,
+# decode on flash_decode at GQA group 7); trained at 8 x (VL_IMAGE image +
+# TRAIN_SEQ text) positions with the loss on the text (train_internvl).
+# seamless-m4t-large-v2 (the encoder-decoder; 16 heads of 64, LayerNorm)
+# at full width and depth (24 + 24 layers): served at batch 4 with
+# ED_FRAMES audio frames of 160 features, a PROMPT-token decoder prompt and
+# GEN new tokens (serve_seamless); trained at 8 x (ED_TRAIN_FRAMES frames,
+# TRAIN_SEQ tokens) (train_seamless).  Features come from seeded generators.
+VL_ARCH, VL_IMAGE = "internvl2-1b", 256
+ED_ARCH, ED_FRAMES, ED_TRAIN_FRAMES = "seamless-m4t-large-v2", 1000, 512
+
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
@@ -483,6 +531,8 @@ def main():
     torch.cuda.empty_cache()
     counts_archs = phase_arch_runs(torch)
     counts_rg = phase_rg_runs(torch)
+    torch.cuda.empty_cache()
+    counts_vl_ed = phase_vl_ed_runs(torch)
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
                "continuous": counts_cont, "train": counts_train,
@@ -496,9 +546,10 @@ def main():
                "continuous_moe": counts_cont_moe,
                "continuous_ssm": counts_cont_ssm,
                "continuous_warm": counts_cont_warm, **counts_archs,
-               **counts_rg}
+               **counts_rg, **counts_vl_ed}
     # Every wide GEMM of the main path reads TMA-legal operands: route C
-    # (loads through registers) is for operands off it.
+    # (loads through registers) is for operands off it.  (Seamless's untied
+    # read-out, vocab 256,206, runs over a copy padded to 16-byte rows.)
     routes = {p: {r: c.get(f"gemm_route_{r}", 0) for r in ("A", "B", "C",
                                                           "fp32")}
               for p, c in by_path.items()}
@@ -566,6 +617,7 @@ def main():
         fail(f"main-path paged decode left route A: {off_a}")
     for p, kname in (("continuous", "flash_decode"),
                      ("continuous_moe", "flash_decode"),
+                     ("continuous_internvl", "flash_decode"),
                      ("continuous_quant", "flash_decode_int8")):
         if decode_routes[p]["A"] != by_path[p][kname]:
             fail(f"{p}: {decode_routes[p]['A']} route-A decode calls, "
@@ -957,6 +1009,19 @@ def gemm_cases():
               ("rg_prefill_gate_gelu", BATCH * PROMPT, 12288, 4096, "nn",
                "gelu"),
               ("rg_decode_readout", BATCH, 256000, 4096, "nn", None)]
+    # internvl2-1b's projector: proj1 (1024 -> 896) with its bias and the
+    # gelu fused, over the serving prefix's 4 x 256 image rows; seamless-m4t's
+    # relu up projection (1024 -> 8192) at the serving prefill rows.
+    # Seamless-m4t's untied read-out (d 1024, vocab 256,206) runs over its
+    # bf16 copy padded to 16-byte rows (256,208 columns, the logits a view
+    # of the first 256,206): at decode and over every training position.
+    cases += [("internvl_proj1_bias_gelu", BATCH * VL_IMAGE, 896, 1024, "nn",
+               "bias_gelu"),
+              ("seamless_prefill_up_relu", BATCH * PROMPT, 8192, 1024, "nn",
+               "relu"),
+              ("seamless_decode_readout", BATCH, 256208, 1024, "nn", None),
+              ("seamless_train_readout", TRAIN_BATCH * TRAIN_SEQ, 256208,
+               1024, "nn", None)]
     cases = [c + ("bfloat16", False, 0, True) for c in cases]
     # The kernel's routes off the main path: every epilogue with and
     # without C_in, batches of 3, K below one panel and K off the ring's
@@ -1187,9 +1252,12 @@ HEAD_SCALES = (1.0, 1e3, 1e-3, 30.0)
 
 def flash_cases():
     """(label, bh, sq, sk, d, causal, dtype, main, head_scales): the
-    main-path shapes (route A; head dims 128 and phi3-mini's 96), then
-    ragged bf16 cases on route A, a bf16 head dim whose rows TMA cannot
-    read (d 36: route C) and fp32 cases."""
+    main-path shapes (route A; head dims 128 and phi3-mini's 96; at d 64
+    internvl2-1b's prefill over its image prefix and text, and
+    seamless-m4t's non-causal calls: the encoder over 1,000 frames and
+    cross-attention of a 256-token prefill and of a decode step's single
+    row into them), then ragged bf16 cases on route A, a bf16 head dim
+    whose rows TMA cannot read (d 36: route C) and fp32 cases."""
     return [("prefill_causal", BATCH * 16, PROMPT, PROMPT, 128, True,
              "bfloat16", True, None),
             ("moe_prefill_causal", BATCH * 32, PROMPT, PROMPT, 128, True,
@@ -1197,6 +1265,14 @@ def flash_cases():
             # phi3-mini-3.8b's prefill: 32 heads of 96, route A's DN 128
             # instantiation over 96-column rows.
             ("phi3_prefill_causal_d96", BATCH * 32, PROMPT, PROMPT, 96, True,
+             "bfloat16", True, None),
+            ("internvl_prefill_causal_d64", BATCH * 14, VL_IMAGE + PROMPT,
+             VL_IMAGE + PROMPT, 64, True, "bfloat16", True, None),
+            ("seamless_encoder_noncausal", BATCH * 16, ED_FRAMES, ED_FRAMES,
+             64, False, "bfloat16", True, None),
+            ("seamless_cross_prefill", BATCH * 16, PROMPT, ED_FRAMES, 64,
+             False, "bfloat16", True, None),
+            ("seamless_cross_decode", BATCH * 16, 1, ED_FRAMES, 64, False,
              "bfloat16", True, None),
             ("ragged_causal_100", 8, 100, 100, 128, True, "bfloat16", False,
              None),
@@ -1299,7 +1375,10 @@ def run_flash_case(torch, case, gen):
 def flash_bwd_cases():
     """(label, bh, sq, sk, d, causal, dtype, main): the training shapes
     (batch 8 x 16 heads of Qwen3, 8 x 32 of phi3.5-moe and of phi3-mini,
-    whose heads are 96 wide; sequence 128),
+    whose heads are 96 wide; sequence 128; at d 64 internvl2-1b's 8 x 14
+    heads over 256 image + 128 text positions, and seamless-m4t's 8 x 16
+    heads: the encoder over 512 frames and cross-attention of 128 tokens
+    into them, both non-causal),
     route A's edges in bf16 (ragged non-causal windows with sk > sq at d
     96, a clamped causal case), a bf16 head dim whose rows TMA cannot read
     (d 36: route C) and ragged fp32 cases."""
@@ -1309,6 +1388,13 @@ def flash_bwd_cases():
              128, True, "bfloat16", True),
             ("phi3_train_causal_d96", TRAIN_BATCH * 32, TRAIN_SEQ, TRAIN_SEQ,
              96, True, "bfloat16", True),
+            ("internvl_train_causal_d64", TRAIN_BATCH * 14,
+             VL_IMAGE + TRAIN_SEQ, VL_IMAGE + TRAIN_SEQ, 64, True, "bfloat16",
+             True),
+            ("seamless_train_encoder", TRAIN_BATCH * 16, ED_TRAIN_FRAMES,
+             ED_TRAIN_FRAMES, 64, False, "bfloat16", True),
+            ("seamless_train_cross", TRAIN_BATCH * 16, TRAIN_SEQ,
+             ED_TRAIN_FRAMES, 64, False, "bfloat16", True),
             ("ragged_noncausal_100x130_d96", 6, 100, 130, 96, False,
              "bfloat16", False),
             ("clamped_causal_100", 8, 100, 100, 128, True, "bfloat16",
@@ -2701,6 +2787,26 @@ def _read_counts():
                                       if k.startswith("plan_misses"))}
 
 
+def _gemm_launch_gap(counts):
+    """A GEMM run's kernel launches against the engine's count of them."""
+    bad = {}
+    if counts["gemm_fused"] + counts["gemm_region"] != \
+            counts["engine_gemm_launches"]:
+        bad["gemm kernels vs engine"] = (
+            counts["gemm_fused"] + counts["gemm_region"],
+            counts["engine_gemm_launches"])
+    return bad
+
+
+def _add_counts(*parts):
+    """Launch counts summed key by key."""
+    total = {}
+    for counts in parts:
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def _prompts(torch, vocab):
     gen = torch.Generator(device="cuda").manual_seed(1)
     return torch.randint(0, vocab, (BATCH, PROMPT), generator=gen,
@@ -3134,11 +3240,7 @@ def _continuous_gated(torch, model, name, run_kw, want_fn, cfg_kw=None,
         fail(f"{name}: {run_kw['num_pages'] - pool.free_pages} pages still "
              f"owned at the end")
     bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
-    if counts["gemm_fused"] + counts["gemm_region"] != \
-            counts["engine_gemm_launches"]:
-        bad["gemm kernels vs engine"] = (
-            counts["gemm_fused"] + counts["gemm_region"],
-            counts["engine_gemm_launches"])
+    bad.update(_gemm_launch_gap(counts))
     if bad:
         fail(f"{name} launch counts (got, want): {bad}")
     return counts, res, oracle
@@ -3454,30 +3556,44 @@ def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _train_parts(torch, cfg, seq, draw=False, batch=TRAIN_BATCH, opt=None):
+def _train_parts(torch, cfg, seq, draw=False, batch=TRAIN_BATCH, opt=None,
+                 feats=0):
     """(make_state, batch_fn, step_fn); ``draw`` redraws every bias and norm
     leaf of each fresh model (:func:`_draw_leaves`), the same values each
-    time; ``opt`` replaces the reference CLI's AdamW."""
+    time; ``opt`` replaces the reference CLI's AdamW; ``feats`` > 0 adds
+    ``modality_feats`` of that many rows (image tokens or audio frames)
+    to each batch, drawn from a generator seeded by the step."""
     from repro_torch.convert import reference_shapes
     from repro_torch.data import SyntheticLMDataset
-    from repro_torch.models import LanguageModel
     from repro_torch.optim import adamw, warmup_cosine
-    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.steps import make_train_step, model_for
     ds = SyntheticLMDataset(cfg.vocab_size, seq, batch)
     opt = opt or adamw(warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
 
     def make_state():
-        model = LanguageModel(cfg, device="cuda", seed=0)
+        model = model_for(cfg)(cfg, device="cuda", seed=0)
         if draw:
             _draw_leaves(torch, model)
         return model, opt.init(dict(model.named_parameters()),
                                shapes=reference_shapes(cfg, model))
 
     def batch_fn(step):
-        return {k: torch.from_numpy(v).to("cuda")
-                for k, v in ds.host_batch(step).items()}
+        out = {k: torch.from_numpy(v).to("cuda")
+               for k, v in ds.host_batch(step).items()}
+        if feats:
+            out["modality_feats"] = _features(torch, cfg, batch, feats,
+                                              seed=1000 + step)
+        return out
 
     return make_state, batch_fn, make_train_step(cfg, opt)
+
+
+def _features(torch, cfg, batch, rows, seed):
+    """Seeded N(0, 1) features (batch, rows, modality_dim) on the card: the
+    stub frontends' precomputed image or audio-frame embeddings."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((batch, rows, cfg.modality_dim), generator=gen,
+                       device="cuda")
 
 
 def _backend_gap(torch, cfg, make_state, batch_fn, name):
@@ -3567,16 +3683,50 @@ def _train_want(cfg):
                 "ssd_chunk_diag": 0, "ssd_scan_bwd": L,
                 "engine_ssd_launches": fwd, "engine_ssd_launches_bwd": L,
                 "flash_fwd_fused": 0, "flash_bwd_fused": 0}
+    if cfg.encoder_decoder:
+        # every encoder layer and decoder layer recomputed; flash once an
+        # encoder layer pass (non-causal) and twice a decoder layer pass
+        # (causal self-attention, non-causal cross-attention) forward, once
+        # an encoder layer and twice a decoder layer backward
+        flash_fwd = 2 * (cfg.num_encoder_layers + 2 * L)
+        flash_bwd = cfg.num_encoder_layers + 2 * L
+        return {**_encdec_gemm_want(cfg, passes=2),
+                "flash_fwd_fused": flash_fwd, "flash_fwd_dense": 0,
+                "flash_bwd_fused": flash_bwd,
+                "engine_flash_launches": flash_fwd,
+                "engine_flash_launches_bwd": flash_bwd}
     # an attention or hybrid decoder: its GEMMs each layer pass, flash once
     # a global-attention layer pass forward and once backward (none where
     # the attention softcap keeps attention in plain torch, none for
-    # sliding-window layers)
+    # sliding-window layers); a vision prefix's two projector GEMMs once
     flash = _flash_calls(cfg)
-    return {**_gemm_want(cfg, 1, recompute=True),
+    gemms = _gemm_want(cfg, 1, recompute=True)
+    if cfg.modality == "vision":
+        gemms["engine_gemm_calls"] += 2
+        gemms["gemm_fused"] += 2
+    return {**gemms,
             "flash_fwd_fused": _flash_calls(cfg, recompute=True),
             "flash_fwd_dense": 0, "flash_bwd_fused": flash,
             "engine_flash_launches": _flash_calls(cfg, recompute=True),
             "engine_flash_launches_bwd": flash}
+
+
+def _encdec_gemm_want(cfg, passes):
+    """GEMM calls and kernel launches of one training forward of an
+    encoder-decoder, each layer run ``passes`` times (2 under remat): the
+    audio adapter once, four attention and the MLP's GEMMs an encoder layer
+    pass, four self-attention, four cross-attention and the MLP's a decoder
+    layer pass, and the untied read-out.  At the training rows every plan
+    is one fused launch, except a read-out whose vocab is off the 128-column
+    tiles (seamless's 256,206, run over its copy padded to whole 16-byte
+    rows, 256,208 = 2,001 x 128 + 80): two region launches."""
+    mlp = 3 if cfg.mlp_gated else 2
+    proj = 1 + passes * (cfg.num_encoder_layers * (4 + mlp)
+                         + cfg.num_layers * (8 + mlp))
+    ragged = cfg.vocab_size % 128 != 0
+    return {"engine_gemm_calls": proj + 1,
+            "gemm_fused": proj + (0 if ragged else 1),
+            "gemm_region": 2 if ragged else 0}
 
 
 def _flash_calls(cfg, recompute=False):
@@ -3621,14 +3771,16 @@ def _gemm_want(cfg, forwards, recompute=False):
 
 def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
                 cfg=None, resume=True, extra=None, draw=False,
-                batch=TRAIN_BATCH, opt=None, remat_check=False):
+                batch=TRAIN_BATCH, opt=None, remat_check=False, feats=0):
     """Training at full width through ``run_with_restarts``.  ``cfg``
     overrides ``get_config(arch)``; ``resume=False`` writes no checkpoint
     and skips the resume check; ``extra`` joins the phase's line; ``draw``
     redraws the bias and norm leaves (:func:`_draw_leaves`); ``batch`` and
     ``opt`` replace the reference CLI's batch and AdamW; ``remat_check``
-    first runs :func:`_remat_check`.  A step after the first resolves no
-    plan: the recompute under remat hits the plans its forward built."""
+    first runs :func:`_remat_check`; ``feats`` adds that many rows of
+    modality features to each batch (:func:`_train_parts`).  A step after
+    the first resolves no plan: the recompute under remat hits the plans
+    its forward built."""
     import os
     import shutil
     import tempfile
@@ -3638,7 +3790,7 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
                                                 run_with_restarts)
     cfg = cfg or get_config(arch)
     make_state, batch_fn, step_fn = _train_parts(torch, cfg, seq, draw,
-                                                 batch, opt)
+                                                 batch, opt, feats)
     if remat_check:
         _remat_check(torch, cfg, seq, batch, name)
         torch.cuda.empty_cache()
@@ -3674,7 +3826,7 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
         tokens = batch * seq
         emit(phase=name, model=cfg.name, params=cfg.param_count(),
              layers=cfg.num_layers, remat=cfg.remat,
-             batch=batch, seq=seq, steps=len(hist),
+             batch=batch, seq=seq, modality_rows=feats, steps=len(hist),
              losses=losses, nll=[m["nll"] for m in hist],
              grad_norm=[m["grad_norm"] for m in hist],
              step_seconds=step_s,
@@ -3688,11 +3840,7 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
         for i, counts in enumerate(per_step):
             bad = {k: (counts[k], n) for k, n in want.items()
                    if counts[k] != n}
-            if counts["gemm_fused"] + counts["gemm_region"] != \
-                    counts["engine_gemm_launches"]:
-                bad["gemm kernels vs engine"] = (
-                    counts["gemm_fused"] + counts["gemm_region"],
-                    counts["engine_gemm_launches"])
+            bad.update(_gemm_launch_gap(counts))
             if i and counts["engine_plan_misses"]:
                 bad["plan misses after step 0"] = (
                     counts["engine_plan_misses"], 0)
@@ -3714,11 +3862,7 @@ def phase_train(torch, arch="qwen3-0.6b", seq=TRAIN_SEQ, name="train",
                 1))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    total = {}
-    for counts in per_step:
-        for k, n in counts.items():
-            total[k] = total.get(k, 0) + n
-    return total
+    return _add_counts(*per_step)
 
 
 def _remat_check(torch, cfg, seq, batch, name):
@@ -3886,11 +4030,7 @@ def phase_serve_ssm(torch):
             "engine_gemm_calls": SSM_GEN * (2 * L + 1),
             "flash_fwd_fused": 0, "flash_decode": 0}
     bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
-    if counts["gemm_fused"] + counts["gemm_region"] != \
-            counts["engine_gemm_launches"]:
-        bad["gemm kernels vs engine"] = (
-            counts["gemm_fused"] + counts["gemm_region"],
-            counts["engine_gemm_launches"])
+    bad.update(_gemm_launch_gap(counts))
     with use(backend="torch", device="cuda"):
         ref = _ssm_prefill_logits(torch, model, prompts)
     gap, spread, rel = _logit_gap(torch, logits, ref)
@@ -4122,11 +4262,7 @@ def phase_serve_moe(torch):
             "engine_gemm_calls": GEN * (4 * L + 1), "flash_fwd_fused": L,
             "engine_flash_launches": L}
     bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
-    if counts["gemm_fused"] + counts["gemm_region"] != \
-            counts["engine_gemm_launches"]:
-        bad["gemm kernels vs engine"] = (
-            counts["gemm_fused"] + counts["gemm_region"],
-            counts["engine_gemm_launches"])
+    bad.update(_gemm_launch_gap(counts))
     # The torch backend with the engine's routing replayed (gated), and
     # with its own (reported, with the routings that flipped).
     with use(backend="torch", device="cuda"):
@@ -4592,11 +4728,7 @@ def phase_serve_arch(torch, arch, tag, layers, keep=False):
         want.update(grouped_fused=experts, engine_grouped_launches=experts,
                     grouped_padded=0, grouped_bwd=0)
     bad = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
-    if counts["gemm_fused"] + counts["gemm_region"] != \
-            counts["engine_gemm_launches"]:
-        bad["gemm kernels vs engine"] = (
-            counts["gemm_fused"] + counts["gemm_region"],
-            counts["engine_gemm_launches"])
+    bad.update(_gemm_launch_gap(counts))
     with use(backend="torch", device="cuda"):
         with _routing("replay" if moe else None, routes["engine"]):
             ref = _prefill_logits(torch, model, prompts)
@@ -4886,6 +5018,262 @@ def phase_rg_runs(torch):
                             "reference's pick_optimizer past 10 B parameters",
                "checkpoint": "none"})
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# internvl2-1b (vision prefix) and seamless-m4t-large-v2 (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def _segment(torch, fn):
+    """``fn()`` counted alone (its launches) and timed on the host clock
+    around work that ends in a synchronise: (result, counts, seconds)."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _read_counts(), time.perf_counter() - t0
+
+
+def _decode_loop(torch, serve, cache, tok, pos, steps, enc_out=None):
+    """``steps`` greedy decode steps; returns the tokens (b, steps + 1)
+    with ``tok`` first."""
+    out = [tok]
+    for _ in range(steps):
+        logits, cache, pos = serve(cache, tok, pos, enc_out)
+        tok = torch.argmax(logits, -1)[:, None]
+        out.append(tok)
+    return torch.cat(out, 1)
+
+
+def phase_serve_internvl(torch):
+    """internvl2-1b at full width and depth (24 layers), every bias and norm
+    leaf drawn: a prefill of BATCH x (VL_IMAGE image tokens from seeded
+    1024-d features + PROMPT text tokens) through ``make_prefill_step``
+    with ``modality_feats`` (cache of VL_IMAGE + PROMPT + GEN rows), then
+    GEN - 1 decode steps from position VL_IMAGE + PROMPT.  Gated: the
+    prefill's last-position logits within LOGIT_BOUND of the torch
+    backend's; one flash launch a layer in the prefill, none in decode;
+    GEMM calls as the structure implies (the projector's two, seven a
+    layer and the tied read-out a forward), every one on the GEMM kernels.
+    Returns (counts, model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import use
+    from repro_torch.models import LanguageModel
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    cfg = get_config(VL_ARCH)
+    L, n_mod = cfg.num_layers, VL_IMAGE
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg, device="cuda", seed=0)
+    drawn = _draw_leaves(torch, model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(torch, cfg.vocab_size)
+    feats = _features(torch, cfg, BATCH, n_mod, seed=7)
+    batch = {"tokens": prompts, "modality_feats": feats}
+    cap = n_mod + PROMPT + GEN
+    start = torch.tensor(n_mod + PROMPT, dtype=torch.int32, device="cuda")
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        prefill, serve = make_prefill_step(model, cap), make_serve_step(model)
+        logits, cache = prefill(batch)  # warm: plans, first launches
+        serve(cache, torch.argmax(logits, -1)[:, None], start)
+        del cache
+        torch.cuda.reset_peak_memory_stats()
+        (logits, cache), c_pre, prefill_s = _segment(
+            torch, lambda: prefill(batch))
+        tok = torch.argmax(logits, -1)[:, None]
+        toks, c_dec, decode_s = _segment(
+            torch, lambda: _decode_loop(torch, serve, cache, tok, start,
+                                        GEN - 1))
+        peak_mem = torch.cuda.max_memory_allocated()
+        logits = logits.float()
+    with use(backend="torch", device="cuda"), torch.no_grad():
+        ref, _ = make_prefill_step(model, cap)(batch)
+    gap, spread, rel = _logit_gap(torch, logits, ref.float())
+    per_fwd = 7 * L + 1
+    want_pre = {"engine_gemm_calls": 2 + per_fwd, "flash_fwd_fused": L,
+                "engine_flash_launches": L, "flash_fwd_dense": 0}
+    want_dec = {"engine_gemm_calls": (GEN - 1) * per_fwd,
+                "flash_fwd_fused": 0, "engine_flash_launches": 0,
+                "flash_fwd_dense": 0}
+    bad = {f"prefill {k}": (c_pre[k], n) for k, n in want_pre.items()
+           if c_pre[k] != n}
+    bad.update({f"decode {k}": (c_dec[k], n) for k, n in want_dec.items()
+                if c_dec[k] != n})
+    bad.update(_gemm_launch_gap(c_pre))
+    bad.update(_gemm_launch_gap(c_dec))
+    counts = _add_counts(c_pre, c_dec)
+    emit(phase="serve_internvl", model=cfg.name, params=cfg.param_count(),
+         layers=L, d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+         vocab=cfg.vocab_size, drawn_leaves=len(drawn), batch=BATCH,
+         image_tokens=n_mod, feature_dim=cfg.modality_dim, prompt=PROMPT,
+         new_tokens=GEN, capacity=cap, fused="auto", init_seconds=init_s,
+         prefill_seconds=prefill_s,
+         prefill_tokens_per_s=BATCH * (n_mod + PROMPT) / prefill_s,
+         decode_seconds=decode_s,
+         decode_tokens_per_s=BATCH * (GEN - 1) / decode_s,
+         peak_memory_bytes=peak_mem, launches_prefill=c_pre,
+         launches_decode=c_dec, expected_prefill=want_pre,
+         expected_decode=want_dec, logits_vs_torch_max_abs=gap,
+         logits_spread=spread, logits_rel=rel, logits_bound=LOGIT_BOUND)
+    if tuple(toks.shape) != (BATCH, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"serve_internvl: bad tokens {tuple(toks.shape)}")
+    if bad:
+        fail(f"serve_internvl launch counts (got, want): {bad}")
+    if rel > LOGIT_BOUND:
+        fail(f"serve_internvl: engine vs torch prefill logits differ by "
+             f"{rel:.4f} of their range (bound {LOGIT_BOUND})")
+    return counts, model
+
+
+def phase_continuous_internvl(torch, model):
+    """internvl2-1b (``serve_internvl``'s model) text-only through
+    continuous batching, as the reference serves it: the continuous trace
+    over 8 slots and 96 pages of 16, every decode step on ``flash_decode``
+    (GQA group 7, route A).  Gated as ``continuous`` (requests, evictions,
+    pages, launches: seven GEMMs a layer and the read-out a forward, flash
+    once a layer a prefill, flash_decode once a layer a step) and the first
+    paged decode step's logits against the static dense path."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    run_kw = dict(num_slots=CONT_SLOTS, num_pages=CONT_PAGES,
+                  page_size=CONT_PAGE, max_blocks=CONT_BLOCKS, **CONT_TRACE)
+
+    def want(admissions, steps):
+        return {"flash_decode": steps * L,
+                "engine_decode_launches": steps * L,
+                "engine_gemm_calls": (admissions + steps) * (7 * L + 1),
+                "flash_fwd_fused": admissions * L,
+                "engine_flash_launches": admissions * L,
+                "flash_fwd_dense": 0}
+
+    counts, res, _ = _continuous_gated(torch, model, "continuous_internvl",
+                                       run_kw, want)
+    _continuous_logits(torch, model, res["trace"],
+                       name="continuous_internvl")
+    return counts
+
+
+def phase_serve_seamless(torch):
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers), every bias and norm leaf drawn: ``encode`` of BATCH x
+    ED_FRAMES seeded 160-d frames (timed on its own), a prefill of a
+    PROMPT-token decoder prompt with ``enc_out``, then GEN - 1 decode steps
+    passing ``enc_out`` again.  Gated: the prefill's last-position logits
+    (encoder and prefill together) within LOGIT_BOUND of the torch
+    backend's; flash launches 24 in the encoder (non-causal), 48 in the
+    prefill (causal self-, non-causal cross-attention) and 24 a decode step
+    (cross-attention, one query row), every one on route A; GEMM calls as
+    the structure implies (the adapter and six a layer in the encoder, ten
+    a decoder layer and the read-out a forward), every one on the GEMM
+    kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import use
+    from repro_torch.models import EncoderDecoderModel
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    cfg = get_config(ED_ARCH)
+    L, E = cfg.num_layers, cfg.num_encoder_layers
+    t0 = time.perf_counter()
+    model = EncoderDecoderModel(cfg, device="cuda", seed=0)
+    drawn = _draw_leaves(torch, model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(torch, cfg.vocab_size)
+    feats = _features(torch, cfg, BATCH, ED_FRAMES, seed=8)
+    start = torch.tensor(PROMPT, dtype=torch.int32, device="cuda")
+    with use(backend="engine", fused="auto", device="cuda"), torch.no_grad():
+        prefill = make_prefill_step(model, PROMPT + GEN)
+        serve = make_serve_step(model)
+        enc = model.encode(feats)  # warm: plans, first launches
+        logits, cache = prefill({"tokens": prompts, "enc_out": enc})
+        serve(cache, torch.argmax(logits, -1)[:, None], start, enc)
+        del enc, cache
+        torch.cuda.reset_peak_memory_stats()
+        enc, c_enc, encode_s = _segment(torch, lambda: model.encode(feats))
+        (logits, cache), c_pre, prefill_s = _segment(
+            torch, lambda: prefill({"tokens": prompts, "enc_out": enc}))
+        tok = torch.argmax(logits, -1)[:, None]
+        toks, c_dec, decode_s = _segment(
+            torch, lambda: _decode_loop(torch, serve, cache, tok, start,
+                                        GEN - 1, enc))
+        peak_mem = torch.cuda.max_memory_allocated()
+        logits = logits.float()
+    with use(backend="torch", device="cuda"), torch.no_grad():
+        ref, _ = make_prefill_step(model, PROMPT + GEN)(
+            {"tokens": prompts, "modality_feats": feats})
+    gap, spread, rel = _logit_gap(torch, logits, ref.float())
+    mlp = 3 if cfg.mlp_gated else 2
+    dec_fwd = L * (8 + mlp) + 1
+    want = {"encode": {"engine_gemm_calls": 1 + E * (4 + mlp),
+                       "flash_fwd_fused": E, "flash_route_A": E},
+            "prefill": {"engine_gemm_calls": dec_fwd,
+                        "flash_fwd_fused": 2 * L, "flash_route_A": 2 * L},
+            "decode": {"engine_gemm_calls": (GEN - 1) * dec_fwd,
+                       "flash_fwd_fused": (GEN - 1) * L,
+                       "flash_route_A": (GEN - 1) * L}}
+    got = {"encode": c_enc, "prefill": c_pre, "decode": c_dec}
+    bad = {}
+    for seg, w in want.items():
+        c = got[seg]
+        w = dict(w, flash_fwd_dense=0,
+                 engine_flash_launches=w["flash_fwd_fused"])
+        want[seg] = w
+        bad.update({f"{seg} {k}": (c[k], n) for k, n in w.items()
+                    if c[k] != n})
+        bad.update({f"{seg} {k}": v for k, v in _gemm_launch_gap(c).items()})
+    counts = _add_counts(c_enc, c_pre, c_dec)
+    emit(phase="serve_seamless", model=cfg.name, params=cfg.param_count(),
+         layers=L, encoder_layers=E, d_model=cfg.d_model,
+         heads=cfg.num_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, norm=cfg.norm_type, drawn_leaves=len(drawn),
+         batch=BATCH, frames=ED_FRAMES, feature_dim=cfg.modality_dim,
+         prompt=PROMPT, new_tokens=GEN, fused="auto", init_seconds=init_s,
+         encode_seconds=encode_s,
+         encode_frames_per_s=BATCH * ED_FRAMES / encode_s,
+         prefill_seconds=prefill_s,
+         prefill_tokens_per_s=BATCH * PROMPT / prefill_s,
+         decode_seconds=decode_s,
+         decode_tokens_per_s=BATCH * (GEN - 1) / decode_s,
+         peak_memory_bytes=peak_mem,
+         launches={seg: got[seg] for seg in want}, expected=want,
+         logits_vs_torch_max_abs=gap, logits_spread=spread, logits_rel=rel,
+         logits_bound=LOGIT_BOUND)
+    if tuple(toks.shape) != (BATCH, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"serve_seamless: bad tokens {tuple(toks.shape)}")
+    if bad:
+        fail(f"serve_seamless launch counts (got, want): {bad}")
+    if rel > LOGIT_BOUND:
+        fail(f"serve_seamless: engine vs torch prefill logits differ by "
+             f"{rel:.4f} of their range (bound {LOGIT_BOUND})")
+    return counts
+
+
+def phase_vl_ed_runs(torch):
+    """internvl2-1b served (``serve_internvl``) and served continuously
+    (``continuous_internvl``), seamless-m4t-large-v2 served
+    (``serve_seamless``), then both trained at full depth (``train_internvl``:
+    8 x (256 image + 128 text) positions, the loss on the text;
+    ``train_seamless``: 8 x (512 frames, 128 tokens)), with remat, AdamW
+    and no checkpoint.  Returns each path's counts."""
+    from repro_torch.configs import get_config
+    counts = {}
+    counts["serve_internvl"], model = phase_serve_internvl(torch)
+    counts["continuous_internvl"] = phase_continuous_internvl(torch, model)
+    del model
+    torch.cuda.empty_cache()
+    counts["serve_seamless"] = phase_serve_seamless(torch)
+    torch.cuda.empty_cache()
+    for arch, tag, rows in ((VL_ARCH, "internvl", VL_IMAGE),
+                            (ED_ARCH, "seamless", ED_TRAIN_FRAMES)):
+        cfg = get_config(arch)
+        counts[f"train_{tag}"] = phase_train(
+            torch, name=f"train_{tag}", cfg=cfg, draw=True, resume=False,
+            feats=rows, extra={"checkpoint": "none"})
+        torch.cuda.empty_cache()
     return counts
 
 

@@ -3,8 +3,10 @@
 A copy of the reference package's config schema, so a configuration means
 the same model in both packages.  The port registers the decoders
 (``qwen3-0.6b``, ``qwen2.5-3b``, ``phi3-mini-3.8b``, ``starcoder2-15b``),
-the MoE models (``phi3.5-moe-42b``, ``grok-1-314b``), ``mamba2-130m`` and
-the hybrid ``recurrentgemma-9b``."""
+the MoE models (``phi3.5-moe-42b``, ``grok-1-314b``), ``mamba2-130m``, the
+hybrid ``recurrentgemma-9b``, the vision-prefixed ``internvl2-1b`` and the
+encoder-decoder ``seamless-m4t-large-v2``: every configuration the
+reference has."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,9 +1,10 @@
 """Conversion from the reference package's parameter layout.
 
 ``params_from_jax_numpy(tree, cfg, device)`` takes the reference's
-``LanguageModel.init`` pytree as nested dicts (and lists) of numpy arrays
--- a caller holding JAX arrays passes ``jax.tree.map(np.asarray, params)``
--- and returns the port's state dict for ``LanguageModel(cfg)``.  Any
+``LanguageModel.init`` (or ``EncoderDecoderModel.init``) pytree as nested
+dicts (and lists) of numpy arrays -- a caller holding JAX arrays passes
+``jax.tree.map(np.asarray, params)`` -- and returns the port's state dict
+for ``LanguageModel(cfg)`` (``EncoderDecoderModel(cfg)``).  Any
 tree shaped like the parameters converts the same way (gradients), and
 ``opt_state_from_jax_numpy`` converts the reference's optimizer state:
 AdamW's ``{"m": tree, "v": tree}`` and ``scalable_adamw``'s, whose ``m``
@@ -16,7 +17,10 @@ factors.
 The reference stacks each layer group's parameters on a leading axis
 (``params["blocks"]["groups"]``, built with ``jax.vmap``) and keeps any
 remainder layers in ``params["blocks"]["rem"]``; the port has one module
-per layer, so the stack is unstacked into ``blocks.<i>``.  Weight layouts
+per layer, so the stack is unstacked into ``blocks.<i>``.  An
+encoder-decoder's ``decoder`` unstacks the same way into ``decoder.<i>``,
+and its ``encoder`` (every layer stacked on one leading axis) into
+``encoder.<i>``.  Weight layouts
 are kept as they are (``(d_in, d_out)`` linears, ``(vocab, d)`` table),
 so the port plans the same GEMM descriptors as the reference.
 """
@@ -51,31 +55,50 @@ def _layer(leaf, g: int):
         else leaf[g]
 
 
+def _split_stack(stacked: Dict[str, object], n: int, where: str,
+                 names) -> Dict[str, object]:
+    """Leaves stacked on a leading axis of ``n`` layers, split: the leaf
+    ``name`` of layer ``g`` goes to ``names(g, name)``."""
+    out: Dict[str, object] = {}
+    for name, leaf in stacked.items():
+        lead = {(v.shape[0] if v.ndim else None) for v in (
+            leaf.values() if isinstance(leaf, dict) else [leaf])}
+        if lead != {n}:
+            raise ValueError(f"{where}.{name}: leading axis {lead}, expected "
+                             f"{n} layers")
+        for g in range(n):
+            out[names(g, name)] = _layer(leaf, g)
+    return out
+
+
 def _unstacked(tree, cfg) -> Dict[str, object]:
     """The reference tree's leaves under the port's parameter names, each
-    scanned group's stack split into its layers."""
+    scanned group's stack split into its layers: ``blocks`` (or an
+    encoder-decoder's ``decoder``) in groups of ``len(block_pattern)``
+    layers plus remainder layers, and an encoder-decoder's ``encoder``,
+    stacked by ``jax.vmap`` over all ``num_encoder_layers`` layers."""
     pat = cfg.block_pattern
     flat: Dict[str, object] = {}
-    for key in ("embed", "final_norm", "lm_head"):
-        if key in tree:
+    for key in ("embed", "final_norm", "lm_head", "frontend", "enc_norm"):
+        if tree.get(key) is not None:
             _flatten(tree[key], f"{key}.", flat)
-    groups = tree["blocks"]["groups"]
+    if "encoder" in tree:
+        stacked: Dict[str, object] = {}
+        _flatten(tree["encoder"], "", stacked)
+        flat.update(_split_stack(stacked, cfg.num_encoder_layers, "encoder",
+                                 lambda g, name: f"encoder.{g}.{name}"))
+    stack = "decoder" if cfg.encoder_decoder else "blocks"
+    groups = tree[stack]["groups"]
     n_groups = cfg.num_layers // len(pat)
     if groups is not None:
         for i in range(len(pat)):
-            stacked: Dict[str, object] = {}
+            stacked = {}
             _flatten(groups[f"b{i}"], "", stacked)
-            for name, leaf in stacked.items():
-                lead = {(v.shape[0] if v.ndim else None) for v in (
-                    leaf.values() if isinstance(leaf, dict) else [leaf])}
-                if lead != {n_groups}:
-                    raise ValueError(f"blocks.groups.b{i}.{name}: leading "
-                                     f"axis {lead}, expected {n_groups} "
-                                     f"layer groups")
-                for g in range(n_groups):
-                    flat[f"blocks.{g * len(pat) + i}.{name}"] = _layer(leaf, g)
-    for j, block in enumerate(tree["blocks"]["rem"]):
-        _flatten(block, f"blocks.{n_groups * len(pat) + j}.", flat)
+            flat.update(_split_stack(
+                stacked, n_groups, f"{stack}.groups.b{i}",
+                lambda g, name, i=i: f"{stack}.{g * len(pat) + i}.{name}"))
+    for j, block in enumerate(tree[stack]["rem"]):
+        _flatten(block, f"{stack}.{n_groups * len(pat) + j}.", flat)
     return flat
 
 
@@ -88,7 +111,7 @@ def _tensor(arr: np.ndarray, dev, keep_bf16: bool) -> torch.Tensor:
 
 
 def params_from_jax_numpy(tree, cfg, device=None) -> Dict[str, torch.Tensor]:
-    """The port's ``LanguageModel`` state dict from a reference pytree of
+    """The port model's state dict from a reference pytree of
     numpy arrays, on ``device`` (the configured default if None)."""
     dev = resolve_device(device)
     return {name: _tensor(arr, dev, False)
@@ -116,9 +139,12 @@ def opt_state_from_jax_numpy(state, cfg, device=None):
 
 def reference_shapes(cfg, model) -> Dict[str, Tuple[int, ...]]:
     """Each parameter's shape as the reference holds it: a layer in a
-    scanned group is stacked on a leading axis of ``num_layers //
-    len(block_pattern)`` groups; remainder layers and the rest keep the
-    port's shape.  ``model`` is a ``LanguageModel`` or a dict of its named
+    scanned group of ``blocks`` (an encoder-decoder's ``decoder``) is
+    stacked on a leading axis of ``num_layers // len(block_pattern)``
+    groups, an ``encoder`` layer on one of ``num_encoder_layers`` (so a
+    stacked norm scale is 2-D there, decayed and factored as such);
+    remainder layers and the rest keep the port's shape.  ``model`` is a
+    ``LanguageModel``, an ``EncoderDecoderModel`` or a dict of its named
     tensors."""
     named = model.items() if isinstance(model, dict) \
         else model.named_parameters()
@@ -127,8 +153,13 @@ def reference_shapes(cfg, model) -> Dict[str, Tuple[int, ...]]:
     out = {}
     for name, p in named:
         parts = name.split(".")
-        scanned = parts[0] == "blocks" and int(parts[1]) < stacked
-        out[name] = ((groups,) if scanned else ()) + tuple(p.shape)
+        if parts[0] == "encoder":
+            lead = (cfg.num_encoder_layers,)
+        elif parts[0] in ("blocks", "decoder") and int(parts[1]) < stacked:
+            lead = (groups,)
+        else:
+            lead = ()
+        out[name] = lead + tuple(p.shape)
     return out
 
 

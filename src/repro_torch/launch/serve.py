@@ -15,10 +15,14 @@
         python -m repro_torch.launch.serve --arch qwen3-0.6b --continuous \\
             [--prompt-len 64 --gen 32] [--device cpu]
 
-``--arch`` takes every registered configuration (``list_configs()``) by
+``--arch`` takes every decoder-only configuration (``list_configs()``) by
 either mode: the dense decoders qwen3-0.6b, qwen2.5-3b, phi3-mini-3.8b and
-starcoder2-15b, the mixtures of experts phi3.5-moe-42b and grok-1-314b, and
-the Mamba-2 SSD model mamba2-130m.  A mixture of experts promises no
+starcoder2-15b, the mixtures of experts phi3.5-moe-42b and grok-1-314b, the
+Mamba-2 SSD model mamba2-130m, the hybrid recurrentgemma-9b and
+internvl2-1b, served text-only (no image prefix), as the reference serves
+it.  The encoder-decoder seamless-m4t-large-v2 is refused with a
+``ValueError``: the reference's ``generate`` cannot serve it either (its
+prefill has no encoder input).  A mixture of experts promises no
 per-sequence token identity in a churning batch (routing and expert
 capacity depend on the batch), so its ``token_identical`` is reported, not
 required.
@@ -43,7 +47,7 @@ import torch
 from repro_torch.configs import get_config, list_configs, reduced_config
 from repro_torch.core import engine
 from repro_torch.runtime.steps import make_prefill_step, make_serve_step, \
-    model_for
+    model_for, refuse_encoder_decoder
 
 
 def _sync(device) -> None:
@@ -52,12 +56,14 @@ def _sync(device) -> None:
 
 
 def generate(model, prompts, gen_steps: int, *, capacity=None):
-    """Greedy batched generation.  prompts: (b, s) integer ids.
+    """Greedy batched generation of a decoder-only model (a vision model
+    text-only).  prompts: (b, s) integer ids.
 
     Returns a dict: ``tokens`` (b, gen_steps), ``prefill_seconds``,
     ``decode_seconds`` (host clock around work that ends in a device
     synchronise) and an ``engine_stats`` snapshot.
     """
+    refuse_encoder_decoder(model.cfg, "generation")
     device = model.device
     prompts = prompts.to(device=device, dtype=torch.long)
     b, s = prompts.shape
@@ -180,6 +186,7 @@ def main(argv=None):
                     help="descriptor manifest for the warm start; recorded "
                          "on the first (cold) run, replayed on the next")
     args = ap.parse_args(argv)
+    refuse_encoder_decoder(get_config(args.arch), "the serve CLI")
 
     from repro_torch.core import configure, get_config as engine_config
     machine = None

@@ -8,7 +8,11 @@ supervisor of ``repro_torch.runtime.train_loop``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --device cpu --steps 3
 
-``--arch`` takes every registered configuration (``list_configs()``).
+``--arch`` takes every registered decoder-only configuration
+(``list_configs()``); internvl2-1b trains text-only, as the reference's CLI
+trains it (its batches carry no image features).  The encoder-decoder
+seamless-m4t-large-v2 is refused with a ``ValueError``: the synthetic
+batches carry no encoder input, and the reference's CLI fails on it too.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from repro_torch.configs import get_config, list_configs, reduced_config
 from repro_torch.core import configure, resolve_device
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.optim import adamw, warmup_cosine
-from repro_torch.runtime.steps import make_train_step, model_for
+from repro_torch.runtime.steps import make_train_step, model_for, \
+    refuse_encoder_decoder
 from repro_torch.runtime.train_loop import TrainLoopConfig, run_with_restarts
 
 
@@ -50,9 +55,10 @@ def main(argv=None):
                          "forward and backward")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    refuse_encoder_decoder(cfg, "the training CLI")
 
     configure(backend=args.backend, fused=args.fused, device=args.device)
-    cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(
             cfg, d_model=64 * args.scale, d_ff=128 * args.scale,

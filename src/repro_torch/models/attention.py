@@ -26,7 +26,12 @@ a non-reentrant ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of its scan body), so the backward never holds every
 chunk's fp32 scores at once.
 
-Not ported (it raises): cross-attention.
+Cross-attention (``kv_override``, the reference's) takes K and V from
+another sequence -- the encoder's output, or in the encoder the sequence
+itself -- with every key visible: under the ``engine`` backend the
+non-causal flash kernel (``sq`` and ``sk`` may differ; a decode step's
+``sq`` is 1), under ``torch`` :func:`_attend` with an all-true mask.  RoPE
+turns only q; no cache is read or written.
 """
 from __future__ import annotations
 
@@ -204,6 +209,19 @@ def _attention_seq(q, k, v, positions, window, softcap):
     return torch.cat(outs, dim=1)
 
 
+def _cross_attend(q, k, v, softcap):
+    """Every key visible to every query (cross-attention, the encoder's
+    bidirectional self-attention): the non-causal flash kernel under the
+    ``engine`` backend without a softcap, else :func:`_attend` with an
+    all-true mask."""
+    if get_config().backend == "engine" and not softcap:
+        from repro_torch.kernels.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=False)
+    mask = torch.ones((1, 1, q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    return _attend(q, k, v, mask, softcap)
+
+
 def _ring_write(cache: KVCache, k, v, pos2d) -> None:
     """Dense-cache write at slot = pos % capacity, in place.  Only each
     row's last ``capacity`` positions are written (a longer prefill would
@@ -335,12 +353,13 @@ class Attention(nn.Module):
 
     def forward(self, x, positions, *, cache=None,
                 window: Optional[int] = None,
-                step: Optional[PagedStep] = None):
-        """Self-attention, sliding-window with ``window``.  positions: (s,)
-        or (b, s) absolute positions; with a :class:`PagedKVCache`, (S, 1)
-        per-slot positions (-1 marks an inactive slot) and the step's
-        :class:`PagedStep` (built here when not given).  Returns (y,
-        cache); with a cache and s == 1 this is a decode step."""
+                step: Optional[PagedStep] = None, kv_override=None):
+        """Self-attention, sliding-window with ``window``, or with
+        ``kv_override`` (b, sk, d) cross-attention into it.  positions:
+        (s,) or (b, s) absolute positions; with a :class:`PagedKVCache`,
+        (S, 1) per-slot positions (-1 marks an inactive slot) and the
+        step's :class:`PagedStep` (built here when not given).  Returns
+        (y, cache); with a cache and s == 1 this is a decode step."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         b, s, _ = x.shape
@@ -348,17 +367,23 @@ class Attention(nn.Module):
         g = hq // hkv
         pos2d = positions if positions.ndim == 2 else positions[None, :]
 
+        kv_src = x if kv_override is None else kv_override
+        sk = kv_src.shape[1]
         q = self.wq(x, compute_dtype=dt).reshape(b, s, hq, hd)
-        k = self.wk(x, compute_dtype=dt).reshape(b, s, hkv, hd)
-        v = self.wv(x, compute_dtype=dt).reshape(b, s, hkv, hd)
+        k = self.wk(kv_src, compute_dtype=dt).reshape(b, sk, hkv, hd)
+        v = self.wv(kv_src, compute_dtype=dt).reshape(b, sk, hkv, hd)
         if cfg.qk_norm:
             q = self.q_norm(q, cfg.norm_eps)
             k = self.k_norm(k, cfg.norm_eps)
         if cfg.rope:
             q = apply_rope(q, pos2d, cfg.rope_theta)
-            k = apply_rope(k, pos2d, cfg.rope_theta)
+            if kv_override is None:
+                k = apply_rope(k, pos2d, cfg.rope_theta)
 
-        if isinstance(cache, PagedKVCache):
+        if kv_override is not None:
+            out = _cross_attend(q, _repeat_kv(k, g), _repeat_kv(v, g),
+                                cfg.attn_logit_softcap)
+        elif isinstance(cache, PagedKVCache):
             if s != 1:
                 raise ValueError("a paged cache takes one decode token per "
                                  f"slot, got {s}")

@@ -1,7 +1,9 @@
 """Residual blocks and the layer stack.
 
-A block is norm -> mixer -> residual, then (where the model has one)
-norm -> MLP or mixture of experts -> residual.  Mixer kinds: "attn"
+A block is norm -> mixer -> residual, then in a decoder block built with
+``cross=True`` (the encoder-decoder's) norm -> cross-attention into the
+encoder's output -> residual, then (where the model has one) norm -> MLP
+or mixture of experts -> residual.  Mixer kinds: "attn"
 (global attention), "local" (sliding-window attention over
 ``cfg.attn_window``), "rec" (RG-LRU) and "ssm" (Mamba-2 SSD); the layer
 at depth ``i`` has kind ``block_pattern[i % len(block_pattern)]``.  The
@@ -15,8 +17,9 @@ which keeps only the group's input and recomputes its forward in the
 backward (the reference's ``save_only_these_names("block_carry")``);
 remainder layers run without it.  The decode cache is one leaf per
 layer: dense or paged KV for "attn", a dense ring of ``min(capacity,
-window)`` rows for "local", slot-major states for "rec" and "ssm".
-Cross-attention raises.
+window)`` rows for "local", slot-major states for "rec" and "ssm";
+cross-attention keeps no cache (the encoder's output is passed to every
+step).
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ def check_ported(cfg) -> None:
             not set(cfg.block_pattern) <= {"attn", "local", "rec", "ssm"},
         "mixture of experts without top-k routing (num_experts_per_tok < 1)":
             cfg.num_experts > 0 and cfg.num_experts_per_tok < 1,
-        "encoder-decoder": cfg.encoder_decoder,
-        "modality frontends": cfg.modality is not None,
+        "modality frontends other than 'vision' and 'audio'":
+            cfg.modality not in (None, "vision", "audio"),
     }
     missing = [name for name, hit in unported.items() if hit]
     if missing:
@@ -58,7 +61,7 @@ def layer_kinds(cfg) -> List[str]:
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, init: Init, kind: str):
+    def __init__(self, cfg, init: Init, kind: str, cross: bool = False):
         super().__init__()
         self.cfg = cfg
         self.kind = kind
@@ -69,17 +72,23 @@ class Block(nn.Module):
             raise ValueError(f"unknown block kind {kind!r}")
         self.mixer = mixers[kind](cfg, init)
         self.window = cfg.attn_window if kind == "local" else None
+        self.cross = None
+        if cross:
+            self.norm_cross = make_norm(cfg.norm_type, cfg.d_model, init)
+            self.cross = Attention(cfg, init)
         if cfg.block_has_mlp:
             self.norm_ff = make_norm(cfg.norm_type, cfg.d_model, init)
             self.ff = MoE(cfg, init) if cfg.num_experts else MLP(cfg, init)
 
     def forward(self, x, positions, *, cache: Optional[KVCache] = None,
-                step=None):
+                step=None, enc_out=None):
         """Returns (x, cache, aux_loss); ``step`` is a paged decode step's
         :class:`~repro_torch.models.attention.PagedStep`.  An "ssm" or
         "rec" block's cache is its state (:class:`~repro_torch.models.ssd.
         SSMState`, :class:`~repro_torch.models.rglru.RecurrentState`);
-        aux_loss is the MoE load-balancing loss (zero without experts)."""
+        aux_loss is the MoE load-balancing loss (zero without experts).
+        A block built with ``cross`` attends into ``enc_out`` (b, s_enc,
+        d) after its mixer, when ``enc_out`` is given."""
         cfg = self.cfg
         h = self.norm_mix(x, cfg.norm_eps)
         if self.kind in ("ssm", "rec"):
@@ -88,6 +97,10 @@ class Block(nn.Module):
             y, cache = self.mixer(h, positions, cache=cache,
                                   window=self.window, step=step)
         x = x + y
+        if enc_out is not None and self.cross is not None:
+            h = self.norm_cross(x, cfg.norm_eps)
+            y, _ = self.cross(h, positions, kv_override=enc_out)
+            x = x + y
         aux = torch.zeros((), device=x.device)
         if cfg.block_has_mlp:
             h = self.norm_ff(x, cfg.norm_eps)
@@ -133,20 +146,21 @@ def stack_cache(cfg, batch: int, capacity: int, device, paged=None) -> List:
     return leaves
 
 
-def _run_blocks(blocks, x, positions, caches, step):
+def _run_blocks(blocks, x, positions, caches, step, enc_out=None):
     """Blocks in order; returns (x, their caches, the sum of their aux
     losses from zero)."""
     aux = torch.zeros((), device=x.device)
     new = []
     for block, c in zip(blocks, caches):
-        x, c, a = block(x, positions, cache=c, step=step)
+        x, c, a = block(x, positions, cache=c, step=step, enc_out=enc_out)
         aux = aux + a
         new.append(c)
     return x, new, aux
 
 
-def _group_forward(blocks, x, positions):
-    x, _, aux = _run_blocks(blocks, x, positions, [None] * len(blocks), None)
+def _group_forward(blocks, x, positions, enc_out):
+    x, _, aux = _run_blocks(blocks, x, positions, [None] * len(blocks), None,
+                            enc_out)
     return x, aux
 
 
@@ -159,9 +173,11 @@ def _spans(n: int, group: int):
 
 
 def stack_apply(blocks: nn.ModuleList, x, positions, *, cache=None,
-                group: int = 1, remat: bool = False):
+                group: int = 1, remat: bool = False, enc_out=None):
     """Run every block in order; returns (x, caches or None, the sum of
-    the blocks' aux losses).  The first ``len(blocks) // group * group``
+    the blocks' aux losses).  ``enc_out`` reaches every block (the
+    cross-attention of an encoder-decoder's decoder), the recompute of a
+    checkpointed group too.  The first ``len(blocks) // group * group``
     blocks form groups of ``group`` (``len(cfg.block_pattern)``); each
     group's aux losses are summed before they join the total, and each
     remainder layer's joins it alone, the reference's order.  With
@@ -184,10 +200,10 @@ def stack_apply(blocks: nn.ModuleList, x, positions, *, cache=None,
     for start, end in _spans(n, group):
         if recompute and start < grouped:
             x, aux = checkpointed(_group_forward, blocks[start:end], x,
-                                  positions)
+                                  positions, enc_out)
         else:
             x, c, aux = _run_blocks(blocks[start:end], x, positions,
-                                    caches[start:end], step)
+                                    caches[start:end], step, enc_out)
             new_cache += c
         aux_total = aux_total + aux
     return x, None if cache is None else new_cache, aux_total

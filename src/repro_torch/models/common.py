@@ -54,6 +54,26 @@ def cast_param(p, dtype):
     return p.to(dtype)
 
 
+def readout(x, w, dtype, out_dtype):
+    """Logits ``x @ w`` of an untied read-out ``w`` (d, vocab), cast to
+    ``dtype``.  Where a row of the cast weight is not a whole number of 16
+    bytes (seamless-m4t's vocab of 256,206 bf16 elements), TMA cannot read
+    it and the GEMM would take its register-fed route C: the cast then
+    writes the weight into a buffer whose rows are zero-padded to the next
+    16 bytes, the GEMM runs over that width, and the logits are a view of
+    its first vocab columns.  The fp32 master keeps the reference's
+    layout, and its gradient is the padded one's first vocab columns."""
+    from repro_torch.optim.compression import QuantizedTensor
+    n, unit = w.shape[-1], 16 // dtype.itemsize
+    if isinstance(w, QuantizedTensor) or n % unit == 0:
+        return matmul(x, cast_param(w, dtype), out_dtype=out_dtype)
+    wp = torch.empty((w.shape[0], -(-n // unit) * unit), dtype=dtype,
+                     device=w.device)
+    wp[:, n:] = 0
+    wp[:, :n] = w
+    return matmul(x, wp, out_dtype=out_dtype)[..., :n]
+
+
 def tree_cast(params, dtype):
     """:func:`cast_param` over a dict of tensors (quantized ones pass)."""
     return {k: cast_param(p, dtype) for k, p in params.items()}

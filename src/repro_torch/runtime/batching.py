@@ -25,9 +25,10 @@ greedy-token-identical to an uninterrupted run):
     under greedy decoding reproduces the exact token stream.
   * Admission overflow never crashes: requests simply wait.
 
-Every ported family serves: attention layers through paged pools, SSM
-layers through slot-major states (merged back for inactive slots), MoE
-layers as they are (an inactive slot's garbage row routes and takes
+Every decoder-only family serves (internvl2-1b text-only; an
+encoder-decoder is refused, as in the reference): attention layers through
+paged pools, SSM layers through slot-major states (merged back for
+inactive slots), MoE layers as they are (an inactive slot's garbage row routes and takes
 capacity, as in the reference).  Host-side state is numpy and Python; the
 device sees the step's inputs in one non-blocking copy, and the one host
 sync per decode step is reading the new tokens back.  :meth:`warmup`
@@ -92,8 +93,7 @@ class ContinuousBatchingEngine:
 
     def __init__(self, model, *, num_slots: int, spec: PageSpec):
         cfg = model.cfg
-        if cfg.encoder_decoder:
-            raise ValueError("continuous batching serves decoder-only archs")
+        steps_lib.refuse_encoder_decoder(cfg, "continuous batching")
         self.cfg = cfg
         self.model = model
         self.device = model.device

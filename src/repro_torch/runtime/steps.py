@@ -2,6 +2,8 @@
 decode step.
 
 The reference builds these for ``jax.jit``; the port runs them eagerly.
+The model family (decoder-only, vision prefix, encoder-decoder) is
+resolved here, from the config, as in the reference.
 The train step updates the model's parameters and the optimizer state in
 place and returns the metrics; the serving steps run under
 ``torch.no_grad()``.
@@ -13,7 +15,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.convert import reference_ndims
-from repro_torch.models import LanguageModel
+from repro_torch.models import EncoderDecoderModel, LanguageModel
 from repro_torch.models.losses import softmax_cross_entropy
 
 AUX_LOSS_WEIGHT = 0.01
@@ -21,14 +23,30 @@ Z_LOSS = 1e-4
 
 
 def model_for(cfg):
+    return EncoderDecoderModel if cfg.encoder_decoder else LanguageModel
+
+
+def refuse_encoder_decoder(cfg, what: str) -> None:
+    """Raise a ``ValueError`` for an encoder-decoder ``cfg``: ``what``
+    (generation, continuous batching, the training CLI) serves and trains
+    decoder-only models (a vision model text-only), as the reference's do,
+    and passes no encoder input."""
     if cfg.encoder_decoder:
-        raise NotImplementedError("encoder-decoder models are not ported")
-    return LanguageModel
+        raise ValueError(f"{cfg.name} is an encoder-decoder: {what} takes "
+                         f"decoder-only models and passes no encoder input")
 
 
 def forward(model, batch: Dict[str, Any], *, cache=None, positions=None,
             logits_mode="all"):
+    """The model over ``batch``: an encoder-decoder takes the encoder's
+    input (``modality_feats``) or its output (``enc_out``), a decoder-only
+    model the prefix ``modality_feats``."""
+    if model.cfg.encoder_decoder:
+        return model.apply(batch["tokens"], feats=batch.get("modality_feats"),
+                           enc_out=batch.get("enc_out"), positions=positions,
+                           cache=cache, logits_mode=logits_mode)
     return model.apply(batch["tokens"], positions=positions, cache=cache,
+                       modality_feats=batch.get("modality_feats"),
                        logits_mode=logits_mode)
 
 
@@ -38,14 +56,15 @@ def forward(model, batch: Dict[str, Any], *, cache=None, positions=None,
 
 def make_loss_fn(cfg):
     """``loss_fn(model, batch) -> (total, metrics)``: next-token
-    cross-entropy with z-loss, plus the weighted auxiliary loss."""
-    if cfg.modality is not None:
-        raise NotImplementedError("modality frontends are not ported")
+    cross-entropy with z-loss, plus the weighted auxiliary loss.  Under a
+    vision prefix only the text positions carry labels."""
 
     def loss_fn(model, batch):
         logits, _, aux = forward(model, batch)
-        loss, metrics = softmax_cross_entropy(logits, batch["labels"],
-                                              z_loss=Z_LOSS)
+        labels = batch["labels"]
+        if cfg.modality == "vision":
+            logits = logits[:, -labels.shape[1]:]
+        loss, metrics = softmax_cross_entropy(logits, labels, z_loss=Z_LOSS)
         total = loss + AUX_LOSS_WEIGHT * aux
         return total, dict(metrics, aux_loss=aux, loss=total)
 
@@ -113,7 +132,8 @@ def make_train_step(cfg, optimizer, *, microbatches: int = 1,
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(model, capacity: int):
-    """Prefill: forward the prompt, return last-position logits + cache."""
+    """Prefill: forward the prompt (with the batch's ``modality_feats`` or
+    ``enc_out``), return last-position logits + cache."""
 
     @torch.no_grad()
     def prefill_step(batch):
@@ -127,14 +147,18 @@ def make_prefill_step(model, capacity: int):
 
 
 def make_serve_step(model):
-    """One decode step: (cache, tokens (b, 1), pos) -> (logits, cache,
-    pos + 1).  ``pos`` is a device scalar carried through the loop, so the
-    loop never builds a host-side position per token."""
+    """One decode step: (cache, tokens (b, 1), pos, enc_out=None) ->
+    (logits, cache, pos + 1).  ``pos`` is a device scalar carried through
+    the loop, so the loop never builds a host-side position per token; an
+    encoder-decoder passes its encoder's output each step."""
 
     @torch.no_grad()
-    def serve_step(cache, tokens, pos):
+    def serve_step(cache, tokens, pos, enc_out=None):
+        batch = {"tokens": tokens}
+        if enc_out is not None:
+            batch["enc_out"] = enc_out
         positions = pos.reshape(1) if pos.ndim == 0 else pos
-        logits, new_cache, _ = forward(model, {"tokens": tokens}, cache=cache,
+        logits, new_cache, _ = forward(model, batch, cache=cache,
                                        positions=positions)
         return logits[:, -1], new_cache, pos + 1
 

@@ -57,11 +57,13 @@ LONG_CASES = [
     (3, 48, 4, 16, 4, 2, 16, [63, 0, 37]),
     (2, 48, 8, 24, 8, 2, 32, [191, 100]),
 ]
-# On the card: those cases at head dim 64 (16 and 32 take route B), and
-# GQA groups of 3 and 8.
+# On the card: those cases at head dim 64 (16 and 32 take route B), GQA
+# groups of 3 and 8, and internvl2-1b's group of 7 (14 query heads over 2
+# KV heads of 64) on its serving pages of 16.
 CARD_CASES = [c[:6] + (64,) + c[7:] for c in ATTN_CASES + LONG_CASES] + [
     (3, 24, 8, 8, 24, 8, 64, [0, 33, 64]),
     (2, 16, 16, 8, 16, 2, 128, [100, 17]),
+    (4, 40, 16, 10, 14, 2, 64, [0, 1, 100, 160]),
 ]
 
 
@@ -141,6 +143,7 @@ def test_decode_chunks_partition_a_slot(n, clusters):
 
 @pytest.mark.parametrize("q_dt,kv_dt,group,page,hd,ptrs,want", [
     (BF, BF, 2, 16, 128, (0, 256, 512), "A"),     # Qwen3 serving
+    (BF, BF, 7, 16, 64, (0, 256, 512), "A"),      # internvl2-1b serving
     (BF, I8, 2, 16, 128, (0, 256, 512), "A"),     # its KV-int8 pools
     (BF, BF, 1, 8, 64, (), "A"),
     (BF, BF, 8, 64, 64, (), "A"),                 # route A's limits

@@ -193,13 +193,18 @@ def test_flash_kernels_on_card(cuda_device):
 
 
 # (bh, sq, sk, d, causal, per-head scales or None): route A on a ragged
-# causal case, a non-causal one with sk < sq and d 64, and neighbouring
-# heads of very different magnitude (windows run past each head's end).
+# causal case, a non-causal one with sk < sq and d 64, neighbouring heads
+# of very different magnitude (windows run past each head's end), and the
+# encoder-decoder's cross-attention at d 64: a decode step's one query row
+# (a block of one row) and a prefill's 256 rows, over 1,000 encoder rows.
 ROUTE_A_CASES = [
     pytest.param(8, 100, 100, 128, True, None, id="ragged_causal_100"),
     pytest.param(6, 130, 70, 64, False, None, id="noncausal_130x70_d64"),
     pytest.param(4, 100, 100, 128, True, (1.0, 1e3, 1e-3, 30.0),
                  id="heads_magnitude"),
+    pytest.param(16, 1, 1000, 64, False, None, id="cross_decode_1x1000_d64"),
+    pytest.param(16, 256, 1000, 64, False, None,
+                 id="cross_prefill_256x1000_d64"),
 ]
 
 

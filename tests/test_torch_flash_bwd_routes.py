@@ -119,8 +119,10 @@ def _case(device, bh, sq, sk, d, causal, dtype, seed=0):
 # (bh, sq, sk, d, causal, dtype, route): route A on the Qwen3 training
 # shape (16 heads of one sequence), ragged non-causal windows (sk > sq, the
 # last k-block and q-block clamped) at d 96 and 64, a clamped causal case
-# and k-blocks no query reaches (causal, sk > sq: stored zeros); route C on
-# fp32 and on bf16 rows TMA cannot read (d 36).
+# and k-blocks no query reaches (causal, sk > sq: stored zeros), the
+# encoder-decoder's cross-attention in training (128 decoder rows over 512
+# encoder rows, non-causal, d 64); route C on fp32 and on bf16 rows TMA
+# cannot read (d 36).
 CARD_CASES = [
     pytest.param(16, 128, 128, 128, True, torch.bfloat16, "A",
                  id="train_bh16"),
@@ -132,6 +134,8 @@ CARD_CASES = [
                  id="clamped_causal_100"),
     pytest.param(4, 33, 257, 64, True, torch.bfloat16, "A",
                  id="unreached_k_blocks_33x257"),
+    pytest.param(16, 128, 512, 64, False, torch.bfloat16, "A",
+                 id="cross_train_128x512_d64"),
     pytest.param(6, 100, 130, 64, True, torch.float32, "fp32",
                  id="f32_causal_100x130"),
     pytest.param(8, 100, 100, 36, True, torch.bfloat16, "C",

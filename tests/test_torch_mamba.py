@@ -37,7 +37,7 @@ from repro_torch.core import engine, use
 from repro_torch.launch.serve import generate, main as serve_main, \
     run_continuous
 from repro_torch.launch.train import main as train_main
-from repro_torch.models import LanguageModel
+from repro_torch.models import EncoderDecoderModel, LanguageModel
 from repro_torch.models.attention import PageSpec
 from repro_torch.models.blocks import check_ported
 from repro_torch.models.ssd import SSMState
@@ -227,9 +227,10 @@ def test_weight_decay_ranks_are_the_reference(setup):
 
 
 def test_unported_recurrent_and_paged_paths_raise(setup):
-    """The configurations still unported raise (a modality frontend, an
-    encoder-decoder); recurrentgemma's kinds and a mixed ("ssm", "rec")
-    pattern build."""
+    """Every reference configuration builds: recurrentgemma's kinds, a
+    mixed ("ssm", "rec") pattern, the vision prefix (a ``LanguageModel``)
+    and the encoder-decoder (an ``EncoderDecoderModel``, which
+    ``LanguageModel`` refuses)."""
     _, cfg, _, model, _ = setup
 
     def port_cfg(arch):
@@ -237,11 +238,14 @@ def test_unported_recurrent_and_paged_paths_raise(setup):
         return ModelConfig(**{f: getattr(jr, f)
                               for f in cfg.__dataclass_fields__})
 
-    check_ported(port_cfg("recurrentgemma-9b"))
-    with pytest.raises(NotImplementedError, match="modality frontends"):
-        check_ported(port_cfg("internvl2-1b"))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        check_ported(port_cfg("seamless-m4t-large-v2"))
+    for arch in ("recurrentgemma-9b", "internvl2-1b", "seamless-m4t-large-v2"):
+        check_ported(port_cfg(arch))
+    vision = LanguageModel(port_cfg("internvl2-1b"), device="cpu")
+    assert vision.frontend.proj1.b is not None
+    seamless = port_cfg("seamless-m4t-large-v2")
+    assert len(EncoderDecoderModel(seamless, device="cpu").encoder) == 2
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        LanguageModel(seamless, device="cpu")
     # The paged serving cache and continuous batching are ported: every
     # layer's leaf is a slot-major SSM state, and the continuous run's
     # tokens are the static path's.

@@ -59,7 +59,7 @@ from repro_torch.convert import params_from_jax_numpy, reference_ndims
 from repro_torch.core import engine, use
 from repro_torch.launch.serve import generate, main as serve_main
 from repro_torch.launch.train import main as train_main
-from repro_torch.models import LanguageModel
+from repro_torch.models import EncoderDecoderModel, LanguageModel
 from repro_torch.models.attention import (KVCache, PageSpec, _attention_seq,
                                           _ring_write, init_kv_cache)
 from repro_torch.models.blocks import check_ported
@@ -172,11 +172,17 @@ def test_config_is_the_reference():
 
 
 def test_unported_configurations_still_raise():
-    for arch, what in (("internvl2-1b", "modality frontends"),
-                       ("seamless-m4t-large-v2", "encoder-decoder")):
-        cfg = _as_port_config(j_reduced_config(j_get_config(arch)))
-        with pytest.raises(NotImplementedError, match=what):
-            LanguageModel(cfg, device="cpu")
+    """No reference configuration is refused any more: internvl2-1b builds
+    as a ``LanguageModel`` with its frontend, seamless-m4t-large-v2 as an
+    ``EncoderDecoderModel``; ``LanguageModel`` refuses the latter."""
+    vision = _as_port_config(j_reduced_config(j_get_config("internvl2-1b")))
+    assert LanguageModel(vision, device="cpu").frontend.cfg is vision
+    encdec = _as_port_config(j_reduced_config(
+        j_get_config("seamless-m4t-large-v2")))
+    model = EncoderDecoderModel(encdec, device="cpu")
+    assert all(b.cross is not None for b in model.decoder)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        LanguageModel(encdec, device="cpu")
 
 
 def test_model_needs_the_card_unless_cpu_is_asked():
