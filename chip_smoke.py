@@ -284,6 +284,27 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 with the loss on the text, and 8 x (512 frames, 128
                 tokens); gated as train_qwen2p5 (engine vs torch, launch
                 counts a step);
+     mesh     -- the mesh axis: two ranks spawned on the one card with a
+                (data 1, model 2) mesh over gloo (NCCL puts no two ranks
+                on one device), each holding phi3.5-moe-42b at full width
+                and 2 layers (replicated fp32 masters).  Each rank runs
+                the expert-parallel grouped GEMM at its MoE layer's
+                shapes (4 x 256 prompt tokens: 4,096 capacity rows; one
+                decode step: 512) under both pinned strategies: one
+                grouped_fused launch a rank a call, the outputs of the two
+                strategies bit-equal and within the bf16 tolerance of the
+                plain fp32 product, the counters the reference's (the
+                distributed strategy's two all_to_alls and their
+                mesh_comm_events bytes, none for the gathered one); the
+                host-clock ms a call of each strategy, the planner's pick
+                under H100_SXM and its predicted seconds printed.  Then
+                both ranks serve the model under the mesh (batch 4,
+                prompt 256, 4 new tokens): prefill logits within 5% of
+                their range of the one-process engine run, launches and
+                collectives as the planner's picks imply, the greedy
+                tokens equal to the one-process run's counted; and one
+                rank serves it over NCCL on a (1, 1) mesh, bit-equal to
+                the run with no mesh;
  13. the ``kernels`` line (the GEMM rows with their large-M and decode
                 sums apart, the grouped forwards' with their prefill and
                 decode sums apart, the flash kernels' with their device
@@ -533,6 +554,8 @@ def main():
     counts_rg = phase_rg_runs(torch)
     torch.cuda.empty_cache()
     counts_vl_ed = phase_vl_ed_runs(torch)
+    torch.cuda.empty_cache()
+    counts_mesh = phase_mesh(torch)
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
                "continuous": counts_cont, "train": counts_train,
@@ -546,7 +569,7 @@ def main():
                "continuous_moe": counts_cont_moe,
                "continuous_ssm": counts_cont_ssm,
                "continuous_warm": counts_cont_warm, **counts_archs,
-               **counts_rg, **counts_vl_ed}
+               **counts_rg, **counts_vl_ed, **counts_mesh}
     # Every wide GEMM of the main path reads TMA-legal operands: route C
     # (loads through registers) is for operands off it.  (Seamless's untied
     # read-out, vocab 256,206, runs over a copy padded to 16-byte rows.)
@@ -5275,6 +5298,268 @@ def phase_vl_ed_runs(torch):
             feats=rows, extra={"checkpoint": "none"})
         torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The mesh axis: expert parallelism over two ranks on the one card
+# ---------------------------------------------------------------------------
+
+# phi3.5-moe-42b at full width cut to 2 layers: each rank holds the whole
+# model's fp32 masters (11.4 GB), as the port keeps parameters replicated.
+MESH_LAYERS, MESH_GEN = 2, 4
+# Host-clock repeats of each pinned expert-parallel call (after one
+# checked call).
+MESH_REPS = 3
+MESH_TIMEOUT_S = 300
+
+
+def _mesh_ep_cases(cfg):
+    """(label, capacity rows, K, N) of the MoE layer's up projection at the
+    serving prompt and at one decode step: the layer's own shapes."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    out = []
+    for label, t in (("prefill", BATCH * PROMPT), ("decode", BATCH)):
+        g = min(cfg.moe_group, max(1, t // 32))
+        while t % g:
+            g -= 1
+        cap = max(8, -(-int(cfg.capacity_factor * g * k / e) // 8) * 8)
+        out.append((label, t // g, cap))
+    return out
+
+
+def _mesh_ep(torch, model, world):
+    """Each pinned strategy of the expert-parallel grouped GEMM at the MoE
+    layer's shapes (layer 0's up bank), on this rank."""
+    import dataclasses
+    from repro_torch.core import (H100_SXM, GroupedGemmDescriptor, MeshSpec,
+                                  engine, mesh_comm_events,
+                                  mesh_comm_seconds, mesh_local_desc,
+                                  plan_grouped)
+    from repro_torch.kernels.grouped_gemm.ops import _ref_ep
+    cfg = model.cfg
+    w = model.blocks[0].ff.w_up.w.detach().to(torch.bfloat16)
+    e, d, f = w.shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label, n, cap in _mesh_ep_cases(cfg):
+        x4 = torch.randn((n, e, cap, d), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        desc = GroupedGemmDescriptor(t=n * e * cap, k=d, n=f, num_experts=e,
+                                     dtype="bfloat16",
+                                     mesh=MeshSpec("model", world))
+        want = _ref_ep(None, x4, w)
+        row = {"case": label, "capacity_rows": n * e * cap, "k": d, "n": f,
+               "pick": plan_grouped(desc, H100_SXM).comm, "strategies": {}}
+        outs = {}
+        for comm in ("gathered", "distributed"):
+            pin = dataclasses.replace(
+                plan_grouped(mesh_local_desc(desc, comm), H100_SXM),
+                desc=desc, comm=comm)
+            _reset_counts()
+            y = engine.dispatch(desc, x4, w, None, plan=pin)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            st = engine.stats()["grouped_gemm"]
+            outs[comm] = y
+            ms = []
+            for _ in range(MESH_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.dispatch(desc, x4, w, None, plan=pin)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            max_abs, rel, nbad, tol = compare(torch, y, want, "bfloat16")
+            events = mesh_comm_events(desc, comm)
+            row["strategies"][comm] = {
+                "ms_host": ms, "grouped_fused": counts["grouped_fused"],
+                "engine_launches": st["launches"],
+                "comm_bytes": st["comm_bytes"],
+                "collective_launches": st["collective_launches"],
+                "events": [list(ev) for ev in events],
+                "predicted_s": pin.predicted_seconds(H100_SXM),
+                "predicted_comm_s": mesh_comm_seconds(desc, H100_SXM, comm),
+                "local_t": pin.local_desc.t,
+                "local_experts": pin.local_desc.num_experts,
+                "tile": [pin.bm, pin.bk, pin.bn],
+                "routes": {r: counts.get(f"grouped_route_{r}", 0)
+                           for r in ("A", "C", "fp32")},
+                "max_abs_err": max_abs, "rel_err": rel, "mismatches": nbad,
+                "tolerance": tol, "sum": float(y.double().sum())}
+        row["strategies_bit_equal"] = bool(
+            torch.equal(outs["gathered"], outs["distributed"]))
+        rows.append(row)
+    return rows
+
+
+def _mesh_rank(rank, world, out_dir, prompts_path, with_ep):
+    """One rank of the mesh phase (spawned): the model from seed 0, the
+    expert-parallel calls (``with_ep``), then the mesh serve, counted
+    alone; its results saved for the parent."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+    from repro_torch.core import engine, use
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LanguageModel
+    from repro_torch.runtime.shardlib import use_mesh
+    mesh = make_test_mesh(1, world, device="cuda")
+    model = LanguageModel(_moe_cfg(MESH_LAYERS), device="cuda", seed=0)
+    prompts = torch.load(prompts_path).to("cuda")
+    out = {"backend": dist.get_backend()}
+    with use_mesh(mesh), use(backend="engine", fused="auto", device="cuda"):
+        if with_ep:
+            out["ep"] = _mesh_ep(torch, model, world)
+        generate(model, prompts, 2)  # warm: plans, first launches
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        _reset_counts()
+        res = generate(model, prompts, MESH_GEN)
+        counts = _read_counts()
+        st = engine.stats()["grouped_gemm"]
+        counts["comm_bytes"] = st["comm_bytes"]
+        counts["collective_launches"] = st["collective_launches"]
+        out["logits"] = _prefill_logits(torch, model, prompts).cpu()
+    out.update(tokens=res["tokens"].cpu(), counts=counts,
+               prefill_seconds=res["prefill_seconds"],
+               decode_seconds=res["decode_seconds"],
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def _mesh_serve_want(cfg, world):
+    """Per rank, per forward: three expert-parallel calls a layer, each one
+    grouped_fused launch; the planner's picks under H100_SXM at the
+    prefill and decode rows give the counted collectives and bytes."""
+    from repro_torch.core import (H100_SXM, GroupedGemmDescriptor, MeshSpec,
+                                  mesh_comm_events, plan_grouped)
+    L, e, d, f = cfg.num_layers, cfg.num_experts, cfg.d_model, cfg.d_ff
+    want = {"grouped_fused": MESH_GEN * 3 * L,
+            "engine_grouped_launches": MESH_GEN * 3 * L,
+            "comm_bytes": 0, "collective_launches": 0}
+    picks = {}
+    for (label, n, cap), forwards in zip(_mesh_ep_cases(cfg),
+                                         (1, MESH_GEN - 1)):
+        for k, nn, epi in ((d, f, None), (d, f, cfg.mlp_act), (f, d, None)):
+            desc = GroupedGemmDescriptor(
+                t=n * e * cap, k=k, n=nn, num_experts=e, dtype="bfloat16",
+                epilogue=epi, mesh=MeshSpec("model", world))
+            comm = plan_grouped(desc, H100_SXM).comm
+            picks[f"{label}_{k}x{nn}_{epi}"] = comm
+            if comm == "distributed":
+                events = mesh_comm_events(desc, comm)
+                want["comm_bytes"] += forwards * L * sum(b for _, b in events)
+                want["collective_launches"] += forwards * L * len(events)
+    return want, picks
+
+
+def phase_mesh(torch):
+    """phi3.5-moe-42b (full width, 2 layers) served in one process, then by
+    two gloo ranks on a (data 1, model 2) mesh and by one NCCL rank on a
+    (1, 1) mesh; the expert-parallel calls of the two ranks with it."""
+    import tempfile
+    from repro_torch.core import use
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LanguageModel
+    cfg = _moe_cfg(MESH_LAYERS)
+    model = LanguageModel(cfg, device="cuda", seed=0)
+    prompts = _prompts(torch, cfg.vocab_size)
+    with use(backend="engine", fused="auto", device="cuda"):
+        generate(model, prompts, 2)
+        one = generate(model, prompts, MESH_GEN)
+        one_logits = _prefill_logits(torch, model, prompts)
+    one_tokens = one["tokens"].cpu()
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        prompts_path = f"{tmp}/prompts.pt"
+        torch.save(prompts.cpu(), prompts_path)
+        runs = {}
+        for tag, world, backend, with_ep in (("gloo", 2, "gloo", True),
+                                             ("nccl", 1, "nccl", False)):
+            d = f"{tmp}/{tag}"
+            t0 = time.perf_counter()
+            run_ranks(_mesh_rank, world, (d, prompts_path, with_ep),
+                      store_dir=d, device="cuda", backend=backend,
+                      timeout_s=MESH_TIMEOUT_S)
+            runs[tag] = {"seconds": time.perf_counter() - t0,
+                         "ranks": [torch.load(f"{d}/rank{r}.pt")
+                                   for r in range(world)]}
+    want, picks = _mesh_serve_want(cfg, 2)
+    bad, serve = {}, []
+    for r, res in enumerate(runs["gloo"]["ranks"]):
+        c = res["counts"]
+        for k, n in want.items():
+            if c[k] != n:
+                bad[f"rank{r} {k}"] = (c[k], n)
+        gap, spread, rel = _logit_gap(torch, res["logits"].cuda(),
+                                      one_logits)
+        if rel > LOGIT_BOUND:
+            bad[f"rank{r} logits_rel"] = (rel, LOGIT_BOUND)
+        toks = res["tokens"]
+        if tuple(toks.shape) != (BATCH, MESH_GEN):
+            bad[f"rank{r} tokens"] = tuple(toks.shape)
+        serve.append({"rank": r, "backend": res["backend"],
+                      "prefill_seconds": res["prefill_seconds"],
+                      "decode_tokens_per_s": BATCH * (MESH_GEN - 1)
+                      / res["decode_seconds"],
+                      "peak_memory_bytes": res["peak_memory_bytes"],
+                      "logits_vs_one_process_max_abs": gap,
+                      "logits_spread": spread, "logits_rel": rel,
+                      "tokens_equal_one_process":
+                      int((toks == one_tokens).sum()),
+                      "launches": {k: c[k] for k in (
+                          "grouped_fused", "engine_grouped_launches",
+                          "comm_bytes", "collective_launches", "gemm_fused",
+                          "gemm_region", "flash_fwd_fused",
+                          "grouped_route_A")}})
+        for row in res["ep"]:
+            s = row["strategies"]
+            for comm, v in s.items():
+                events = v["events"] if comm == "distributed" else []
+                want_c = (1, sum(b for _, b in events), len(events))
+                got_c = (v["grouped_fused"], v["comm_bytes"],
+                         v["collective_launches"])
+                if got_c != want_c or v["engine_launches"] != 1:
+                    bad[f"rank{r} ep {row['case']} {comm}"] = (got_c, want_c)
+                if v["mismatches"]:
+                    bad[f"rank{r} ep {row['case']} {comm} vs plain"] = \
+                        v["mismatches"]
+            if not row["strategies_bit_equal"]:
+                bad[f"rank{r} ep {row['case']}"] = "strategies differ"
+    r0, r1 = runs["gloo"]["ranks"]
+    ranks_agree = bool(torch.equal(r0["tokens"], r1["tokens"])) and all(
+        a["strategies"][c]["sum"] == b["strategies"][c]["sum"]
+        for a, b in zip(r0["ep"], r1["ep"]) for c in a["strategies"])
+    if not ranks_agree:
+        bad["ranks"] = "the two ranks' tokens or expert outputs differ"
+    nc = runs["nccl"]["ranks"][0]
+    nccl_equal = bool(torch.equal(nc["logits"], one_logits.cpu())) and \
+        bool(torch.equal(nc["tokens"], one_tokens))
+    if not nccl_equal:
+        bad["nccl"] = "the one-rank NCCL mesh serve is not bit-equal"
+    emit(phase="mesh", model=cfg.name, reduced={
+             "num_layers": f"32 -> {MESH_LAYERS}",
+             "why": "every rank holds the replicated fp32 masters (11.4 GB "
+                    "a rank at 2 layers)"},
+         mesh={"data": 1, "model": 2}, transport="gloo (through the host)",
+         batch=BATCH, prompt=PROMPT, new_tokens=MESH_GEN,
+         ep=r0["ep"], ep_rank1=r1["ep"], serve=serve, expected=want,
+         planner_picks=picks, ranks_agree=ranks_agree,
+         one_process_tokens=one_tokens.tolist(),
+         nccl={"backend": nc["backend"], "mesh": {"data": 1, "model": 1},
+               "bit_equal_no_mesh": nccl_equal,
+               "prefill_seconds": nc["prefill_seconds"],
+               "decode_tokens_per_s": BATCH * (MESH_GEN - 1)
+               / nc["decode_seconds"]},
+         seconds={k: v["seconds"] for k, v in runs.items()})
+    if bad:
+        fail(f"mesh: {bad}")
+    return {"mesh": _add_counts(*(res["counts"] for res
+                                  in runs["gloo"]["ranks"])),
+            "mesh_nccl": nc["counts"]}
 
 
 if __name__ == "__main__":

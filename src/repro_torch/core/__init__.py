@@ -16,11 +16,12 @@
 from repro_torch.core.descriptor import (  # noqa: F401
     FlashBwdDescriptor, FlashDecodeDescriptor, FlashDescriptor,
     GemmDescriptor, GroupedGemmBwdDescriptor, GroupedGemmDescriptor,
-    KernelDescriptor, QuantSpec, SsdChunkBwdDescriptor, SsdChunkDescriptor,
+    KernelDescriptor, MeshSpec, QuantSpec, SsdChunkBwdDescriptor, SsdChunkDescriptor,
     TransposeDescriptor, descriptor_from_cache_key, resolve_quant)
 from repro_torch.core.blocking import (  # noqa: F401
-    BlockingPlan, FlashDecodePlan, FlashPlan, GroupedGemmPlan, Region,
-    candidate_plans, flash_bwd_fused_legal, flash_decode_legal, flash_fused_legal, fused_legal,
+    BlockingPlan, FlashDecodePlan, FlashPlan, GroupedGemmPlan,
+    MESH_STRATEGIES, Region, candidate_plans, mesh_comm_events,
+    mesh_comm_seconds, mesh_local_desc, flash_bwd_fused_legal, flash_decode_legal, flash_fused_legal, fused_legal,
     grouped_bwd_fused_legal, grouped_fused_legal, palette, plan_flash,
     plan_flash_bwd, plan_flash_decode, plan_gemm, plan_grouped,
     plan_grouped_bwd, plan_ssd, plan_ssd_bwd, plan_transpose,

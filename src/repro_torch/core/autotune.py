@@ -70,6 +70,8 @@ def plan_to_record(plan: Any) -> Dict[str, Any]:
                            for r in plan.regions],
                "bk": plan.bk, "heterogeneous": plan.heterogeneous,
                "fused": plan.fused}
+        if plan.comm is not None:
+            rec["comm"] = plan.comm  # mesh strategy
     elif isinstance(plan, FlashPlan):
         rec = {"family": "flash_attention",
                "block_q": plan.block_q, "block_k": plan.block_k,
@@ -78,6 +80,8 @@ def plan_to_record(plan: Any) -> Dict[str, Any]:
         rec = {"family": "grouped_gemm",
                "bm": plan.bm, "bk": plan.bk, "bn": plan.bn,
                "fused": plan.fused}
+        if plan.comm is not None:
+            rec["comm"] = plan.comm  # mesh strategy
     elif isinstance(plan, TransposePlan):
         rec = {"family": "transpose", "bt": plan.bt}
     elif isinstance(plan, SsdChunkPlan):
@@ -105,7 +109,8 @@ def plan_from_record(desc: KernelDescriptor,
             regions = tuple(Region(*map(int, r)) for r in record["regions"])
             return BlockingPlan(desc, regions, int(record["bk"]),
                                 bool(record["heterogeneous"]), fused=fused,
-                                plan_source="autotuned")
+                                plan_source="autotuned",
+                                comm=record.get("comm"))
         if family == "flash_attention":
             return FlashPlan(desc, int(record["block_q"]),
                              int(record["block_k"]), fused=fused,
@@ -113,7 +118,8 @@ def plan_from_record(desc: KernelDescriptor,
         if family == "grouped_gemm":
             return GroupedGemmPlan(desc, int(record["bm"]), int(record["bk"]),
                                    int(record["bn"]), fused=fused,
-                                   plan_source="autotuned")
+                                   plan_source="autotuned",
+                                   comm=record.get("comm"))
         if family == "transpose":
             return TransposePlan(desc, int(record["bt"]),
                                  plan_source="autotuned")
@@ -126,6 +132,10 @@ def plan_from_record(desc: KernelDescriptor,
 
 
 def _entry_key(machine_key: str, desc: KernelDescriptor, mode: str) -> str:
+    # Keyed by ``machine.tuning_key`` (the name plus the +net / +refit
+    # provenance), not the constants fingerprint: winners survive probe
+    # drift on one host, but a network-calibrated host's mesh winners never
+    # serve an uncalibrated one.
     return f"{machine_key}|{mode}|{desc.cache_key()!r}"
 
 

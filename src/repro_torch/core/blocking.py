@@ -16,6 +16,13 @@ Every plan carries ``plan_source``: ``"model"`` from a planner here,
 ``"autotuned"`` for a timed winner (fresh or replayed from a tuning
 cache).  :func:`candidate_plans` ranks every plan the machine allows by the
 same cost model, for the autotuner to time.
+
+A descriptor with a :class:`~repro_torch.core.descriptor.MeshSpec` is the
+global problem with its weight sharded over a mesh axis.  It is planned
+once per strategy of :data:`MESH_STRATEGIES` on that strategy's per-shard
+local descriptor, and the communication it issues is charged through
+``MachineModel.collective_seconds``; the cheaper total wins and is
+recorded in the plan's ``comm``.
 """
 from __future__ import annotations
 
@@ -82,14 +89,27 @@ class BlockingPlan:
     fused: bool = False
     # "model" (a planner's) or "autotuned" (a timed winner).
     plan_source: str = "model"
+    # Mesh strategy, set only when desc.mesh is: "gathered" (all-gather the
+    # sharded weight, compute the whole problem on each shard) or
+    # "distributed" (keep the weight shards, move activations / outputs).
+    # The regions and bk then describe the per-shard local problem
+    # (``mesh_local_desc``), not the global descriptor.
+    comm: Optional[str] = None
 
     def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE) -> float:
-        return _predict_seconds(self.regions, self.desc, self.bk, machine,
-                                fused=self.fused)
+        local, comm_s = self.desc, 0.0
+        if self.desc.mesh is not None and self.comm is not None:
+            local = mesh_local_desc(self.desc, self.comm)
+            comm_s = mesh_comm_seconds(self.desc, machine, self.comm)
+        return _predict_seconds(self.regions, local, self.bk, machine,
+                                fused=self.fused) + comm_s
 
     def tile_schedule(self) -> TileSchedule:
-        """Flatten the region cover into the fused kernel's tile table."""
+        """Flatten the region cover into the fused kernel's tile table
+        (for a mesh plan, the per-shard local problem's)."""
         d = self.desc
+        if d.mesh is not None and self.comm is not None:
+            d = mesh_local_desc(d, self.comm)
         return flatten_regions(d.m, d.n, d.k, self.bk, self.regions)
 
     def validate(self):
@@ -162,6 +182,74 @@ def _pick_bk(desc: GemmDescriptor, bm: int, bn: int,
     return min(bk, round_up(desc.k, lane), 2048)
 
 
+# ---------------------------------------------------------------------------
+# Mesh communication model
+# ---------------------------------------------------------------------------
+
+MESH_STRATEGIES = ("gathered", "distributed")
+
+
+def mesh_local_desc(desc, comm: str):
+    """The per-shard local problem one strategy executes.
+
+    grouped_gemm, activations token-sharded over the axis:
+      * gathered: all-gather the expert weights, run the full expert set
+        over the local token shard (t/s tokens, all E experts);
+      * distributed: keep the weight shards, all_to_all the tokens to their
+        expert's owner (t/s tokens, E/s local experts: capacity-uniform
+        routing moves exactly the local rows).
+    gemm, B column-sharded over the axis:
+      * gathered: all-gather B, compute the whole (m, n) locally;
+      * distributed: keep the B shard, compute (m, n/s), all-gather the
+        output columns.
+    """
+    if desc.mesh is None:
+        return desc
+    if comm not in MESH_STRATEGIES:
+        raise ValueError(f"unknown mesh strategy {comm!r}")
+    s = desc.mesh.size
+    if isinstance(desc, GroupedGemmDescriptor):
+        if comm == "gathered":
+            return dataclasses.replace(desc, t=desc.t // s, mesh=None)
+        return dataclasses.replace(desc, t=desc.t // s,
+                                   num_experts=desc.num_experts // s,
+                                   mesh=None)
+    if comm == "gathered":
+        return dataclasses.replace(desc, mesh=None)
+    return dataclasses.replace(desc, n=desc.n // s, mesh=None)
+
+
+def mesh_comm_events(desc, comm: str) -> Tuple[Tuple[str, int], ...]:
+    """``((collective, per-device payload bytes), ...)`` one strategy
+    issues around the local kernel: the bytes each device sends or
+    receives, the ring's (s-1)/s factor folded in (the accounting of the
+    collective probes in ``core.microbench``)."""
+    if desc.mesh is None or desc.mesh.size == 1:
+        return ()
+    s = desc.mesh.size
+    frac = (s - 1) / s
+    if isinstance(desc, GroupedGemmDescriptor):
+        isz = itemsize(desc.dtype)
+        if comm == "gathered":
+            return (("all_gather", int(frac * desc.num_experts * desc.k
+                                       * desc.n * desc.w_wire_itemsize)),)
+        t_loc = desc.t // s
+        return (("all_to_all", int(frac * t_loc * desc.k * isz)),
+                ("all_to_all", int(frac * t_loc * desc.n * isz)))
+    out_sz = itemsize(desc.out_dtype)
+    if comm == "gathered":
+        return (("all_gather", int(frac * desc.k * desc.n
+                                   * desc.b_wire_itemsize)),)
+    return (("all_gather", int(frac * desc.m * desc.n * out_sz)),)
+
+
+def mesh_comm_seconds(desc, machine: MachineModel, comm: str) -> float:
+    """Modelled communication time of one strategy under ``machine``
+    (measured rates when network-calibrated, the link figures otherwise)."""
+    return sum(machine.collective_seconds(nbytes, collective=c)
+               for c, nbytes in mesh_comm_events(desc, comm))
+
+
 def fused_legal(desc: GemmDescriptor,
                 machine: MachineModel = DEFAULT_MACHINE) -> bool:
     """Can this GEMM run as one fused launch?  On a machine whose fused
@@ -187,8 +275,20 @@ def plan_gemm(desc: GemmDescriptor,
     """Produce the blocking plan for one GEMM descriptor.
 
     ``heterogeneous=False`` is the paper's baseline (one blocking tiles
-    the whole matrix); ``force_block`` pins the primary blocking.
+    the whole matrix); ``force_block`` pins the primary blocking.  A mesh
+    descriptor is planned once per strategy on its local problem, and the
+    cheaper compute plus communication wins (``plan.comm``).
     """
+    if desc.mesh is not None:
+        best = None
+        for comm in MESH_STRATEGIES:
+            p = plan_gemm(mesh_local_desc(desc, comm), machine, budget,
+                          heterogeneous, force_block)
+            p = dataclasses.replace(p, desc=desc, comm=comm)
+            if best is None or (p.predicted_seconds(machine)
+                                < best.predicted_seconds(machine)):
+                best = p
+        return best
     m, n = desc.m, desc.n
     shapes = palette(budget, machine, desc.in_dtype)
     fused = fused_legal(desc, machine)
@@ -601,26 +701,41 @@ class GroupedGemmPlan:
     bn: int
     fused: bool = False
     plan_source: str = "model"  # see BlockingPlan.plan_source
+    comm: Optional[str] = None  # mesh strategy, see BlockingPlan.comm
+
+    @property
+    def local_desc(self) -> GroupedGemmDescriptor:
+        """The per-shard problem this plan's knobs describe: the
+        descriptor itself off-mesh, ``mesh_local_desc`` under a mesh
+        strategy."""
+        if self.desc.mesh is not None and self.comm is not None:
+            return mesh_local_desc(self.desc, self.comm)
+        return self.desc
 
     @property
     def t_padded(self) -> int:
         """Static row bound of the pad/scatter lowering: T rounded up plus
         room for every group's padding."""
-        d = self.desc
+        d = self.local_desc
         return round_up(d.t, self.bm) + d.num_experts * self.bm
 
     def tile_schedule(self) -> GroupedTileSchedule:
         """The static geometry of the fused lowering; the tables are
-        runtime data built from ``group_sizes``."""
-        d = self.desc
+        runtime data built from ``group_sizes``.  For a mesh plan it is the
+        per-shard schedule: the single launch holds per shard."""
+        d = self.local_desc
         return GroupedTileSchedule(
             t=d.t, k=d.k, n=d.n, num_experts=d.num_experts,
             bm=min(self.bm, d.t), bk=min(self.bk, d.k), bn=min(self.bn, d.n))
 
     def predicted_seconds(self, machine: MachineModel = DEFAULT_MACHINE
                           ) -> float:
-        return _predict_grouped_seconds(self.desc, self.bm, self.bk, self.bn,
-                                        machine, fused=self.fused)
+        comm_s = 0.0
+        if self.desc.mesh is not None and self.comm is not None:
+            comm_s = mesh_comm_seconds(self.desc, machine, self.comm)
+        return _predict_grouped_seconds(self.local_desc, self.bm, self.bk,
+                                        self.bn, machine,
+                                        fused=self.fused) + comm_s
 
 
 def grouped_fused_legal(desc: GroupedGemmDescriptor,
@@ -706,7 +821,16 @@ def plan_grouped(desc: GroupedGemmDescriptor,
                  machine: MachineModel = DEFAULT_MACHINE) -> GroupedGemmPlan:
     """Pick (bm, bk, bn) by the cost model (bm trades per-group padding
     against grid size); ``fused`` whenever :func:`grouped_fused_legal`
-    allows."""
+    allows.  A mesh descriptor is planned per strategy, gathered (the
+    expert weights all-gathered, every expert over the local tokens) or
+    distributed (tokens moved by all_to_all to the local expert shard);
+    the cheaper compute plus communication wins (``plan.comm``)."""
+    if desc.mesh is not None:
+        cands = [dataclasses.replace(
+                     plan_grouped(mesh_local_desc(desc, comm), machine),
+                     desc=desc, comm=comm)
+                 for comm in MESH_STRATEGIES]
+        return min(cands, key=lambda p: p.predicted_seconds(machine))
     fused = grouped_fused_legal(desc, machine)
     best = min(_grouped_legal(desc, machine),
                key=lambda s: _predict_grouped_seconds(desc, *s,
@@ -829,8 +953,9 @@ def candidate_plans(desc, machine: MachineModel = DEFAULT_MACHINE,
     lowerings of one tiling are separate candidates, so a search can pick
     a lowering the planner never selects.  Under ``TPU_V5E`` the list is
     the reference's; under a machine whose kernels stream it holds only
-    plans its executors run on a kernel (:func:`_executable`).  The
-    reference's mesh branch is not ported."""
+    plans its executors run on a kernel (:func:`_executable`).  A mesh
+    descriptor's search space is its two strategies, each with its locally
+    planned knobs, so the autotuner times gathered against distributed."""
     fam = desc.family
     cands: List = []
     seen = set()
@@ -840,7 +965,14 @@ def candidate_plans(desc, machine: MachineModel = DEFAULT_MACHINE,
             seen.add(knob_key)
             cands.append(plan)
 
-    if fam == "gemm":
+    if fam in ("gemm", "grouped_gemm") and desc.mesh is not None:
+        planner = plan_gemm if fam == "gemm" else plan_grouped
+        for comm in MESH_STRATEGIES:
+            p = dataclasses.replace(planner(mesh_local_desc(desc, comm),
+                                            machine),
+                                    desc=desc, comm=comm)
+            add(p, (comm,))
+    elif fam == "gemm":
         fused_ok = fused_legal(desc, machine)
         for shape in palette(machine.acc_budget_elems, machine,
                              desc.in_dtype):

@@ -2,10 +2,10 @@
 and kernel caches and feeds the planners.
 
 Field for field these are the reference package's descriptors, so
-``cache_key()`` agrees between the two.  The quant axis (a
-:class:`QuantSpec` on the GEMM and grouped descriptors) is ported; the
-``mesh`` fields are kept for the key's agreement but accept only
-``None``: the mesh axis is not ported yet.
+``cache_key()`` agrees between the two.  The GEMM and grouped
+descriptors carry the quant axis (a :class:`QuantSpec`) and the mesh axis
+(a :class:`MeshSpec`: the weight operand sharded over one named mesh
+axis, the descriptor describing the global problem).
 
 Layouts: ``"nn"`` is ``C[M,N] = A[M,K] @ B[K,N]``; ``"nt"`` is
 ``A[M,K] @ B[N,K]^T`` (B stores N major, K minor -- the tied read-out).
@@ -96,11 +96,26 @@ def check_bias(epilogue, bias) -> None:
             f"epilogue {epilogue!r} requires a bias operand, got bias=None")
 
 
-def _reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"descriptor field mesh={mesh!r}: the mesh axis is not ported "
-            f"yet")
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Mesh placement carried by the GEMM-family descriptors.
+
+    ``axis`` names the mesh axis the weight operand is sharded over (the
+    expert dim of a grouped GEMM, the output-column dim of a dense GEMM)
+    and ``size`` is that axis's extent.  A descriptor with ``mesh=None``
+    is the single-device problem; with a ``MeshSpec`` it describes the
+    *global* problem, and the planner charges communication (all-gather
+    vs. all_to_all) to pick a *gathered* or a *distributed* execution.
+    """
+
+    axis: str = "model"
+    size: int = 1
+
+    def __post_init__(self):
+        if not self.axis:
+            raise ValueError("mesh axis name must be non-empty")
+        if self.size < 1:
+            raise ValueError(f"mesh size must be >= 1, got {self.size}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,10 +159,16 @@ class GemmDescriptor(KernelDescriptor):
     edge: str = "mask"
     batch: int = 0
     quant: Optional[QuantSpec] = None
-    mesh: None = None
+    # B's output-column (n) dim sharded over mesh.axis.
+    mesh: Optional[MeshSpec] = None
 
     def __post_init__(self):
-        _reject_mesh(self.mesh)
+        if self.mesh is not None:
+            if not isinstance(self.mesh, MeshSpec):
+                raise ValueError(f"mesh must be a MeshSpec, got {self.mesh!r}")
+            if self.n % self.mesh.size:
+                raise ValueError(f"mesh size {self.mesh.size} must divide "
+                                 f"n={self.n}")
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {self.layout}")
         if self.epilogue not in EPILOGUES:
@@ -520,10 +541,11 @@ class GroupedGemmDescriptor(KernelDescriptor):
     dtype: str = "float32"
     epilogue: Optional[str] = None
     quant: Optional[QuantSpec] = None
-    mesh: None = None
+    # The expert dim sharded over mesh.axis; ``t`` and ``num_experts``
+    # describe the GLOBAL problem, the planner derives the per-shard one.
+    mesh: Optional[MeshSpec] = None
 
     def __post_init__(self):
-        _reject_mesh(self.mesh)
         for v in (self.t, self.k, self.n, self.num_experts):
             if v <= 0:
                 raise ValueError(
@@ -532,9 +554,16 @@ class GroupedGemmDescriptor(KernelDescriptor):
             raise ValueError(f"epilogue must be one of {EPILOGUES}")
         if self.quant is not None and not isinstance(self.quant, QuantSpec):
             raise ValueError(f"quant must be a QuantSpec, got {self.quant!r}")
+        if self.mesh is not None:
+            if not isinstance(self.mesh, MeshSpec):
+                raise ValueError(f"mesh must be a MeshSpec, got {self.mesh!r}")
+            if self.num_experts % self.mesh.size or self.t % self.mesh.size:
+                raise ValueError(
+                    f"mesh size {self.mesh.size} must divide both "
+                    f"num_experts={self.num_experts} and t={self.t}")
 
     @classmethod
-    def from_operands(cls, x, w, epilogue=None, quant=None):
+    def from_operands(cls, x, w, epilogue=None, quant=None, mesh=None):
         t, k = x.shape
         e, kw, n = w.shape
         if kw != k:
@@ -542,7 +571,7 @@ class GroupedGemmDescriptor(KernelDescriptor):
                              f"w{tuple(w.shape)}")
         return cls(t=t, k=k, n=n, num_experts=e,
                    dtype=canonical_dtype(x.dtype), epilogue=epilogue,
-                   quant=resolve_quant(quant))
+                   quant=resolve_quant(quant), mesh=mesh)
 
     @property
     def x_wire_itemsize(self) -> int:
@@ -598,9 +627,12 @@ class GroupedGemmBwdDescriptor(GroupedGemmDescriptor):
                      ) -> "GroupedGemmBwdDescriptor":
         """Backward descriptor sharing a forward descriptor's geometry.
         The quant spec is dropped: quantization is an inference axis, and
-        the backward runs in the wide dtype."""
+        the backward runs in the wide dtype.  The mesh spec is dropped
+        too: the distributed path runs the *local* grouped GEMM on each
+        rank, so the backward geometry is the meshless per-shard problem."""
         fields = dataclasses.asdict(desc)
         fields["quant"] = None
+        fields["mesh"] = None
         return cls(**fields)
 
     @property
@@ -686,10 +718,10 @@ def descriptor_from_cache_key(key) -> KernelDescriptor:
     """Rebuild the descriptor a ``cache_key()`` tuple names.
 
     ``cache_key()`` is ``(family,) + dataclasses.astuple(desc)``, the
-    nested :class:`QuantSpec` recursed into a plain tuple, so the key is
-    invertible.  Raises ``ValueError`` on an unknown family, a field-count
-    mismatch (a key written by another descriptor schema) or a mesh spec
-    (the mesh axis is not ported)."""
+    nested :class:`QuantSpec` / :class:`MeshSpec` recursed into plain
+    tuples, so the key is invertible.  Raises ``ValueError`` on an
+    unknown family or a field-count mismatch (a key written by another
+    descriptor schema)."""
     key = tuple(key)
     if not key:
         raise ValueError("empty cache key")
@@ -710,8 +742,7 @@ def descriptor_from_cache_key(key) -> KernelDescriptor:
             if f.name == "quant":
                 v = QuantSpec(*v)
             elif f.name == "mesh":
-                raise ValueError(f"{family} cache key names a mesh {v!r}; "
-                                 f"the mesh axis is not ported")
+                v = MeshSpec(*v)
             elif isinstance(v, list):
                 v = tuple(v)
         kwargs[f.name] = v

@@ -78,6 +78,15 @@ _plan_calls: Dict[str, int] = {}
 # plan, one per region for a multi-launch GEMM plan.  The port runs
 # eagerly, so these are true per-call counts.
 _launches: Dict[str, int] = {}
+# Collectives per family that the mesh executors report: the payload bytes
+# each device moves and the collectives launched around the per-shard
+# kernel.  They count what the reference counts: the distributed
+# strategy's two all_to_alls.  The port's explicit all_gathers (the weights
+# in the gathered strategy, the output in both) stand where XLA gathers
+# implicitly in the reference, which counts nothing for them; so do these
+# counters, and a non-zero count means a distributed execution ran.
+_comm_bytes: Dict[str, int] = {}
+_collective_launches: Dict[str, int] = {}
 # Which tier served each plan-cache miss, per family.
 PLAN_SOURCES = ("tuned_cache", "autotuned", "model")
 _plan_sources: Dict[str, Dict[str, int]] = {}
@@ -108,6 +117,14 @@ def count_launches(family: str, n: int = 1):
     """Family executors call this once per execute() with the number of
     kernel launches they emit (``stats()[family]["launches"]``)."""
     _bump(_launches, family, n)
+
+
+def count_comm(family: str, nbytes: int, launches: int = 1):
+    """Mesh executors call this with the per-device payload bytes and the
+    number of counted collectives one execute() emits
+    (``stats()[family]["comm_bytes"]`` / ``["collective_launches"]``)."""
+    _bump(_comm_bytes, family, int(nbytes))
+    _bump(_collective_launches, family, launches)
 
 
 def register_family(name: str, planner, execute) -> Family:
@@ -249,9 +266,11 @@ def warmup(descriptors: Optional[Iterable[KernelDescriptor]] = None, *,
     operands, so nothing is timed and a preloaded tuning cache serves the
     tuned tier; with ``build`` the family then runs once on zero operands
     on the configured device (``warmstart.synth_operands``), so its
-    kernel state is cached and its kernel built.  A build that fails warns
-    and counts as ``warmup_failures``; its plan stays warm.  Returns
-    ``{family: descriptors warmed}``, also counted as ``warmups``."""
+    kernel state is cached and its kernel built (a mesh descriptor, for
+    which there are no such operands, warms its plan only).  A build that
+    fails warns and counts as ``warmup_failures``; its plan stays warm.
+    Returns ``{family: descriptors warmed}``, also counted as
+    ``warmups``."""
     from . import warmstart as _warmstart
     cfg = get_config()
     if descriptors is None:
@@ -267,8 +286,10 @@ def warmup(descriptors: Optional[Iterable[KernelDescriptor]] = None, *,
         plan = _resolve_plan(desc, cfg)
         if build:
             try:
-                operands, kw = _warmstart.synth_operands(desc, cfg.device)
-                fam.execute(desc, plan, *operands, **kw)
+                synth = _warmstart.synth_operands(desc, cfg.device)
+                if synth is not None:
+                    operands, kw = synth
+                    fam.execute(desc, plan, *operands, **kw)
             except Exception as e:
                 warnings.warn(f"warmup build failed for {desc.family} "
                               f"{desc.cache_key()!r}: {e}")
@@ -298,7 +319,8 @@ def build_cached(key: tuple, builder: Callable[[], Any]) -> Any:
 _STAT_KEYS = ("plan_hits", "plan_misses", "plan_evictions", "planner_calls",
               *(f"plan_source_{s}" for s in PLAN_SOURCES),
               "autotune_timings", "autotune_failures", "launches",
-              "warmups", "warmup_failures",
+              "comm_bytes", "collective_launches", "warmups",
+              "warmup_failures",
               "kernel_hits", "kernel_misses", "kernel_evictions")
 
 
@@ -325,6 +347,8 @@ def stats() -> Dict[str, Dict[str, int]]:
     with _counters_lock:
         for name, counter in (("planner_calls", _plan_calls),
                               ("launches", _launches),
+                              ("comm_bytes", _comm_bytes),
+                              ("collective_launches", _collective_launches),
                               ("autotune_timings", _autotune_timings),
                               ("autotune_failures", _autotune_failures),
                               ("warmups", _warmups),
@@ -359,7 +383,8 @@ def reset_stats(*, entries: bool = True):
         PLAN_CACHE.reset_stats()
         GLOBAL_KERNEL_CACHE.reset_stats()
     with _counters_lock:
-        for counter in (_plan_calls, _launches, _plan_sources,
+        for counter in (_plan_calls, _launches, _comm_bytes,
+                        _collective_launches, _plan_sources,
                         _autotune_timings, _autotune_failures, _warmups,
                         _warmup_failures):
             counter.clear()

@@ -40,9 +40,15 @@ folds ``repro_torch.core.microbench`` probe results (matmul rate per dtype,
 copy bandwidth, launch latency) into a copy of a base model, and
 :func:`load_refit_model` overlays the cost coefficients that
 ``repro_torch.core.refit`` fitted to a tuning cache's timings, stamping a
-``+refit`` provenance on ``fingerprint`` and ``tuning_key``.  The
-reference's network fields (``ici_bandwidth_gbps``, ``+net``) are not
-ported: the port has no multi-device path yet.
+``+refit`` provenance on ``fingerprint`` and ``tuning_key``.
+
+The interconnect is modelled as in the reference: pinned link figures
+(``ici_bw_per_link``, ``ici_links``) until the collective probes of
+``core.microbench`` calibrate ``ici_bandwidth_gbps``,
+``collective_launch_s`` and ``collective_efficiency`` (or a refit's
+network stage does); a network-calibrated model carries ``+net`` in its
+``fingerprint`` and ``tuning_key``.  The field names are the reference's,
+so refit files and tuning keys read in both packages.
 """
 from __future__ import annotations
 
@@ -67,16 +73,13 @@ DEFAULT_STITCH_DISCOUNT = 0.25
 REFIT_MODEL_VERSION = 1
 
 # Coefficients a refit model may carry; a file naming anything else was
-# written by a newer tool and is refused.  The reference's list, its
-# network coefficients included, so that the two packages read each
-# other's files; the port's model has no network fields to overlay them on.
+# written by a newer tool and is refused (the reference's list, so that the
+# two packages read each other's files).
 REFIT_COEFFICIENTS = (
     "step_overhead_s", "launch_overhead_s", "extra_launch_factor",
     "fused_tile_decode_s", "stitch_discount",
     "ici_bandwidth_gbps", "collective_launch_s", "collective_efficiency",
 )
-_NETWORK_COEFFICIENTS = ("ici_bandwidth_gbps", "collective_launch_s",
-                         "collective_efficiency")
 
 # The e4m3 wire dtype of the quant axis (``jnp.float8_e4m3fn`` in the
 # reference): 4 exponent bits, 3 mantissa bits, no infinities, +-448.
@@ -127,6 +130,9 @@ class MachineModel:
     vmem_bytes: int
     sublanes: Dict[str, int]
     lanes: int
+    # --- interconnect: pinned link figures ------------------------------
+    ici_bw_per_link: float = 1e9  # bytes/s per link
+    ici_links: int = 1  # links per device
     step_overhead_s: float = DEFAULT_STEP_OVERHEAD_S
     launch_overhead_s: float = DEFAULT_LAUNCH_OVERHEAD_S
     fused_tile_decode_s: float = DEFAULT_FUSED_TILE_DECODE_S
@@ -175,28 +181,46 @@ class MachineModel:
     # Square tile edges the transpose kernel instantiates; None: legality
     # is the VMEM fit of a staged (bt, bt) tile.
     transpose_tiles: Optional[Tuple[int, ...]] = None
+    # --- calibrated network -------------------------------------------
+    # None: not network-calibrated (the collective probes did not run: one
+    # device, or a pinned model); ``collective_seconds`` then uses the
+    # pinned link figures.
+    ici_bandwidth_gbps: Optional[float] = None  # measured all_gather GB/s
+    collective_launch_s: Optional[float] = None  # per-collective launch
+    # per-collective bandwidth relative to the all_gather probe, e.g.
+    # {"all_gather": 1.0, "all_to_all": 0.7, "psum": 0.5}
+    collective_efficiency: Optional[Dict[str, float]] = None
     # Fingerprint of the offline refit model whose cost coefficients
     # replaced the pinned or probed ones (:func:`load_refit_model`); None:
     # not refitted.
     refit_fingerprint: Optional[str] = None
 
     @property
+    def network_calibrated(self) -> bool:
+        """True when the collective probes parameterized this model."""
+        return self.ici_bandwidth_gbps is not None
+
+    @property
     def _provenance(self) -> str:
-        return "+refit" if self.refit_fingerprint else ""
+        """``+net`` for a network-calibrated model, ``+refit`` for refitted
+        coefficients; they compose (``+net+refit``)."""
+        return (("+net" if self.network_calibrated else "")
+                + ("+refit" if self.refit_fingerprint else ""))
 
     @functools.cached_property
     def fingerprint(self) -> str:
-        """Short digest of every model constant (plan-cache keys), with a
-        ``+refit`` suffix for refitted coefficients."""
+        """Short digest of every model constant (plan-cache keys), with the
+        ``+net`` / ``+refit`` provenance suffix."""
         blob = repr(dataclasses.astuple(self)).encode()
         return hashlib.md5(blob).hexdigest()[:8] + self._provenance
 
     @property
     def tuning_key(self) -> str:
-        """The machine's name in tuning-cache entry keys: ``name``, plus
-        ``+refit`` for a refitted model, so that winners ranked under
-        fitted and under probed coefficients never serve each other.
-        Probe drift on one host keeps the key (unlike ``fingerprint``)."""
+        """The machine's name in tuning-cache entry keys: ``name`` plus the
+        ``+net`` / ``+refit`` provenance, so that winners ranked under
+        calibrated and uncalibrated, fitted and probed costs never serve
+        each other.  Probe drift on one host keeps the key (unlike
+        ``fingerprint``)."""
         return self.name + self._provenance
 
     def peak(self, dtype) -> float:
@@ -205,6 +229,24 @@ class MachineModel:
     def reg_tile(self, dtype) -> Tuple[int, int]:
         """(row, column) alignment granule of an accumulator block."""
         return (self.sublanes[canonical_dtype(dtype)], self.lanes)
+
+    def collective_seconds(self, nbytes: float, chips: int = 1,
+                           collective: str = "all_gather") -> float:
+        """Seconds to move ``nbytes`` through one ``collective``.
+
+        Network-calibrated: the measured all_gather rate scaled by the
+        collective's efficiency ratio, plus the measured launch cost.
+        Otherwise: one link's pinned rate, with ``launch_overhead_s`` as
+        the launch cost, so that the mesh strategies still rank."""
+        if self.network_calibrated:
+            eff = 1.0
+            if self.collective_efficiency:
+                eff = self.collective_efficiency.get(collective, 1.0)
+            bw = self.ici_bandwidth_gbps * 1e9 * max(eff, 1e-6)
+            launch = self.collective_launch_s or 0.0
+            return launch + nbytes / (bw * chips)
+        return (self.launch_overhead_s
+                + nbytes / (self.ici_bw_per_link * chips))
 
     @classmethod
     def from_probes(cls, probes: Union[Mapping[str, object], Iterable],
@@ -218,10 +260,15 @@ class MachineModel:
           * ``copy_bw``          [GB/s]    -> ``hbm_bw``
           * ``dispatch_latency`` [us]      -> ``step_overhead_s`` and
             ``launch_overhead_s``
+          * ``all_gather_bw``    [GB/s]    -> ``ici_bandwidth_gbps``
+          * ``all_to_all_bw`` / ``psum_bw`` [GB/s]
+                                           -> ``collective_efficiency``
+          * ``collective_latency`` [us]    -> ``collective_launch_s``
 
         Other probes (the ``target_*`` echoes) are ignored, and a missing
         probe leaves the base constant, so a partial run still gives a
-        model.  Only the single-device probes are ported."""
+        model.  The collective probes report 0 with fewer than two ranks,
+        and the network fields then stay ``None`` (uncalibrated)."""
         base = base if base is not None else DEFAULT_MACHINE
         if isinstance(probes, Mapping):
             probes = probes.values()
@@ -229,6 +276,7 @@ class MachineModel:
         hbm_bw = base.hbm_bw
         overhead = base.step_overhead_s
         launch = base.launch_overhead_s
+        net = {}
         for p in probes:
             pname, value = p.name, p.value
             if pname.startswith("matmul_"):
@@ -241,9 +289,24 @@ class MachineModel:
                 # One whole dispatch round trip: the per-step and the
                 # per-launch cost alike.
                 overhead = launch = value * 1e-6
-        return dataclasses.replace(base, name=name, peak_flops=peak,
-                                   hbm_bw=hbm_bw, step_overhead_s=overhead,
-                                   launch_overhead_s=launch)
+            elif pname in ("all_gather_bw", "all_to_all_bw", "psum_bw",
+                           "collective_latency") and value > 0:
+                net[pname] = value
+        kwargs = dict(name=name, peak_flops=peak, hbm_bw=hbm_bw,
+                      step_overhead_s=overhead, launch_overhead_s=launch)
+        if "all_gather_bw" in net:
+            ag = net["all_gather_bw"]
+            eff = {"all_gather": 1.0}
+            if "all_to_all_bw" in net:
+                eff["all_to_all"] = net["all_to_all_bw"] / ag
+            if "psum_bw" in net:
+                eff["psum"] = net["psum_bw"] / ag
+            kwargs["ici_bandwidth_gbps"] = ag
+            kwargs["collective_efficiency"] = eff
+            kwargs["collective_launch_s"] = (
+                net["collective_latency"] * 1e-6
+                if "collective_latency" in net else launch)
+        return dataclasses.replace(base, **kwargs)
 
 
 TPU_V5E = MachineModel(
@@ -255,13 +318,16 @@ TPU_V5E = MachineModel(
     sublanes={"float32": 8, "bfloat16": 16, "float16": 16, "int8": 32,
               "float8_e4m3": 32, "float64": 8},
     lanes=128,
+    ici_bw_per_link=50e9,
+    ici_links=4,
 )
 
 # NVIDIA H100 SXM (NVIDIA's H100 data sheet, SXM5 part, dense rates
 # without sparsity, at the 700 W limit): 989 TFLOP/s bf16/fp16, 1,979
 # TFLOP/s fp8 (e4m3) and 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s
 # fp32 outside them (the port's fp32 GEMMs never use TF32), 80 GB HBM3 at
-# 3.35 TB/s, 227 KB shared memory per block.
+# 3.35 TB/s, 227 KB shared memory per block.  NVLink 4 (the same data
+# sheet): 18 links, 900 GB/s in total, so 50 GB/s a link.
 H100_SXM = MachineModel(
     name="h100_sxm",
     peak_flops={"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
@@ -271,6 +337,8 @@ H100_SXM = MachineModel(
     sublanes={"float32": 16, "bfloat16": 16, "float16": 16, "int8": 16,
               "float8_e4m3": 16, "float64": 16},
     lanes=64,
+    ici_bw_per_link=900e9 / 18,
+    ici_links=18,
     # A kernel launch costs a few microseconds; tiles run in parallel on
     # 132 SMs, so a tile step costs ~1/132 of a serial one.
     step_overhead_s=2.0e-8,
@@ -348,12 +416,10 @@ def _validate_refit(data, base: MachineModel) -> Optional[str]:
 
 def apply_refit(base: MachineModel, coefficients: dict,
                 fingerprint: str) -> MachineModel:
-    """``base`` with fitted cost coefficients and the ``+refit`` stamp.
-    Network coefficients (a mesh fit's) have no field here and are
-    dropped."""
-    kw = {k: v for k, v in coefficients.items()
-          if k not in _NETWORK_COEFFICIENTS}
-    return dataclasses.replace(base, **kw, refit_fingerprint=fingerprint)
+    """``base`` with fitted cost coefficients (the network's included)
+    and the ``+refit`` stamp."""
+    return dataclasses.replace(base, **coefficients,
+                               refit_fingerprint=fingerprint)
 
 
 def load_refit_model(path: str,

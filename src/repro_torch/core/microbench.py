@@ -8,9 +8,11 @@ from_probes`, so the planners rank tilings against the measured card
 instead of pinned constants.  The probes time library calls
 (``torch.matmul``, ``torch._int_mm``, ``torch._scaled_mm``, an elementwise
 add), with CUDA events on the card; they are probes of the device, not
-kernels of the port.  The reference's collective probes (all-gather,
-all-to-all, psum, collective latency) are not ported: the port has no
-multi-device path yet.
+kernels of the port.  The collective probes (all_gather, all_to_all, psum
+and the latency of a tiny collective) run over the default
+``torch.distributed`` process group, every rank calling them together;
+with fewer than two ranks they report 0 "(uncalibrated)", and
+``from_probes`` then leaves the network fields ``None``.
 """
 from __future__ import annotations
 
@@ -122,6 +124,98 @@ def probe_elementwise_latency(device=None) -> ProbeResult:
     return ProbeResult("dispatch_latency", s * 1e6, "us")
 
 
+# --- interconnect probes --------------------------------------------------
+
+_LANES = 128
+
+
+def _world() -> int:
+    """Ranks of the default process group (1 when none is initialised)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size()
+
+
+def _net_device(device) -> torch.device:
+    """The probe tensors' device: the process group's (the rank's card
+    under NCCL, the CPU under gloo) unless the caller names one."""
+    import torch.distributed as dist
+    if device is not None:
+        return _device(device)
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _net_timeit(fn, dev: torch.device, iters: int, warmup: int = 2) -> float:
+    """``_timeit`` with a barrier first, so no rank's clock starts while
+    another is still behind."""
+    import torch.distributed as dist
+    dist.barrier()
+    return _timeit(fn, dev, iters=iters, warmup=warmup)
+
+
+def probe_all_gather(mbytes: int = 4, iters: int = 5,
+                     device=None) -> ProbeResult:
+    """Per-rank ``all_gather`` receive bandwidth over the process group."""
+    s = _world()
+    if s < 2:
+        return ProbeResult("all_gather_bw", 0.0, "GB/s (uncalibrated)")
+    import torch.distributed as dist
+    dev = _net_device(device)
+    rows = max(1, mbytes * 2**20 // (4 * _LANES * s))
+    x = torch.zeros((rows, _LANES), dtype=torch.float32, device=dev)
+    outs = [torch.empty_like(x) for _ in range(s)]
+    t = _net_timeit(lambda: dist.all_gather(outs, x), dev, iters)
+    recv = (s - 1) * rows * _LANES * 4  # bytes each rank receives
+    return ProbeResult("all_gather_bw", recv / t / 1e9, "GB/s")
+
+
+def probe_all_to_all(mbytes: int = 4, iters: int = 5,
+                     device=None) -> ProbeResult:
+    """Per-rank ``all_to_all`` exchange bandwidth over the process group."""
+    s = _world()
+    if s < 2:
+        return ProbeResult("all_to_all_bw", 0.0, "GB/s (uncalibrated)")
+    import torch.distributed as dist
+    dev = _net_device(device)
+    per = max(1, mbytes * 2**20 // (4 * _LANES * s))  # rows to each peer
+    x = torch.zeros((s * per, _LANES), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    t = _net_timeit(lambda: dist.all_to_all_single(out, x), dev, iters)
+    moved = (s - 1) * per * _LANES * 4  # bytes each rank sends
+    return ProbeResult("all_to_all_bw", moved / t / 1e9, "GB/s")
+
+
+def probe_psum(mbytes: int = 4, iters: int = 5, device=None) -> ProbeResult:
+    """Per-rank all-reduce (``psum``) bandwidth over the process group."""
+    s = _world()
+    if s < 2:
+        return ProbeResult("psum_bw", 0.0, "GB/s (uncalibrated)")
+    import torch.distributed as dist
+    dev = _net_device(device)
+    rows = max(1, mbytes * 2**20 // (4 * _LANES * s))
+    x = torch.zeros((rows, _LANES), dtype=torch.float32, device=dev)
+    t = _net_timeit(lambda: dist.all_reduce(x), dev, iters)
+    # A ring all-reduce moves about 2 (s - 1) / s of the payload.
+    moved = 2 * (s - 1) * rows * _LANES * 4 / s
+    return ProbeResult("psum_bw", moved / t / 1e9, "GB/s")
+
+
+def probe_collective_latency(iters: int = 20, device=None) -> ProbeResult:
+    """Launch latency of a tiny all-reduce: the fixed cost a collective
+    adds to its bytes in the mesh cost model, microseconds."""
+    s = _world()
+    if s < 2:
+        return ProbeResult("collective_latency", 0.0, "us (uncalibrated)")
+    import torch.distributed as dist
+    dev = _net_device(device)
+    x = torch.zeros((8 * s,), dtype=torch.float32, device=dev)
+    t = _net_timeit(lambda: dist.all_reduce(x), dev, iters, warmup=5)
+    return ProbeResult("collective_latency", t * 1e6, "us")
+
+
 def characterize(machine: MachineModel = DEFAULT_MACHINE, *,
                  size: int = 512, mbytes: int = 64,
                  device=None) -> Dict[str, ProbeResult]:
@@ -148,6 +242,14 @@ def characterize(machine: MachineModel = DEFAULT_MACHINE, *,
                                        machine.hbm_bw / 1e9, "GB/s")
     r = probe_elementwise_latency(device=dev)
     out[r.name] = r
+    # The collective probes are always present: 0 "(uncalibrated)" below
+    # two ranks rather than absent.
+    net_mb = min(mbytes, 4)
+    for r in (probe_all_gather(mbytes=net_mb), probe_all_to_all(mbytes=net_mb),
+              probe_psum(mbytes=net_mb), probe_collective_latency()):
+        out[r.name] = r
+    out["target_ici_bw"] = ProbeResult(
+        "target_ici_bw", machine.ici_bw_per_link / 1e9, "GB/s")
     return out
 
 

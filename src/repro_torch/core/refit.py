@@ -15,9 +15,10 @@ coefficient-zeroed machine.  The residual (measured seconds minus that
 roofline base) is solved by least squares with Huber reweighting and
 clipped at zero.  The output is the reference's versioned refit-model JSON
 with a provenance fingerprint; :func:`~repro_torch.core.machine.
-load_refit_model` applies it with the ``+refit`` stamp.  The reference's
-network fit (``mesh_comm_events``, ``fit_network``) is not ported: the port
-has no multi-device path.  ``tools/tune_torch.py refit`` is the CLI.
+load_refit_model` applies it with the ``+refit`` stamp.  A second stage,
+:func:`fit_network`, backs the collective coefficients out of the records
+of mesh plans (their ``mesh_comm_events`` bytes against the time left
+after the local kernel).  ``tools/tune_torch.py refit`` is the CLI.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 
 from . import autotune as _autotune
+from .blocking import mesh_comm_events
 from .descriptor import descriptor_from_cache_key
 from .machine import (DEFAULT_MACHINE, MachineModel, REFIT_MODEL_VERSION,
                       apply_refit)
@@ -46,6 +48,8 @@ FIT_FEATURES = ("step_overhead_s", "launch_overhead_s", "extra_launch_s",
 _ZEROED = dict(step_overhead_s=0.0, launch_overhead_s=0.0,
                extra_launch_factor=0.0, fused_tile_decode_s=0.0,
                stitch_discount=0.0)
+
+_COLLECTIVES = ("all_gather", "all_to_all", "psum")
 
 
 def parse_entry(key: str, record: dict) -> Optional[Tuple[str, str, Any]]:
@@ -163,6 +167,62 @@ def fit_records(records: Iterable[Tuple[Any, float]],
     }
 
 
+def _comm_free(machine: MachineModel) -> MachineModel:
+    """A copy of ``machine`` whose collectives cost about nothing, so that
+    a mesh plan's ``predicted_seconds`` is its local kernel's alone."""
+    return dataclasses.replace(machine, ici_bandwidth_gbps=1e30,
+                               collective_launch_s=0.0,
+                               collective_efficiency=None)
+
+
+def fit_network(records: Iterable[Tuple[Any, float]],
+                fitted_machine: MachineModel) -> Optional[Dict[str, Any]]:
+    """The collective coefficients backed out of the mesh records.
+
+    Solves ``measured - local prediction = n_events * collective_launch_s
+    + sum_c bytes_c * seconds_per_byte_c`` over the records whose plan
+    carries a mesh strategy, then turns seconds per byte into
+    ``ici_bandwidth_gbps`` (the all_gather column) and
+    ``collective_efficiency`` ratios.  None when the mesh records cannot
+    identify the system (too few, or no all_gather traffic): the network
+    model then stays as probed."""
+    rows, y = [], []
+    for plan, us in records:
+        comm = getattr(plan, "comm", None)
+        if comm is None or getattr(plan.desc, "mesh", None) is None:
+            continue
+        events = mesh_comm_events(plan.desc, comm)
+        if not events:
+            continue
+        feat = [float(len(events))] + [0.0] * len(_COLLECTIVES)
+        for c, nbytes in events:
+            if c in _COLLECTIVES:
+                feat[1 + _COLLECTIVES.index(c)] += float(nbytes)
+        local = plan.predicted_seconds(_comm_free(fitted_machine))
+        rows.append(feat)
+        y.append(us * 1e-6 - local)
+    if not rows:
+        return None
+    X = np.asarray(rows, float)
+    yv = np.asarray(y, float)
+    active = np.flatnonzero(np.abs(X).max(axis=0) > 0)
+    if len(rows) < active.size or 1 not in active:  # the all_gather column
+        return None
+    beta = np.zeros(X.shape[1])
+    beta[active] = np.maximum(_irls_lstsq(X[:, active], yv, 2), 0.0)
+    spb_ag = beta[1]
+    if spb_ag <= 0:
+        return None
+    eff = {"all_gather": 1.0}
+    for i, c in enumerate(_COLLECTIVES[1:], start=2):
+        if beta[i] > 0:
+            eff[c] = float(np.clip(spb_ag / beta[i], 1e-3, 1.0))
+    return {"collective_launch_s": float(beta[0]),
+            "ici_bandwidth_gbps": float(1.0 / (spb_ag * 1e9)),
+            "collective_efficiency": eff,
+            "entries": len(rows)}
+
+
 def fit_cache_entries(entries: Dict[str, dict],
                       base: MachineModel = DEFAULT_MACHINE, *,
                       machine: Optional[str] = None,
@@ -189,6 +249,14 @@ def fit_cache_entries(entries: Dict[str, dict],
         records.append((plan, us))
         lines.append(f"{key}:{us}")
     fit = fit_records(records, base)
+    net = fit_network(records, dataclasses.replace(base,
+                                                   **fit["coefficients"]))
+    if net is not None:
+        for name in ("collective_launch_s", "ici_bandwidth_gbps",
+                     "collective_efficiency"):
+            fit["coefficients"][name] = net[name]
+        fit["fitted"] += ["collective_launch_s", "ici_bandwidth_gbps",
+                          "collective_efficiency"]
     blob = (base.fingerprint + "\n" + "\n".join(lines)).encode()
     return {
         "version": REFIT_MODEL_VERSION,

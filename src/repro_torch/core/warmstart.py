@@ -23,7 +23,7 @@ import json
 import os
 import tempfile
 import warnings
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import torch
 
@@ -164,11 +164,16 @@ def _ssd_operands(desc: SsdChunkDescriptor, z) -> Tuple[tuple, dict]:
     return ops + (z((g, p, n), torch.float32),), {}
 
 
-def synth_operands(desc: KernelDescriptor, device) -> Tuple[tuple, dict]:
+def synth_operands(desc: KernelDescriptor, device
+                   ) -> Optional[Tuple[tuple, dict]]:
     """Zero operands and keywords that drive one ``execute()`` of ``desc``
     on ``device``: the reference's shapes and dtypes (quantized wire
     operands with unit scales, zero biases and accumulators, a
-    near-even split of the grouped rows, all-inactive decode slots)."""
+    near-even split of the grouped rows, all-inactive decode slots).
+    None for a mesh descriptor, whose execution needs the capacity-slot
+    layout and a live process group: warmup then warms its plan only."""
+    if getattr(desc, "mesh", None) is not None:
+        return None
     device = torch.device(device)
 
     def z(shape, dtype):

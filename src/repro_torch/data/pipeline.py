@@ -5,7 +5,8 @@ after a failure is exact (skipping to a step costs nothing and there is
 no iterator state to checkpoint beyond the step counter).  Tokens follow
 a fixed random bigram (Markov) table, so cross-entropy has structure to
 learn and training loss falls below the uniform level.  The stream is
-the reference's, number for number.
+the reference's, number for number.  Under a mesh, each rank builds only
+its rows of the global batch (:func:`make_global_batch`).
 """
 from __future__ import annotations
 
@@ -50,3 +51,23 @@ class SyntheticLMDataset:
     def unigram_floor_nats(self) -> float:
         """Entropy of the stationary next-token distribution ~ log(branching)."""
         return float(np.log(self.branching))
+
+
+def make_global_batch(ds: SyntheticLMDataset, step: int, mesh,
+                      batch_axes=("pod", "data")) -> Dict[str, np.ndarray]:
+    """This rank's rows of the global batch at ``step``: the batch is split
+    over the mesh's ``batch_axes`` (absent ones dropped, the first the
+    major one), and the rows of this rank's coordinate on them are built,
+    none other.  With none of the axes on the mesh, the whole batch."""
+    from repro_torch.runtime.shardlib import axis_sizes
+    sizes = axis_sizes(mesh)
+    shards, index = 1, 0
+    for a in (a for a in batch_axes if a in sizes):
+        shards *= sizes[a]
+        index = index * sizes[a] + mesh.get_local_rank(a)
+    if ds.global_batch % shards:
+        raise ValueError(f"{shards} batch shards must divide the global "
+                         f"batch of {ds.global_batch}")
+    rows = ds.global_batch // shards
+    toks = ds._sample_rows(step, index * rows, rows)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -27,6 +27,12 @@ engine dispatch; its backward peels the activation off by recomputing the
 pre-activation through the engine, then runs the backward kernel, or, where
 :func:`~repro_torch.core.blocking.grouped_bwd_fused_legal` fails (or under
 ``fused="off"``), differentiates :func:`_ref_grouped` in torch.
+
+A descriptor with a mesh runs :func:`_execute_mesh`: the plan's strategy
+(gathered or distributed) over the mesh axis's process group, each rank
+running the same local grouped call, so the single launch holds per rank.
+:func:`expert_parallel_grouped_gemm` is its differentiable entry point
+(the reference's, for the MoE layer under a mesh).
 """
 from __future__ import annotations
 
@@ -36,16 +42,17 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.blocking import (GroupedGemmPlan,
-                                       grouped_bwd_fused_legal, plan_grouped,
+                                       grouped_bwd_fused_legal,
+                                       mesh_comm_events, plan_grouped,
                                        plan_grouped_bwd)
 from repro_torch.core.config import get_config, use
 from repro_torch.core.descriptor import (GroupedGemmBwdDescriptor,
-                                         GroupedGemmDescriptor, check_bias,
-                                         resolve_quant)
+                                         GroupedGemmDescriptor, MeshSpec,
+                                         check_bias, resolve_quant)
 from repro_torch.core.schedule import plan_launches
 from repro_torch.kernels import disable_tf32
 from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
-from repro_torch.core.machine import torch_dtype
+from repro_torch.core.machine import canonical_dtype, torch_dtype
 from repro_torch.kernels.grouped_gemm.kernel import (grouped_bwd,
                                                      grouped_fused,
                                                      grouped_padded,
@@ -114,11 +121,104 @@ def _contiguous(*ts):
     return tuple(None if t is None else t.contiguous() for t in ts)
 
 
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along dim 0, in rank order."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of dim 0 goes to rank ``j``; block ``i`` of the result
+    came from rank ``i``."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _execute_mesh(desc: GroupedGemmDescriptor, plan: GroupedGemmPlan, x4, w,
+                  group_sizes, bias):
+    """Mesh execution of the plan's strategy over the descriptor's axis.
+
+    Every rank holds the whole capacity-slot ``x4`` ``(n, e, cap, k)`` and
+    the whole bank ``w`` ``(e, k, f)`` (the port keeps activations and
+    masters replicated); its shard is its slice of ``n`` along the axis,
+    and its expert shard the slice of ``e``.  Both strategies run the
+    SAME local grouped call (``plan.local_desc`` with the plan's knobs):
+
+      * **gathered**: the expert shards are all-gathered into the whole
+        bank, and every expert runs over the rank's token slice;
+      * **distributed**: the rank keeps its ``e / s`` experts, and two
+        ``all_to_all``s move the capacity slots to their expert's owner
+        and back (the reference's reshuffles).
+
+    The result is all-gathered back to a replicated ``(n, e, cap, f)``.
+    The counters record what the reference records: the distributed
+    strategy's two all_to_alls and their ``mesh_comm_events`` bytes.  The
+    all_gathers here (the weights when gathered, the output in both)
+    stand where XLA reshards implicitly in the reference, which counts
+    none of them, so they are not counted either.
+    """
+    if desc.quant is not None:
+        raise NotImplementedError("mesh grouped GEMM is wide-only")
+    if bias is not None:
+        raise NotImplementedError("mesh grouped GEMM has no bias path")
+    from repro_torch.runtime.shardlib import axis_sizes, current_mesh
+    mesh = current_mesh()
+    axis, s = desc.mesh.axis, desc.mesh.size
+    if mesh is None or axis_sizes(mesh).get(axis, 0) != s:
+        raise ValueError(f"descriptor mesh {desc.mesh} does not match the "
+                         f"active mesh {mesh}")
+    group, c = mesh.get_group(axis), mesh.get_local_rank(axis)
+    comm = plan.comm or "gathered"
+    local = plan.local_desc
+    lplan = GroupedGemmPlan(local, plan.bm, plan.bk, plan.bn,
+                            fused=plan.fused, plan_source=plan.plan_source)
+    nt, e, cap, k = x4.shape
+    f = desc.n
+    nl, e_loc = nt // s, e // s
+
+    def run_local(rows, w_loc, n_groups):
+        sizes = torch.full((n_groups,), rows.shape[0] // n_groups,
+                           dtype=torch.int32, device=rows.device)
+        return execute(local, lplan, rows, w_loc, sizes)
+
+    xl = x4[c * nl:(c + 1) * nl]
+    w_own = w[c * e_loc:(c + 1) * e_loc]
+    if comm == "gathered":
+        w_full = _all_gather(w_own, group)
+        rows = xl.transpose(0, 1).reshape(e * nl * cap, k)
+        y = run_local(rows, w_full, e).reshape(e, nl, cap, f).transpose(0, 1)
+    else:
+        events = mesh_comm_events(desc, "distributed")
+        engine.count_comm("grouped_gemm", sum(b for _, b in events),
+                          launches=len(events))
+        # Slots by owner rank: (s, nl, e_loc, cap, k), dim 0 the
+        # destination; after the all_to_all dim 0 is the source rank.
+        h = xl.reshape(nl, s, e_loc, cap, k).transpose(0, 1)
+        h = _all_to_all(h, group)
+        # Rows sorted by local expert, s * nl * cap rows each.
+        rows = h.permute(2, 0, 1, 3, 4).reshape(e_loc * s * nl * cap, k)
+        y = run_local(rows, w_own, e_loc)
+        # Back to the source ranks, then to (nl, e, cap, f) token-major.
+        y = y.reshape(e_loc, s, nl, cap, f).permute(1, 2, 0, 3, 4)
+        y = _all_to_all(y, group)
+        y = y.transpose(0, 1).reshape(nl, e, cap, f)
+    return _all_gather(y, group)
+
+
 def execute(desc: GroupedGemmDescriptor, plan: GroupedGemmPlan, x, w,
             group_sizes, *, bias=None, sx=None, sw=None) -> torch.Tensor:
     """Engine executor: run one planned grouped GEMM (either lowering).
     ``sx``/``sw`` are a quantized descriptor's dense f32 scales: per row
-    ``(T,)`` for full quant, per expert column ``(E, N)`` for any spec."""
+    ``(T,)`` for full quant, per expert column ``(E, N)`` for any spec.
+    A mesh descriptor takes the capacity-slot operands of
+    :func:`expert_parallel_grouped_gemm` (``group_sizes`` None)."""
+    if desc.mesh is not None:
+        return _execute_mesh(desc, plan, x, w, group_sizes, bias)
     check_bias(desc.epilogue, bias)
     fused = engine.resolve_fused(plan)
     if desc.quant is not None:
@@ -312,3 +412,78 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         return engine.dispatch(desc, x, w, group_sizes, plan=plan, bias=bias)
     with use(fused="on" if fused else "off"):
         return engine.dispatch(desc, x, w, group_sizes, plan=plan, bias=bias)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel entry point
+# ---------------------------------------------------------------------------
+
+def _ref_ep(epilogue, x4, w):
+    """Plain capacity-slot expert GEMM in fp32, differentiable by autograd:
+    the backward of :class:`_EpFn` and the oracle of the tests."""
+    if x4.is_cuda:
+        disable_tf32()
+    out = torch.einsum("neck,ekf->necf", x4.float(), w.float())
+    return apply_epilogue(out, epilogue).to(x4.dtype)
+
+
+def _ep_dispatch(axis, epilogue, x4, w):
+    from repro_torch.runtime.shardlib import axis_size, current_mesh
+    s = axis_size(current_mesh(), axis)
+    nt, e, cap, k = x4.shape
+    desc = GroupedGemmDescriptor(
+        t=nt * e * cap, k=k, n=int(w.shape[-1]), num_experts=e,
+        dtype=canonical_dtype(x4.dtype), epilogue=epilogue,
+        mesh=MeshSpec(axis, s))
+    return engine.dispatch(desc, x4, w, None).reshape(nt, e, cap, -1)
+
+
+class _EpFn(torch.autograd.Function):
+    """The reference's ``_ep_vjp``: forward the engine's mesh dispatch,
+    backward autograd of :func:`_ref_ep` (on replicated operands every rank
+    computes the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, axis, epilogue, x4, w):
+        ctx.epilogue = epilogue
+        ctx.save_for_backward(x4, w)
+        return _ep_dispatch(axis, epilogue, x4, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x4, w = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(True) for t in (x4, w)]
+        with torch.enable_grad():
+            out = _ref_ep(ctx.epilogue, *leaves)
+            dx, dw = torch.autograd.grad(out, leaves, g.to(x4.dtype))
+        return None, None, dx.to(x4.dtype), dw.to(w.dtype)
+
+
+def expert_parallel_grouped_gemm(x4: torch.Tensor, w: torch.Tensor, *,
+                                 axis: str = "model",
+                                 epilogue: Optional[str] = None
+                                 ) -> torch.Tensor:
+    """Expert-parallel capacity-slot grouped GEMM.
+
+    ``x4``: ``(n, e, cap, k)`` dispatch slots (``n`` token groups, ``e``
+    experts, ``cap`` capacity); ``w``: ``(e, k, f)`` expert bank.  Returns
+    ``(n, e, cap, f)``.  Under a mesh (``use_mesh``) whose ``axis``
+    divides both ``n`` and ``e``, the call enters the engine as a MESH
+    descriptor: the comm-charged planner picks gathered or distributed,
+    and the strategy runs over the axis's process group with one launch
+    per rank.  Off-mesh, or on shapes the axis does not divide, it is the
+    ordinary differentiable :func:`grouped_gemm`.
+    """
+    from repro_torch.runtime.shardlib import axis_size, current_mesh
+    nt, e, cap, k = x4.shape
+    mesh = current_mesh()
+    s = axis_size(mesh, axis) if mesh is not None else 1
+    if s <= 1 or e % s or nt % s:
+        xt = x4.transpose(0, 1).reshape(e * nt * cap, k)
+        sizes = torch.full((e,), nt * cap, dtype=torch.int32,
+                           device=x4.device)
+        out = grouped_gemm(xt, w, sizes, epilogue=epilogue)
+        return out.reshape(e, nt, cap, -1).transpose(0, 1)
+    if torch.is_grad_enabled() and (x4.requires_grad or w.requires_grad):
+        return _EpFn.apply(axis, epilogue, x4, w)
+    return _ep_dispatch(axis, epilogue, x4, w)

@@ -45,6 +45,8 @@ from repro_torch.core.config import get_config
 from repro_torch.core.machine import torch_dtype
 from repro_torch.models.common import Init, Linear, RMSNorm, checkpointed
 from repro_torch.models.rotary import apply_rope
+from repro_torch.runtime.shardlib import (axis_size, current_mesh,
+                                          shard_activation)
 
 Q_CHUNK = 512
 
@@ -139,20 +141,45 @@ def _repeat_kv(x, n_rep: int):
     return x if n_rep == 1 else torch.repeat_interleave(x, n_rep, dim=2)
 
 
-def _attend(q, k, v, mask, softcap: Optional[float]):
+def _model_axis() -> int:
+    mesh = current_mesh()
+    return axis_size(mesh, "model") if mesh is not None else 1
+
+
+def _head_axes(n_heads: int):
+    """The reference's sharding specs of (b, s|q, h, hd) and (b, h, q, k)
+    tensors: heads on "model" when they divide it, else the query dim
+    (the context-parallel fallback)."""
+    msize = _model_axis()
+    if msize <= 1 or n_heads % msize == 0:
+        return (("pod", "data"), None, "model", None), \
+               (("pod", "data"), "model", None, None)
+    return (("pod", "data"), "model", None, None), \
+           (("pod", "data"), None, "model", None)
+
+
+def _attend(q, k, v, mask, softcap: Optional[float], *,
+            kv_seq_sharded: bool = False):
     """q: (b, sq, h, hd); k/v: (b, sk, h, hd); mask broadcasts to
     (b, h, sq, sk).  Products in fp32 (bf16 operands are upcast, matching
     the reference's fp32 accumulation), softmax in fp32, probabilities
-    rounded to V's dtype before the PV product."""
+    rounded to V's dtype before the PV product.  ``kv_seq_sharded``: the
+    reference's split-K decode against a sequence-sharded cache."""
+    if kv_seq_sharded:
+        qspec = (("pod", "data"), None, None, None)
+        sspec = (("pod", "data"), None, None, "model")
+    else:
+        qspec, sspec = _head_axes(q.shape[2])
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     scores = torch.where(mask, scores, NEG_INF)
+    scores = shard_activation(scores, sspec)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
-    return out.to(v.dtype)
+    return shard_activation(out.to(v.dtype), qspec)
 
 
 def _causal_mask(q_pos, k_pos, window: Optional[int] = None):
@@ -379,6 +406,7 @@ class Attention(nn.Module):
             q = apply_rope(q, pos2d, cfg.rope_theta)
             if kv_override is None:
                 k = apply_rope(k, pos2d, cfg.rope_theta)
+        q = shard_activation(q, _head_axes(hq)[0])
 
         if kv_override is not None:
             out = _cross_attend(q, _repeat_kv(k, g), _repeat_kv(v, g),
@@ -392,15 +420,23 @@ class Attention(nn.Module):
                                 else step, dt, g)
         elif cache is not None and s == 1:
             _ring_write(cache, k, v, pos2d)
+            msize = _model_axis()
+            seq_sharded = msize > 1 and hkv % msize != 0 \
+                and cache.k.shape[1] % msize == 0
             kf = _repeat_kv(cache.k.to(dt), g)
             vf = _repeat_kv(cache.v.to(dt), g)
+            if seq_sharded:
+                kv_spec = (("pod", "data"), "model", None, None)
+                kf = shard_activation(kf, kv_spec)
+                vf = shard_activation(vf, kv_spec)
             qpos = pos2d[:, -1].reshape(-1, 1, 1, 1)
             cpos = cache.pos[:, None, None, :]
             mask = cpos <= qpos
             if window is not None:
                 mask &= cpos > qpos - window
             mask &= cpos >= 0
-            out = _attend(q, kf, vf, mask, cfg.attn_logit_softcap)
+            out = _attend(q, kf, vf, mask, cfg.attn_logit_softcap,
+                          kv_seq_sharded=seq_sharded)
         else:
             if cache is not None:
                 _ring_write(cache, k, v, pos2d)

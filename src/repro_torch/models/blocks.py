@@ -37,6 +37,7 @@ from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU, init_recurrent_state
 from repro_torch.models.ssd import SSD, init_ssm_state
+from repro_torch.runtime.shardlib import shard_activation
 
 
 def check_ported(cfg) -> None:
@@ -97,6 +98,7 @@ class Block(nn.Module):
             y, cache = self.mixer(h, positions, cache=cache,
                                   window=self.window, step=step)
         x = x + y
+        x = shard_activation(x, (("pod", "data"), "model", None))
         if enc_out is not None and self.cross is not None:
             h = self.norm_cross(x, cfg.norm_eps)
             y, _ = self.cross(h, positions, kv_override=enc_out)
@@ -109,6 +111,7 @@ class Block(nn.Module):
             else:
                 y = self.ff(h)
             x = x + y
+            x = shard_activation(x, (("pod", "data"), "model", None))
         return x, cache, aux
 
 

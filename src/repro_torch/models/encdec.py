@@ -36,6 +36,9 @@ from repro_torch.models.common import Embedding, Init, Linear, \
     checkpointed, make_norm, readout
 from repro_torch.models.frontends import Frontend
 from repro_torch.models.mlp import MLP
+from repro_torch.runtime.shardlib import shard_activation
+
+_SEQ_SPEC = (("pod", "data"), "model", None)
 
 
 class EncoderBlock(nn.Module):
@@ -53,7 +56,8 @@ class EncoderBlock(nn.Module):
         # Bidirectional: the sequence attends into itself, no causal mask.
         y, _ = self.attn(h, positions, kv_override=h)
         x = x + y
-        return x + self.ff(self.norm_ff(x, cfg.norm_eps))
+        x = x + self.ff(self.norm_ff(x, cfg.norm_eps))
+        return shard_activation(x, _SEQ_SPEC)
 
 
 class EncoderDecoderModel(nn.Module):
@@ -85,6 +89,7 @@ class EncoderDecoderModel(nn.Module):
         x = self.frontend(feats)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+        x = shard_activation(x, _SEQ_SPEC)
         recompute = cfg.remat and torch.is_grad_enabled()
         for layer in self.encoder:
             x = checkpointed(layer, x, positions) if recompute \
@@ -108,6 +113,7 @@ class EncoderDecoderModel(nn.Module):
         x = self.embed.embed(tokens, dt)
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+        x = shard_activation(x, _SEQ_SPEC)
         x, new_cache, aux = stack_apply(self.decoder, x, positions,
                                         cache=cache,
                                         group=len(cfg.block_pattern),
@@ -117,6 +123,7 @@ class EncoderDecoderModel(nn.Module):
             x = x[:, -1:]
         logits = readout(x, self.lm_head.w, dt,
                          torch_dtype(cfg.logits_dtype))
+        logits = shard_activation(logits, _SEQ_SPEC)
         return logits, new_cache, aux
 
     # The reference's name for the forward pass (see LanguageModel.apply).

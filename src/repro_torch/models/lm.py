@@ -24,6 +24,7 @@ from repro_torch.models.blocks import Block, check_ported, layer_kinds, \
 from repro_torch.models.common import Embedding, Init, Linear, make_norm, \
     readout
 from repro_torch.models.frontends import Frontend
+from repro_torch.runtime.shardlib import shard_activation
 
 
 class LanguageModel(nn.Module):
@@ -70,6 +71,7 @@ class LanguageModel(nn.Module):
         if positions is None:
             positions = torch.arange(s + n_mod, dtype=torch.int32,
                                      device=tokens.device)
+        x = shard_activation(x, (("pod", "data"), "model", None))
         x, new_cache, aux = stack_apply(self.blocks, x, positions,
                                         cache=cache,
                                         group=len(cfg.block_pattern),
@@ -85,6 +87,7 @@ class LanguageModel(nn.Module):
         if cfg.final_logit_softcap:
             cap = cfg.final_logit_softcap
             logits = torch.tanh(logits / cap) * cap
+        logits = shard_activation(logits, (("pod", "data"), "model", None))
         return logits, new_cache, aux
 
     # The reference's name for the forward pass.  (It shadows

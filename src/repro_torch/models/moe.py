@@ -13,9 +13,15 @@ under the ``engine`` backend the three expert GEMMs run through the
 grouped-GEMM family (the activation fused into the gate's epilogue), with
 its backward kernel in training; under ``torch`` they are the reference's
 ``einsum``.  The dispatch and combine products stay ``torch.einsum``, as
-they are dense einsums outside any kernel in the reference.  The
-reference's sharding annotations have no counterpart: the port has no
-mesh yet.
+they are dense einsums outside any kernel in the reference.
+
+Under a mesh whose "model" axis divides the experts (expert parallelism)
+and the token groups, the engine backend runs the expert GEMMs through
+:func:`~repro_torch.kernels.grouped_gemm.expert_parallel_grouped_gemm`:
+the comm-charged planner picks gathered or distributed, and the ranks
+split the expert work between them.  The sharding annotations are the
+reference's ``shard_activation`` calls, which check the axes and keep the
+activations replicated.
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ from repro_torch.core.config import get_config
 from repro_torch.core.machine import torch_dtype
 from repro_torch.kernels.epilogue import apply_epilogue
 from repro_torch.models.common import Init, Linear, cast_param
+from repro_torch.runtime.shardlib import (axis_size, current_mesh,
+                                          shard_activation)
 
 _MAX_BATCH_SHARDS = 32  # the reference's pod x data on its largest mesh
 
@@ -96,7 +104,13 @@ def moe_apply(ff: MoE, cfg, x):
     n = t // g
     cap = int(cfg.capacity_factor * g * k / e)
     cap = max(8, -(-cap // 8) * 8)
+
+    mesh = current_mesh()
+    msize = axis_size(mesh, "model") if mesh is not None else 1
+    ep = msize > 1 and e % msize == 0  # expert parallelism when E divides
+
     xg = x.reshape(n, g, d).to(dt)
+    xg = shard_activation(xg, (("pod", "data"), None, None))
 
     # --- routing (fp32) ---------------------------------------------------
     logits = torch.einsum("ngd,de->nge", xg.float(), ff.router.w.float())
@@ -124,18 +138,53 @@ def moe_apply(ff: MoE, cfg, x):
     combine = torch.einsum("ngke,ngkc->ngec", keep * gate_vals[..., None],
                            slot_oh).to(dt)
 
+    # The reference's two layouts: expert parallelism (E divides "model":
+    # slots on their experts' ranks, weights never move), or the TP-f
+    # fallback (tokens data-sharded, the expert FFN dim on "model").  Under
+    # the engine, expert parallelism enters the engine as a mesh
+    # descriptor when the token groups divide the axis too.
+    bd = ("pod", "data")
+    engine_backend = get_config().backend == "engine"
+    ep_mesh = ep and engine_backend and n % msize == 0
+    if ep:
+        dispatch = shard_activation(dispatch, (bd, None, "model", None))
+        combine = shard_activation(combine, (bd, None, "model", None))
+        if ep_mesh:
+            xin_spec = h_spec = ("model", None, None, None)
+        else:
+            xin_spec = h_spec = (bd, "model", None, None)
+    elif t <= 2048:
+        xin_spec = (None, None, None, None)
+        h_spec = (None, None, None, "model")
+    else:
+        xin_spec = (bd, None, None, None)
+        h_spec = (bd, None, None, "model")
+
     # --- expert compute (batched small GEMMs over the E dim) --------------
-    mm = _expert_gemm_grouped if get_config().backend == "engine" \
-        else _einsum_gemm
+    if engine_backend:
+        if ep_mesh:
+            from repro_torch.kernels.grouped_gemm import \
+                expert_parallel_grouped_gemm
+
+            def mm(x4, w, epilogue=None):
+                return expert_parallel_grouped_gemm(x4, w, axis="model",
+                                                    epilogue=epilogue)
+        else:
+            mm = _expert_gemm_grouped
+    else:
+        mm = _einsum_gemm
     xin = torch.einsum("ngec,ngd->necd", dispatch, xg)  # (n, e, cap, d)
+    xin = shard_activation(xin, xin_spec)
     w_up = cast_param(ff.w_up.w, dt)
     w_down = cast_param(ff.w_down.w, dt)
     if cfg.mlp_gated:
-        up = mm(xin, w_up)
-        gate = mm(xin, cast_param(ff.w_gate.w, dt), epilogue=cfg.mlp_act)
+        up = shard_activation(mm(xin, w_up), h_spec)
+        gate = shard_activation(
+            mm(xin, cast_param(ff.w_gate.w, dt), epilogue=cfg.mlp_act),
+            h_spec)
         h = gate * up
     else:
-        h = mm(xin, w_up, epilogue=cfg.mlp_act)
-    y_slots = mm(h, w_down)
+        h = shard_activation(mm(xin, w_up, epilogue=cfg.mlp_act), h_spec)
+    y_slots = shard_activation(mm(h, w_down), xin_spec)
     y = torch.einsum("ngec,necd->ngd", combine, y_slots)
     return y.reshape(b, s, d), aux_loss

@@ -28,6 +28,7 @@ from torch import nn
 
 from repro_torch.core.machine import torch_dtype
 from repro_torch.models.common import Init, Linear
+from repro_torch.runtime.shardlib import shard_activation
 
 _C = 8.0
 _MIN_LOG = -8.0
@@ -137,6 +138,10 @@ class RGLRU(nn.Module):
         s = x.shape[1]
         y_branch = self.lin_y(x, epilogue="gelu", compute_dtype=dt)
         xb = self.lin_x(x, compute_dtype=dt)
+        # The reference's width-parallel region: post-gate activations on
+        # "model" along the width (xb stays whole: the gates contract it).
+        wspec = (("pod", "data"), None, "model")
+        y_branch = shard_activation(y_branch, wspec)
         xb, new_tail = _causal_conv1d(xb, self.conv_w, self.conv_b,
                                       state.conv if state is not None
                                       else None)
@@ -144,6 +149,8 @@ class RGLRU(nn.Module):
         # outputs are upcast for the recurrence math (as the reference).
         r = torch.sigmoid(self.gate_a(xb, compute_dtype=dt).float())
         i = torch.sigmoid(self.gate_x(xb, compute_dtype=dt).float())
+        r = shard_activation(r, wspec)
+        i = shard_activation(i, wspec)
         lam = self.lam
         # log sigmoid(L) = -softplus(-L); jax.nn.softplus is logaddexp(x, 0)
         log_a1 = -torch.logaddexp(-lam, torch.zeros_like(lam))
@@ -151,7 +158,7 @@ class RGLRU(nn.Module):
         gated = i * xb.float()
         mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_at),
                                           1e-12))
-        bt = mult * gated
+        bt = shard_activation(mult * gated, wspec)
 
         h0 = state.h if state is not None else None
         if s == 1 and h0 is not None:

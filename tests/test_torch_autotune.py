@@ -238,7 +238,6 @@ def _ref_desc(desc):
 def _knobs(plan):
     d = dataclasses.asdict(plan)
     d.pop("desc")
-    d.pop("comm", None)  # the reference's mesh strategy: always None here
     return d
 
 

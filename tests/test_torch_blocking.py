@@ -140,13 +140,18 @@ def test_cache_keys_match_reference(dtype, layout, accumulate):
 
 
 def test_unported_axes_raise():
-    """The mesh axis is still refused; the quant axis is ported, and a
-    quantized descriptor keys like the reference's (a shorthand string is
-    not a spec in either package)."""
+    """Both axes are ported: a mesh descriptor and a quantized descriptor
+    key like the reference's, and each package refuses a mesh or a quant
+    argument that is not its spec (a tuple, a shorthand string)."""
     from repro.core.descriptor import resolve_quant as j_resolve_quant
-    from repro_torch.core import resolve_quant
-    with pytest.raises(NotImplementedError):
-        GemmDescriptor(m=4, n=4, k=4, mesh=("model", 2))
+    from repro_torch.core import MeshSpec, resolve_quant
+    for mesh in (MeshSpec("model", 2), MeshSpec("data", 4)):
+        assert GemmDescriptor(m=4, n=8, k=4, mesh=mesh).cache_key() == \
+            jcore.GemmDescriptor(m=4, n=8, k=4, mesh=jcore.MeshSpec(
+                mesh.axis, mesh.size)).cache_key()
+    for desc in (GemmDescriptor, jcore.GemmDescriptor):
+        with pytest.raises(ValueError, match="MeshSpec"):
+            desc(m=4, n=4, k=4, mesh=("model", 2))
     for mode in ("int8", "w8a16", "fp8"):
         assert GemmDescriptor(m=4, n=4, k=4, quant=resolve_quant(mode)) \
             .cache_key() == jcore.GemmDescriptor(

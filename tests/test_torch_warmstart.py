@@ -343,11 +343,16 @@ def test_load_refit_model_applies_good_payload(tmp_path):
     assert m.step_overhead_s == 1e-6
     assert m.refit_fingerprint == "abc123"
     assert m.tuning_key == "tpu_v5e+refit"
-    # a mesh fit's network coefficients have no field here: dropped
+    # a mesh fit's network coefficients are applied too (+net+refit)
     path = _good_model(tmp_path, base=H100_SXM.name, coefficients={
-        "launch_overhead_s": 5e-6, "ici_bandwidth_gbps": 100.0})
+        "launch_overhead_s": 5e-6, "ici_bandwidth_gbps": 100.0,
+        "collective_launch_s": 3e-6,
+        "collective_efficiency": {"all_gather": 1.0, "all_to_all": 0.5}})
     m = load_refit_model(path)
-    assert m.launch_overhead_s == 5e-6 and m.tuning_key == "h100_sxm+refit"
+    assert m.launch_overhead_s == 5e-6
+    assert m.ici_bandwidth_gbps == 100.0 and m.collective_launch_s == 3e-6
+    assert m.collective_efficiency == {"all_gather": 1.0, "all_to_all": 0.5}
+    assert m.network_calibrated and m.tuning_key == "h100_sxm+net+refit"
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +412,18 @@ def test_descriptor_cache_key_rejects_unknown():
         descriptor_from_cache_key(("gemm", 1, 2))
     with pytest.raises(ValueError):
         descriptor_from_cache_key(())
+    # a mesh key round-trips, in both packages, to the same descriptor
+    from repro.core.descriptor import \
+        descriptor_from_cache_key as j_from_key
+    from repro_torch.core import MeshSpec
     mesh_key = GemmDescriptor(m=8, n=8, k=8).cache_key()[:-1] + (
         ("model", 4),)
-    with pytest.raises(ValueError, match="mesh"):
-        descriptor_from_cache_key(mesh_key)
+    desc = descriptor_from_cache_key(mesh_key)
+    assert desc.mesh == MeshSpec("model", 4)
+    assert desc.cache_key() == mesh_key == j_from_key(mesh_key).cache_key()
+    with pytest.raises(ValueError, match="mesh size"):
+        descriptor_from_cache_key(GemmDescriptor(m=8, n=6, k=8).cache_key()
+                                  [:-1] + (("model", 4),))
 
 
 def test_manifest_roundtrip(tmp_path):

@@ -1,8 +1,15 @@
 #!/usr/bin/env python
-"""Refit the PyTorch port's machine model from tuning-cache timings.
+"""Merge, export and refit the PyTorch port's tuning caches.
 
+    python tools/tune_torch.py merge OUT CACHE [CACHE ...]
+    python tools/tune_torch.py export CACHE OUT [--machine PREFIX]
     python tools/tune_torch.py refit CACHE [CACHE ...] -o MODEL
         [--base h100_sxm] [--machine PREFIX] [--mode any|cuda|cpu]
+
+``merge`` unions caches (on a shared key the newest timing wins) and
+``export`` keeps the entries whose machine tuning key starts with PREFIX
+(``h100_sxm`` keeps ``h100_sxm`` and ``h100_sxm+net``; the full ``+net``
+form keeps only network-calibrated records).
 
 The port's counterpart of ``tools/tune.py refit`` (which fits the JAX
 package's model): the caches are merged as ``tools/tune.py merge`` merges
@@ -20,12 +27,32 @@ import os
 import sys
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, _HERE)
+from tune import (filter_entries, load_entries, merge_entries,  # noqa: E402
+                  write_cache)
+
+
+def _cmd_merge(args) -> int:
+    caches = [load_entries(p) for p in args.inputs]
+    merged = merge_entries(caches)
+    write_cache(args.out, merged)
+    print(f"merged {len(args.inputs)} files "
+          f"({sum(len(c) for c in caches)} entries) -> {args.out} "
+          f"({len(merged)} entries)", file=sys.stderr)
+    return 0
+
+
+def _cmd_export(args) -> int:
+    entries = load_entries(args.cache)
+    kept = filter_entries(entries, args.machine) if args.machine else entries
+    write_cache(args.out, kept)
+    print(f"exported {len(kept)}/{len(entries)} entries -> {args.out}",
+          file=sys.stderr)
+    return 0
 
 
 def _cmd_refit(args) -> int:
-    sys.path.insert(0, _HERE)
     sys.path.insert(0, os.path.join(_HERE, os.pardir, "src"))
-    from tune import load_entries, merge_entries
     from repro_torch.core import refit
     from repro_torch.core.machine import get_machine
     merged = merge_entries([load_entries(p) for p in args.inputs])
@@ -48,6 +75,16 @@ def _cmd_refit(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("merge", help="union caches, newest timing wins")
+    p.add_argument("out")
+    p.add_argument("inputs", nargs="+")
+    p.set_defaults(fn=_cmd_merge)
+    p = sub.add_parser("export", help="filter a cache to one machine")
+    p.add_argument("cache")
+    p.add_argument("out")
+    p.add_argument("--machine", default=None,
+                   help="machine tuning-key prefix to keep")
+    p.set_defaults(fn=_cmd_export)
     p = sub.add_parser(
         "refit", help="fit MachineModel coefficients from cache timings")
     p.add_argument("inputs", nargs="+",
