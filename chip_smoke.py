@@ -556,6 +556,7 @@ def main():
     counts_vl_ed = phase_vl_ed_runs(torch)
     torch.cuda.empty_cache()
     counts_mesh = phase_mesh(torch)
+    counts_dryrun = phase_dryrun(torch, results)
 
     by_path = {"serve": counts_on, "serve_off": counts_off,
                "continuous": counts_cont, "train": counts_train,
@@ -569,7 +570,8 @@ def main():
                "continuous_moe": counts_cont_moe,
                "continuous_ssm": counts_cont_ssm,
                "continuous_warm": counts_cont_warm, **counts_archs,
-               **counts_rg, **counts_vl_ed, **counts_mesh}
+               **counts_rg, **counts_vl_ed, **counts_mesh,
+               "dryrun": counts_dryrun}
     # Every wide GEMM of the main path reads TMA-legal operands: route C
     # (loads through registers) is for operands off it.  (Seamless's untied
     # read-out, vocab 256,206, runs over a copy padded to 16-byte rows.)
@@ -5452,6 +5454,30 @@ def _mesh_serve_want(cfg, world):
                 want["comm_bytes"] += forwards * L * sum(b for _, b in events)
                 want["collective_launches"] += forwards * L * len(events)
     return want, picks
+
+
+def phase_dryrun(torch, results):
+    """The dry-run held to the card (``launch/dryrun.py::card_check``): the
+    byte count of full-width qwen3-0.6b against the allocator, its meta
+    trace against a prefill and a train step run on the card, and
+    ``kernel_roofline`` beside :func:`bound` for every kernel row."""
+    from repro_torch.core import use
+    from repro_torch.launch.dryrun import card_check
+    _reset_counts()
+    with use(backend="engine", fused="auto", device="cuda"):
+        report = card_check("cuda", results, (CONT_PAGES, CONT_BLOCKS))
+    counts = _read_counts()
+    emit(phase="dryrun", **report)
+    bad = report["failures"] + [f"{k}: {v}" for k, v in
+                                _gemm_launch_gap(counts).items()]
+    bad += [f"{k} never launched" for k in ("flash_fwd_fused",
+                                            "flash_bwd_fused")
+            if not counts[k]]
+    if not counts["gemm_fused"] + counts["gemm_region"]:
+        bad.append("no GEMM launched")
+    if bad:
+        fail(f"dryrun: {bad}")
+    return counts
 
 
 def phase_mesh(torch):

@@ -206,10 +206,30 @@ def pinned(cfg: EngineConfig):
         stack.pop()
 
 
+_shape_only = threading.local()
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Admit ``device="meta"`` in :func:`resolve_device` for the block: the
+    dry-run's shape-only builds (``runtime.steps.param_shapes``,
+    ``cache_shapes``, ``opt_state_shapes`` and ``launch.dryrun``), which
+    hold no storage.  No user-facing entry point opens it."""
+    depth = getattr(_shape_only, "depth", 0)
+    _shape_only.depth = depth + 1
+    try:
+        yield
+    finally:
+        _shape_only.depth = depth
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else the
-    configured default.  CUDA on a host without a usable card raises."""
+    configured default.  CUDA on a host without a usable card raises;
+    ``meta`` is refused outside :func:`shape_only`."""
     dev = torch.device(device if device is not None else get_config().device)
+    if dev.type == "meta" and getattr(_shape_only, "depth", 0):
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "

@@ -15,7 +15,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from .machine import canonical_dtype, itemsize
+import torch
+
+from .machine import canonical_dtype, itemsize, torch_dtype
 
 LAYOUTS = ("nn", "nt")
 EPILOGUES = (None, "bias", "gelu", "silu", "relu", "bias_gelu", "bias_silu")
@@ -139,6 +141,20 @@ class KernelDescriptor:
     @property
     def out_bytes(self) -> int:
         raise NotImplementedError
+
+    @property
+    def arithmetic_intensity(self) -> float:
+        return self.flops / max(1, self.in_bytes + self.out_bytes)
+
+    def meta_output(self):
+        """What the family's executor returns, as empty tensors on the meta
+        device: the engine's answer to a dispatch on meta operands (the
+        dry-run's shape-only trace)."""
+        raise NotImplementedError
+
+
+def _meta(shape, dtype):
+    return torch.empty(tuple(shape), dtype=torch_dtype(dtype), device="meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,6 +280,10 @@ class GemmDescriptor(KernelDescriptor):
     def out_bytes(self) -> int:
         return max(1, self.batch) * self.m * self.n * itemsize(self.out_dtype)
 
+    def meta_output(self):
+        lead = (self.batch,) if self.batch else ()
+        return _meta(lead + (self.m, self.n), self.out_dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class FlashDescriptor(KernelDescriptor):
@@ -305,6 +325,9 @@ class FlashDescriptor(KernelDescriptor):
     def out_bytes(self) -> int:
         return self.batch_heads * self.sq * self.d * itemsize(self.dtype)
 
+    def meta_output(self):
+        return _meta((self.batch_heads, self.sq, self.d), self.dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class FlashBwdDescriptor(FlashDescriptor):
@@ -339,6 +362,13 @@ class FlashBwdDescriptor(FlashDescriptor):
         # dQ in the operand dtype, dK/dV accumulated in fp32.
         return self.batch_heads * (self.sq * self.d * itemsize(self.dtype)
                                    + 2 * self.sk * self.d * 4)
+
+    def meta_output(self):
+        # fp32 (dq, dk, dv), as the backward kernel writes them.
+        bh, d = self.batch_heads, self.d
+        return (_meta((bh, self.sq, d), "float32"),
+                _meta((bh, self.sk, d), "float32"),
+                _meta((bh, self.sk, d), "float32"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,6 +431,10 @@ class FlashDecodeDescriptor(KernelDescriptor):
     def out_bytes(self) -> int:
         return self.num_seqs * self.num_heads * self.head_dim \
             * itemsize(self.dtype)
+
+    def meta_output(self):
+        return _meta((self.num_seqs, self.num_heads, self.head_dim),
+                     self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -484,6 +518,12 @@ class SsdChunkDescriptor(KernelDescriptor):
             total += self.groups * self.p * self.n * 4  # final state, fp32
         return total
 
+    def meta_output(self):
+        if not self.chunks:
+            return _meta((self.groups, self.q, self.p), self.dtype)
+        return (_meta((self.groups, self.chunks, self.q, self.p), self.dtype),
+                _meta((self.groups, self.p, self.n), "float32"))
+
 
 @dataclasses.dataclass(frozen=True)
 class SsdChunkBwdDescriptor(SsdChunkDescriptor):
@@ -520,6 +560,15 @@ class SsdChunkBwdDescriptor(SsdChunkDescriptor):
         return (self.cells * per_cell * isz
                 + self.cells * 2 * self.q * 4              # ddi / ddo, fp32
                 + self.groups * self.p * self.n * 4)       # ds0
+
+    def meta_output(self):
+        # fp32 (dc, db, dl, dx, ddi, ddo, ds0), as the kernel writes them.
+        g, nc, q = self.groups, self.chunks, self.q
+        f32 = "float32"
+        return (_meta((g, nc, q, self.n), f32), _meta((g, nc, q, self.n), f32),
+                _meta((g, nc, q, q), f32), _meta((g, nc, q, self.p), f32),
+                _meta((g, nc, q), f32), _meta((g, nc, q), f32),
+                _meta((g, self.p, self.n), f32))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -613,6 +662,9 @@ class GroupedGemmDescriptor(KernelDescriptor):
     def out_bytes(self) -> int:
         return self.t * self.n * itemsize(self.dtype)
 
+    def meta_output(self):
+        return _meta((self.t, self.n), self.dtype)
+
 
 @dataclasses.dataclass(frozen=True)
 class GroupedGemmBwdDescriptor(GroupedGemmDescriptor):
@@ -653,6 +705,14 @@ class GroupedGemmBwdDescriptor(GroupedGemmDescriptor):
         if self.epilogue in BIAS_EPILOGUES:
             total += self.num_experts * self.n * 4
         return total
+
+    def meta_output(self):
+        # fp32 (dX, dW, db or None), as the backward kernel writes them.
+        e, f32 = self.num_experts, "float32"
+        db = _meta((e, self.n), f32) if self.epilogue in BIAS_EPILOGUES \
+            else None
+        return (_meta((self.t, self.k), f32), _meta((e, self.k, self.n), f32),
+                db)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -697,6 +757,10 @@ class TransposeDescriptor(KernelDescriptor):
     @property
     def out_bytes(self) -> int:
         return self.in_bytes
+
+    def meta_output(self):
+        lead = (self.batch,) if self.batch else ()
+        return _meta(lead + (self.cols, self.rows), self.dtype)
 
 
 # ---------------------------------------------------------------------------

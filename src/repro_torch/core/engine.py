@@ -28,9 +28,18 @@ descriptor (:func:`seen_descriptors`, :func:`save_manifest`), and
 :func:`warmup` resolves and builds a recorded population before the
 first request.  Families register when their ``kernels/<family>/ops``
 module is imported, which :func:`get_family` does lazily on first use.
+
+:func:`trace_costs` records every kernel call of a block, per family
+(calls, descriptor FLOPs and bytes), with the FLOPs of the matrix
+products outside the engine: the port's counterpart of the reference's
+compile-time cost analysis.  On meta operands a dispatch plans and
+launches nothing and returns its descriptor's ``meta_output()``, so the
+dry-run (``repro_torch.launch.dryrun``) traces a full-size step with no
+storage.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import threading
@@ -38,6 +47,7 @@ import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from . import autotune as _autotune
 from .config import get_config
@@ -227,12 +237,150 @@ def plan_for(desc: KernelDescriptor,
 
 def dispatch(desc: KernelDescriptor, *operands, plan: Any = None, **kw) -> Any:
     """Run one kernel request: plan (three tiers behind the plan cache,
-    unless ``plan`` is given), then execute."""
+    unless ``plan`` is given), then execute.  Under :func:`trace_costs`
+    the call is recorded first; meta operands (a shape-only trace) plan
+    nothing and launch nothing, and get the descriptor's
+    ``meta_output()``."""
     fam = get_family(desc.family)
+    if traced_call(desc, operands, kw):
+        return desc.meta_output()
     _seen_descs.setdefault(desc.cache_key(), desc)
     if plan is None:
         plan = _resolve_plan(desc, get_config(), operands=operands, kw=kw)
-    return fam.execute(desc, plan, *operands, **kw)
+    with engine_work():
+        return fam.execute(desc, plan, *operands, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Cost trace
+# ---------------------------------------------------------------------------
+
+class _ProductCounter(FlopCounterMode):
+    """``FlopCounterMode`` that skips what the engine's executors run: on
+    the CPU their plain versions are torch products, which are engine
+    work, not work outside it."""
+
+    def __init__(self, trace: "CostTrace"):
+        super().__init__(display=False)
+        self._trace = trace
+
+    def _count_flops(self, func_packet, out, args, kwargs):
+        if self._trace.in_engine:
+            return out
+        return super()._count_flops(func_packet, out, args, kwargs)
+
+
+class CostTrace:
+    """What :func:`trace_costs` recorded.
+
+    ``families[family]`` holds ``calls``, ``flops`` and ``bytes`` (the
+    sums of each call's ``launch.hlo_cost.descriptor_cost``: the
+    descriptor's ``flops`` and ``in_bytes + out_bytes``), backward
+    families under their own names; ``descriptors`` every distinct
+    descriptor, by cache key; ``non_engine_flops`` the FLOPs of the
+    matrix products that ran outside the engine (the router, plain
+    attention, the fp32 products of ``core.matmul``'s backward), as
+    ``torch.utils.flop_counter.FlopCounterMode`` counts them."""
+
+    def __init__(self):
+        self.families: Dict[str, Dict[str, int]] = {}
+        self.descriptors: Dict[tuple, KernelDescriptor] = {}
+        self.non_engine_flops = 0
+        self.in_engine = 0
+        self._lock = threading.Lock()
+
+    def record(self, desc: KernelDescriptor) -> None:
+        with self._lock:
+            row = self.families.setdefault(
+                desc.family, {"calls": 0, "flops": 0, "bytes": 0})
+            row["calls"] += 1
+            row["flops"] += int(desc.flops)
+            row["bytes"] += int(desc.in_bytes + desc.out_bytes)
+            self.descriptors.setdefault(desc.cache_key(), desc)
+
+    @contextlib.contextmanager
+    def engine_work(self):
+        with self._lock:
+            self.in_engine += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self.in_engine -= 1
+
+    @property
+    def flops(self) -> int:
+        return sum(r["flops"] for r in self.families.values())
+
+    @property
+    def bytes(self) -> int:
+        return sum(r["bytes"] for r in self.families.values())
+
+    def summary(self) -> Dict[str, Any]:
+        """JSON-ready totals: per family, engine, and outside the engine."""
+        return {"families": {f: dict(r) for f, r in
+                             sorted(self.families.items())},
+                "flops": self.flops, "bytes": self.bytes,
+                "non_engine_flops": self.non_engine_flops}
+
+
+# The active trace, process-wide: autograd runs a CUDA backward on its own
+# device thread, whose dispatches must be recorded too.
+_TRACE: Optional[CostTrace] = None
+
+
+@contextlib.contextmanager
+def trace_costs():
+    """Record every kernel call of the block (the port's counterpart of the
+    reference's compile-time cost pass): ``with engine.trace_costs() as
+    t: step(...)``, then ``t.families`` / ``t.summary()``.
+
+    On meta operands nothing is planned or launched: each dispatch returns
+    its descriptor's ``meta_output()``, so a step at full size costs no
+    memory.  On CPU or CUDA operands each call is recorded and then runs
+    as usual.  The FLOPs of matrix products outside the engine count as
+    ``non_engine_flops``.  Traces do not nest."""
+    global _TRACE
+    if _TRACE is not None:
+        raise RuntimeError("engine.trace_costs() does not nest")
+    trace = CostTrace()
+    counter = _ProductCounter(trace)
+    _TRACE = trace
+    try:
+        with counter:
+            yield trace
+    finally:
+        _TRACE = None
+        trace.non_engine_flops = int(counter.get_total_flops())
+
+
+def engine_work():
+    """Context of a kernel's execution: under a trace, torch products run
+    inside it (a CPU plain version) do not count as ``non_engine_flops``."""
+    return _TRACE.engine_work() if _TRACE is not None \
+        else contextlib.nullcontext()
+
+
+def _is_meta(operands, kw) -> bool:
+    return any(isinstance(t, torch.Tensor) and t.is_meta
+               for t in (*operands, *kw.values()))
+
+
+def traced_call(desc: KernelDescriptor, operands=(), kw=None) -> bool:
+    """Record one kernel call of ``desc`` in the active trace; True when
+    the operands are on the meta device, so the caller returns shape-only
+    outputs instead of launching.  Meta operands outside a trace raise.
+    Launch sites outside :func:`dispatch` (a forward that keeps its
+    residuals for a backward kernel) call it themselves."""
+    meta = _is_meta(operands, kw or {})
+    trace = _TRACE
+    if trace is not None:
+        trace.record(desc)
+    elif meta:
+        raise RuntimeError(
+            f"{desc.family}: meta operands reach the engine only under "
+            f"engine.trace_costs() (the dry-run's shape-only trace)")
+    return meta
 
 
 # ---------------------------------------------------------------------------

@@ -130,9 +130,14 @@ class MachineModel:
     vmem_bytes: int
     sublanes: Dict[str, int]
     lanes: int
+    # Device memory in bytes (the roofline's fit budget); None: not
+    # modelled.
+    hbm_bytes: Optional[int] = None
     # --- interconnect: pinned link figures ------------------------------
     ici_bw_per_link: float = 1e9  # bytes/s per link
     ici_links: int = 1  # links per device
+    # bytes/s per device across pods (hosts); None: not modelled.
+    dcn_bw: Optional[float] = None
     step_overhead_s: float = DEFAULT_STEP_OVERHEAD_S
     launch_overhead_s: float = DEFAULT_LAUNCH_OVERHEAD_S
     fused_tile_decode_s: float = DEFAULT_FUSED_TILE_DECODE_S
@@ -230,6 +235,14 @@ class MachineModel:
         """(row, column) alignment granule of an accumulator block."""
         return (self.sublanes[canonical_dtype(dtype)], self.lanes)
 
+    # Roofline helpers (the reference's) ----------------------------------
+    def compute_seconds(self, flops: float, dtype="bfloat16",
+                        chips: int = 1) -> float:
+        return flops / (self.peak(dtype) * chips)
+
+    def memory_seconds(self, nbytes: float, chips: int = 1) -> float:
+        return nbytes / (self.hbm_bw * chips)
+
     def collective_seconds(self, nbytes: float, chips: int = 1,
                            collective: str = "all_gather") -> float:
         """Seconds to move ``nbytes`` through one ``collective``.
@@ -318,16 +331,20 @@ TPU_V5E = MachineModel(
     sublanes={"float32": 8, "bfloat16": 16, "float16": 16, "int8": 32,
               "float8_e4m3": 32, "float64": 8},
     lanes=128,
+    hbm_bytes=16 * 1024**3,
     ici_bw_per_link=50e9,
     ici_links=4,
+    dcn_bw=25e9 / 8,
 )
 
 # NVIDIA H100 SXM (NVIDIA's H100 data sheet, SXM5 part, dense rates
 # without sparsity, at the 700 W limit): 989 TFLOP/s bf16/fp16, 1,979
 # TFLOP/s fp8 (e4m3) and 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s
 # fp32 outside them (the port's fp32 GEMMs never use TF32), 80 GB HBM3 at
-# 3.35 TB/s, 227 KB shared memory per block.  NVLink 4 (the same data
-# sheet): 18 links, 900 GB/s in total, so 50 GB/s a link.
+# 3.35 TB/s (five 16 GiB stacks: 80 GiB), 227 KB shared memory per block.
+# NVLink 4 (the same data sheet): 18 links, 900 GB/s in total, so 50 GB/s
+# a link.  Across hosts (NVIDIA's DGX H100 data sheet): one 400 Gb/s
+# ConnectX-7 NDR port per GPU, so 50e9 bytes/s a device.
 H100_SXM = MachineModel(
     name="h100_sxm",
     peak_flops={"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
@@ -337,8 +354,10 @@ H100_SXM = MachineModel(
     sublanes={"float32": 16, "bfloat16": 16, "float16": 16, "int8": 16,
               "float8_e4m3": 16, "float64": 16},
     lanes=64,
+    hbm_bytes=80 * 1024**3,
     ici_bw_per_link=900e9 / 18,
     ici_links=18,
+    dcn_bw=400e9 / 8,
     # A kernel launch costs a few microseconds; tiles run in parallel on
     # 132 SMs, so a tile step costs ~1/132 of a serial one.
     step_overhead_s=2.0e-8,

@@ -157,9 +157,16 @@ class _FlashFn(torch.autograd.Function):
         # The forward with the LSE rows drained for the backward walk: the
         # same schedule and online-softmax math, one launch.
         qf, kf, vf = qf.contiguous(), kf.contiguous(), vf.contiguous()
-        engine.count_launches("flash_attention", 1)
-        o, lse = flash_fwd_fused(_fused_executor(desc, plan, qf.device),
-                                 qf, kf, vf, return_lse=True)
+        if engine.traced_call(desc, (qf, kf, vf)):
+            o = desc.meta_output()
+            lse = torch.empty(qf.shape[:2], dtype=torch.float32,
+                              device="meta")
+        else:
+            engine.count_launches("flash_attention", 1)
+            with engine.engine_work():
+                o, lse = flash_fwd_fused(
+                    _fused_executor(desc, plan, qf.device), qf, kf, vf,
+                    return_lse=True)
         ctx.save_for_backward(qf, kf, vf, o, lse)
         return o
 

@@ -124,8 +124,14 @@ class _SsdFn(torch.autograd.Function):
         # The forward with the entering states drained for the reverse
         # walk: the same carried-state math, one launch.
         ops = _contiguous(c, b, l, x, decay_in, decay_out, s0)
-        engine.count_launches("ssd_chunk", 1)
-        y, sf, states = ssd_scan_fused(*ops, return_states=True)
+        if engine.traced_call(desc, ops):
+            y, sf = desc.meta_output()
+            states = torch.empty((desc.groups, desc.chunks, desc.p, desc.n),
+                                 dtype=torch.float32, device="meta")
+        else:
+            engine.count_launches("ssd_chunk", 1)
+            with engine.engine_work():
+                y, sf, states = ssd_scan_fused(*ops, return_states=True)
         ctx.save_for_backward(*ops[:6], states)
         return y, sf
 

@@ -24,11 +24,14 @@ class Init:
     the reference's distributions: N(0, 1) / sqrt(fan_in) for linear
     weights, N(0, 0.02^2) for embeddings, ones for norm scales, zeros for
     biases.  (The numbers differ from JAX's: tests convert JAX-initialised
-    parameters instead, see ``repro_torch.convert``.)"""
+    parameters instead, see ``repro_torch.convert``.)  On the meta device
+    (the dry-run's shape-only builds) nothing is drawn: there is no
+    generator there, and the tensors hold no values."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.gen = None if self.device.type == "meta" else \
+            torch.Generator(device=self.device).manual_seed(seed)
 
     def normal(self, shape, scale: float) -> torch.Tensor:
         return scale * torch.randn(shape, generator=self.gen,

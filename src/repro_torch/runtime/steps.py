@@ -218,3 +218,31 @@ def make_paged_serve_step(model):
         return tok[:, None], new_cache, new_lengths
 
     return paged_serve_step
+
+
+# ---------------------------------------------------------------------------
+# shape-only helpers for the dry-run
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg, seed: int = 0):
+    """The model built on the meta device: every parameter's shape and
+    dtype, no storage (grok-1's 316 B parameters cost nothing).  The
+    reference's ``eval_shape`` of its initialiser."""
+    from repro_torch.core.config import shape_only
+    with shape_only():
+        return model_for(cfg)(cfg, device="meta", seed=seed)
+
+
+def cache_shapes(cfg, batch: int, capacity: int, model=None):
+    """The dense decode cache of ``batch`` x ``capacity`` on the meta
+    device (``model``: a meta model of ``cfg``, built when not given)."""
+    model = param_shapes(cfg) if model is None else model
+    return model.init_cache(batch, capacity)
+
+
+def opt_state_shapes(cfg, optimizer, params_shapes):
+    """``optimizer``'s state for the meta model ``params_shapes``, on the
+    meta device (factored where the reference factors its leaf)."""
+    from repro_torch.convert import reference_shapes
+    return optimizer.init(dict(params_shapes.named_parameters()),
+                          shapes=reference_shapes(cfg, params_shapes))
