@@ -12,6 +12,7 @@
   * ``refit``      -- cost-coefficient refit from tuning-cache timings
   * ``microbench`` -- device probes that calibrate a machine model
   * ``matmul``     -- the GEMM front door every model layer calls
+  * ``trace``      -- named spans on the profiler's clock
 """
 from repro_torch.core.descriptor import (  # noqa: F401
     FlashBwdDescriptor, FlashDecodeDescriptor, FlashDescriptor,

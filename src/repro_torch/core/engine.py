@@ -54,6 +54,7 @@ from .config import get_config
 from .descriptor import KernelDescriptor
 from .jit_cache import GLOBAL_KERNEL_CACHE, LruCache
 from .machine import MachineModel
+from .trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +193,10 @@ def _resolve_plan(desc: KernelDescriptor, cfg, *,
                                    cfg.tuning_cache_preload or "")
 
     def build_plan():
+        with span("engine.plan", family=desc.family):
+            return walk_tiers()
+
+    def walk_tiers():
         # Tier 1: the tuned caches, the writable one first.
         for path in (cfg.tuning_cache, cfg.tuning_cache_preload):
             if not path:
@@ -461,7 +466,11 @@ def resolve_fused(plan: Any) -> bool:
 def build_cached(key: tuple, builder: Callable[[], Any]) -> Any:
     """Kernel-cache helper for family executors; ``key`` starts with the
     family name (``desc.cache_key() + knobs``)."""
-    return GLOBAL_KERNEL_CACHE.get_or_build(key, builder)
+    def build():
+        with span("engine.build", family=key[0]):
+            return builder()
+
+    return GLOBAL_KERNEL_CACHE.get_or_build(key, build)
 
 
 _STAT_KEYS = ("plan_hits", "plan_misses", "plan_evictions", "planner_calls",

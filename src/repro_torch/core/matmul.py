@@ -28,6 +28,7 @@ from repro_torch.kernels.epilogue import apply_epilogue
 
 from .config import get_config
 from .descriptor import GemmDescriptor, check_bias
+from .trace import span
 
 # Epilogues with an activation, whose derivative needs the pre-activation.
 ACTIVATIONS = ("gelu", "silu", "relu", "bias_gelu", "bias_silu")
@@ -120,13 +121,14 @@ class _EngineGemm(torch.autograd.Function):
         if epilogue in ACTIVATIONS:
             # The activation's derivative needs the pre-activation: the only
             # case that recomputes the forward product (fp32, as the oracle).
-            pre = _product32(a, b, layout)
-            if c is not None:
-                pre = pre + c.float()
-            pre.requires_grad_(True)
-            with torch.enable_grad():
-                g, = torch.autograd.grad(apply_epilogue(pre, epilogue, bias),
-                                         pre, g)
+            with span("matmul.recompute"):
+                pre = _product32(a, b, layout)
+                if c is not None:
+                    pre = pre + c.float()
+                pre.requires_grad_(True)
+                with torch.enable_grad():
+                    g, = torch.autograd.grad(
+                        apply_epilogue(pre, epilogue, bias), pre, g)
         dc = g.to(c.dtype) if need_c else None
         dbias = g.reshape(-1, g.shape[-1]).sum(0).to(bias.dtype) \
             if need_bias else None

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.machine import torch_dtype
+from repro_torch.core.trace import span
 from repro_torch.models.attention import (Attention, KVCache, PagedKVCache,
                                           init_kv_cache, init_paged_kv_cache,
                                           paged_step)
@@ -93,10 +94,12 @@ class Block(nn.Module):
         cfg = self.cfg
         h = self.norm_mix(x, cfg.norm_eps)
         if self.kind in ("ssm", "rec"):
-            y, cache = self.mixer(h, state=cache)
+            with span(self.kind):
+                y, cache = self.mixer(h, state=cache)
         else:
-            y, cache = self.mixer(h, positions, cache=cache,
-                                  window=self.window, step=step)
+            with span("attention"):
+                y, cache = self.mixer(h, positions, cache=cache,
+                                      window=self.window, step=step)
         x = x + y
         x = shard_activation(x, (("pod", "data"), "model", None))
         if enc_out is not None and self.cross is not None:
@@ -106,10 +109,11 @@ class Block(nn.Module):
         aux = torch.zeros((), device=x.device)
         if cfg.block_has_mlp:
             h = self.norm_ff(x, cfg.norm_eps)
-            if cfg.num_experts:
-                y, aux = self.ff(h)
-            else:
-                y = self.ff(h)
+            with span("mlp"):
+                if cfg.num_experts:
+                    y, aux = self.ff(h)
+                else:
+                    y = self.ff(h)
             x = x + y
             x = shard_activation(x, (("pod", "data"), "model", None))
         return x, cache, aux

@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import matmul
 from repro_torch.core.config import get_config, pinned
+from repro_torch.core.trace import span
 
 
 class Init:
@@ -50,11 +51,13 @@ def cast_param(p, dtype):
     """``p`` in the compute dtype.  A quantized weight
     (:class:`~repro_torch.optim.compression.QuantizedTensor`) passes
     through untouched: its int8 values and f32 scales are its storage,
-    and the kernel dequantizes in its epilogue."""
+    and the kernel dequantizes in its epilogue.  A cast is a ``cast`` span
+    that carries the bytes it reads and writes."""
     from repro_torch.optim.compression import QuantizedTensor
     if isinstance(p, QuantizedTensor) or p.dtype == dtype:
         return p
-    return p.to(dtype)
+    with span("cast", bytes=p.numel() * (p.element_size() + dtype.itemsize)):
+        return p.to(dtype)
 
 
 def readout(x, w, dtype, out_dtype):
@@ -68,13 +71,14 @@ def readout(x, w, dtype, out_dtype):
     layout, and its gradient is the padded one's first vocab columns."""
     from repro_torch.optim.compression import QuantizedTensor
     n, unit = w.shape[-1], 16 // dtype.itemsize
-    if isinstance(w, QuantizedTensor) or n % unit == 0:
-        return matmul(x, cast_param(w, dtype), out_dtype=out_dtype)
-    wp = torch.empty((w.shape[0], -(-n // unit) * unit), dtype=dtype,
-                     device=w.device)
-    wp[:, n:] = 0
-    wp[:, :n] = w
-    return matmul(x, wp, out_dtype=out_dtype)[..., :n]
+    with span("readout"):
+        if isinstance(w, QuantizedTensor) or n % unit == 0:
+            return matmul(x, cast_param(w, dtype), out_dtype=out_dtype)
+        wp = torch.empty((w.shape[0], -(-n // unit) * unit), dtype=dtype,
+                         device=w.device)
+        wp[:, n:] = 0
+        wp[:, :n] = w
+        return matmul(x, wp, out_dtype=out_dtype)[..., :n]
 
 
 def tree_cast(params, dtype):
@@ -180,5 +184,6 @@ class Embedding(nn.Module):
         return self.table[ids].to(compute_dtype)
 
     def unembed(self, x, compute_dtype, out_dtype):
-        table = cast_param(self.table, compute_dtype)
-        return matmul(x, table, layout="nt", out_dtype=out_dtype)
+        with span("readout"):
+            table = cast_param(self.table, compute_dtype)
+            return matmul(x, table, layout="nt", out_dtype=out_dtype)

@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.core.config import get_config
 from repro_torch.core.machine import torch_dtype
+from repro_torch.core.trace import span
 from repro_torch.kernels.epilogue import apply_epilogue
 from repro_torch.models.common import Init, Linear, cast_param
 from repro_torch.runtime.shardlib import (axis_size, current_mesh,
@@ -92,25 +93,11 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(ff: MoE, cfg, x):
-    """x: (b, s, d) -> (y (b, s, d), aux_loss fp32 scalar)."""
-    dt = torch_dtype(cfg.dtype)
-    b, s, d = x.shape
+def _route(ff: MoE, cfg, xg, cap: int, dt):
+    """Routing and capacity assignment of ``xg`` (n, g, d): the dispatch
+    and combine one-hots (n, g, e, cap) in ``dt`` and the aux loss."""
+    n, g, _ = xg.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    t = b * s
-    g = min(cfg.moe_group, max(1, t // _MAX_BATCH_SHARDS))
-    while t % g:
-        g -= 1
-    n = t // g
-    cap = int(cfg.capacity_factor * g * k / e)
-    cap = max(8, -(-cap // 8) * 8)
-
-    mesh = current_mesh()
-    msize = axis_size(mesh, "model") if mesh is not None else 1
-    ep = msize > 1 and e % msize == 0  # expert parallelism when E divides
-
-    xg = x.reshape(n, g, d).to(dt)
-    xg = shard_activation(xg, (("pod", "data"), None, None))
 
     # --- routing (fp32) ---------------------------------------------------
     logits = torch.einsum("ngd,de->nge", xg.float(), ff.router.w.float())
@@ -137,6 +124,42 @@ def moe_apply(ff: MoE, cfg, x):
     dispatch = torch.einsum("ngke,ngkc->ngec", keep, slot_oh).to(dt)
     combine = torch.einsum("ngke,ngkc->ngec", keep * gate_vals[..., None],
                            slot_oh).to(dt)
+    return dispatch, combine, aux_loss
+
+
+def moe_apply(ff: MoE, cfg, x):
+    """x: (b, s, d) -> (y (b, s, d), aux_loss fp32 scalar).  Under a
+    profiler the call is a ``moe`` span that carries its tokens, groups,
+    capacity rows (what the expert GEMMs run over) and routed rows."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    t = x.shape[0] * x.shape[1]
+    g = min(cfg.moe_group, max(1, t // _MAX_BATCH_SHARDS))
+    while t % g:
+        g -= 1
+    n = t // g
+    cap = int(cfg.capacity_factor * g * k / e)
+    cap = max(8, -(-cap // 8) * 8)
+    with span("moe", tokens=t, groups=n, capacity_rows=n * e * cap,
+              routed_rows=t * k):
+        return _moe_grouped(ff, cfg, x, g, n, cap)
+
+
+def _moe_grouped(ff: MoE, cfg, x, g: int, n: int, cap: int):
+    """:func:`moe_apply` over ``n`` groups of ``g`` tokens with ``cap``
+    capacity slots an expert a group."""
+    dt = torch_dtype(cfg.dtype)
+    b, s, d = x.shape
+    e, t = cfg.num_experts, b * s
+
+    mesh = current_mesh()
+    msize = axis_size(mesh, "model") if mesh is not None else 1
+    ep = msize > 1 and e % msize == 0  # expert parallelism when E divides
+
+    xg = x.reshape(n, g, d).to(dt)
+    xg = shard_activation(xg, (("pod", "data"), None, None))
+
+    with span("moe.route"):
+        dispatch, combine, aux_loss = _route(ff, cfg, xg, cap, dt)
 
     # The reference's two layouts: expert parallelism (E divides "model":
     # slots on their experts' ranks, weights never move), or the TP-f

@@ -25,14 +25,26 @@ on the leaf as the reference holds it (``init``'s ``shapes``,
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.core.trace import span
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Dict[str, torch.Tensor]], Dict]
     update: Callable[..., Dict[str, torch.Tensor]]
+
+
+def _spanned(update):
+    """``update`` as an ``optim.update`` span."""
+    @functools.wraps(update)
+    def spanned(*args, **kwargs):
+        with span("optim.update"):
+            return update(*args, **kwargs)
+    return spanned
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -86,7 +98,7 @@ def adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             p.copy_(p.float() - lr_t * delta)
         return {"grad_norm": gnorm, "lr": lr_t}
 
-    return Optimizer(init, update)
+    return Optimizer(init, _spanned(update))
 
 
 _FACTOR_MIN_SIZE = 128  # factor v only for matrices with both dims >= this
@@ -182,4 +194,4 @@ def scalable_adamw(lr, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             p.copy_(p.float() - lr_t * delta)
         return {"grad_norm": gnorm, "lr": lr_t}
 
-    return Optimizer(init, update)
+    return Optimizer(init, _spanned(update))

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core.trace import span
 from repro_torch.models.attention import PageSpec
 from repro_torch.runtime import steps as steps_lib
 from repro_torch.runtime.pages import (OutOfPages, PagePool,
@@ -185,11 +186,12 @@ class ContinuousBatchingEngine:
         page_ids = self.pool.owned_pages(slot)
         page_ids += self.pool.grow(slot, L)
         t0 = time.perf_counter()
-        tokens = to_device(ctx.astype(np.int64)[None, :], self.device)
-        logits, dense = self._prefill_fn(L)({"tokens": tokens})
-        write_prefill(self.cache, dense, slot=slot, length=L,
-                      page_ids=page_ids, page_size=self.spec.page_size)
-        _sync(self.device)
+        with span("sched.prefill", rid=seq.req.rid, len=L):
+            tokens = to_device(ctx.astype(np.int64)[None, :], self.device)
+            logits, dense = self._prefill_fn(L)({"tokens": tokens})
+            write_prefill(self.cache, dense, slot=slot, length=L,
+                          page_ids=page_ids, page_size=self.spec.page_size)
+            _sync(self.device)
         self.phase_seconds["prefill"] += time.perf_counter() - t0
         if readmit:
             tok = seq.generated[-1]
@@ -249,6 +251,12 @@ class ContinuousBatchingEngine:
             seq.admit_order = self._admit_counter
             self._admit(seq, slot)
 
+    def _retire(self) -> None:
+        for slot, seq in enumerate(self.slots):
+            if seq is not None and seq.done:
+                self.finished[seq.req.rid] = seq
+                self._release(slot)
+
     def _grow_active(self) -> None:
         for slot, seq in enumerate(self.slots):
             if seq is None:
@@ -269,17 +277,12 @@ class ContinuousBatchingEngine:
         step decoded (0 = idle tick)."""
         t_admit = time.perf_counter()
         pf0 = self.phase_seconds["prefill"]
-        for slot, seq in enumerate(self.slots):
-            if seq is not None and seq.done:
-                self.finished[seq.req.rid] = seq
-                self._release(slot)
-        self._try_admissions()
-        # Admission emits one token (the prefill argmax): sequences that
-        # completed right there retire without ever decoding.
-        for slot, seq in enumerate(self.slots):
-            if seq is not None and seq.done:
-                self.finished[seq.req.rid] = seq
-                self._release(slot)
+        with span("sched.admit"):
+            self._retire()
+            self._try_admissions()
+            # Admission emits one token (the prefill argmax): sequences
+            # that completed right there retire without ever decoding.
+            self._retire()
         self.phase_seconds["admission"] += (
             time.perf_counter() - t_admit
             - (self.phase_seconds["prefill"] - pf0))
@@ -289,27 +292,31 @@ class ContinuousBatchingEngine:
         # Growth may evict: the mask MUST be taken after it, or an evicted
         # slot would decode as active and write its KV through the zeroed
         # block table into page 0 (owned by someone else).
-        self._grow_active()
-        active_mask = np.array([s is not None for s in self.slots])
-        n_active = int(active_mask.sum())
-        if n_active == 0:
-            return 0
-        if self._tables_dirty:
-            refresh_tables(self.cache, self.pool.device_tables(self.device))
-            self._tables_dirty = False
+        with span("sched.grow"):
+            self._grow_active()
+            active_mask = np.array([s is not None for s in self.slots])
+            n_active = int(active_mask.sum())
+            if n_active == 0:
+                return 0
+            if self._tables_dirty:
+                refresh_tables(self.cache,
+                               self.pool.device_tables(self.device))
+                self._tables_dirty = False
         t_dec = time.perf_counter()
-        inputs = to_device(np.stack([self.next_token, self.lengths,
-                                     active_mask.astype(np.int64)]),
-                           self.device)
-        toks, self.cache, _ = self._step(self.cache, inputs[0][:, None],
-                                         inputs[1], inputs[2].bool())
-        toks = toks[:, 0].cpu().numpy()  # the step's one host sync
-        for slot, seq in enumerate(self.slots):
-            if seq is None or not active_mask[slot]:
-                continue
-            self._emit(seq, int(toks[slot]))
-            self.lengths[slot] += 1
-            self.next_token[slot] = int(toks[slot])
+        with span("sched.decode", active=n_active):
+            inputs = to_device(np.stack([self.next_token, self.lengths,
+                                         active_mask.astype(np.int64)]),
+                               self.device)
+            toks, self.cache, _ = self._step(self.cache, inputs[0][:, None],
+                                             inputs[1], inputs[2].bool())
+            with span("sched.readback"):
+                toks = toks[:, 0].cpu().numpy()  # the step's one host sync
+            for slot, seq in enumerate(self.slots):
+                if seq is None or not active_mask[slot]:
+                    continue
+                self._emit(seq, int(toks[slot]))
+                self.lengths[slot] += 1
+                self.next_token[slot] = int(toks[slot])
         self.phase_seconds["decode"] += time.perf_counter() - t_dec
         return n_active
 
