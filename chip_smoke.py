@@ -8,7 +8,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   1. device  -- the card's name, the device count and nvidia-smi's name and
                 power limit; no CUDA device is a failure;
   2. build   -- nvcc builds every kernel source in the checkout;
-  3. kernels -- each of the sixteen kernels against its plain torch version on
+  3. kernels -- each of the seventeen kernels against its plain torch version on
                 the card, at the full-width main-path shapes of Qwen3-0.6B (serving:
                 batch 4, prompt 256; training: batch 8, sequence 128;
                 continuous decode: 8 slots over a paged pool), of
@@ -38,7 +38,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 its route and split (a main-path bf16 row off routes A and
                 B fails), the decode rows (M <= 16) also their device time
                 and their time after an L2 flush (CUDA graphs, beside the
-                library's); the flash forwards (fused and dense) on the
+                library's); the GEMM backward's fused recompute
+                (gemm_act_bwd) at the training rows of qwen3-0.6b's and
+                phi3-mini's gates (phi3-mini's at 8 x 4,096) and of
+                starcoder2's biased gelu up projection (fp32 output), and
+                on routes B and C, against its fp32 form, each row naming
+                its route; the flash forwards (fused and dense) on the
                 main-path shapes and on cases that drive each route of
                 flash_fwd.cu (ragged causal and non-causal bf16, heads of
                 very different magnitude, d 36: route C, fp32), each row
@@ -142,7 +147,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                 under the engine and the torch backends, within stated
                 bounds; 4 steps through run_with_restarts with checkpoints
                 every 2 steps and no restart allowed, finite losses and
-                exact launch counts per step; the step-2 checkpoint restored and stepped again, equal
+                exact launch counts per step (the fused recomputes of
+                the GEMM backward among them); the step-2 checkpoint restored and stepped again, equal
                 to the run's steps 3 and 4 within stated tolerances; a
                 profile of one more step;
   8. serve_ssm -- full-width mamba2-130m (seeded random weights, bf16) through
@@ -901,6 +907,13 @@ KERNELS = {
                    "src/repro/kernels/gemm/kernel.py:266"),
     "gemm_region": ("src/repro_torch/kernels/gemm/csrc/gemm.cu",
                     "src/repro/kernels/gemm/kernel.py:96"),
+    # The GEMM backward's recompute of an activation's pre-activation, the
+    # derivative in its epilogue: the reference recomputes with XLA's dot
+    # (no TPU kernel); its library is cuBLAS's bf16 product and aten's
+    # activation backward.
+    "gemm_act_bwd": ("src/repro_torch/kernels/gemm/csrc/gemm.cu",
+                     "src/repro/core/matmul.py:137",
+                     "cuBLAS bf16 product + aten activation backward"),
     "flash_fwd_fused": ("src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
                         "src/repro/kernels/flash_attention/kernel.py:204"),
     "flash_fwd_dense": ("src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
@@ -1267,6 +1280,122 @@ def run_gemm_case(torch, case, gen):
                  f"{routes}, not A or B")
         rows.append(row)
     return rows
+
+
+def gemm_act_bwd_cases():
+    """(label, m, n, k, layout, epilogue, accumulate, batch, out dtype,
+    route, main) of the GEMM backward's fused recompute: the main path's
+    at its training rows -- qwen3-0.6b's gate (the train phase), phi3-mini's
+    gate at 8 x 4,096 rows (the benchmark's phi3mini-train), starcoder2's
+    biased gelu up projection, whose output is fp32 (the bias takes its
+    gradient) -- and off it route B (decode rows, K split) and route C
+    (K off 16-byte rows, C, an fp32 output)."""
+    d, ff = 1024, 3072
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    return [
+        ("train_gate_silu", rows, ff, d, "nn", "silu", False, 0, "bfloat16",
+         "A", True),
+        ("phi3_train_gate_silu", 8 * 4096, 8192, 3072, "nn", "silu", False,
+         0, "bfloat16", "A", True),
+        ("starcoder2_train_up_bias_gelu", rows, 24576, 6144, "nn",
+         "bias_gelu", False, 0, "float32", "A", True),
+        ("route_b_decode_split_k1096_silu", 4, 1024, 1096, "nn", "silu",
+         False, 0, "bfloat16", "B", False),
+        ("route_c_k1001_bias_gelu_acc_nt", 97, 103, 1001, "nt", "bias_gelu",
+         True, 0, "float32", "C", False),
+    ]
+
+
+# gemm_act_bwd against its fp32 form: a bf16 output within two bf16 ulps of
+# the largest entry (one rounding each side of values a few fp32 ulps
+# apart); an fp32 output, rounded nowhere, within ACT_BWD_F32_TOL of each
+# entry plus of the largest (one bf16 rounding on the way is 2**-9).
+ACT_BWD_F32_TOL = 1e-4
+
+
+def run_gemm_act_bwd_case(torch, case, gen):
+    """One fused recompute (``gemm_act_bwd``, on the forward's plan) against
+    its fp32 form (``gemm_act_bwd_plain``: the fp32 product and autograd of
+    the epilogue, the backward's route off the card's bf16 path), beside
+    the library: cuBLAS's bf16 product, then aten's activation backward."""
+    from repro_torch.core import GemmDescriptor, plan_gemm
+    from repro_torch.kernels.gemm import kernel as gk
+    label, m, n, k, layout, epi, acc, nb, oname, route, main_path = case
+    odt = getattr(torch, oname)
+    nbx = max(1, nb)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).bfloat16()
+
+    a = rnd(nbx, m, k)
+    b = rnd(nbx, *((k, n) if layout == "nn" else (n, k)), scale=k ** -0.5)
+    c = rnd(nbx, m, n) if acc else None
+    bias = rnd(n) if epi.startswith("bias") else None
+    dy = rnd(nbx, m, n)
+    plan = plan_gemm(GemmDescriptor(m=m, n=n, k=k, layout=layout,
+                                    in_dtype="bfloat16", out_dtype="bfloat16",
+                                    epilogue=epi, accumulate=acc, batch=nb))
+    exe = gk.FusedGemm(plan.tile_schedule(), "cuda")
+    kw = dict(layout=layout, epilogue=epi, bias=bias, c=c)
+
+    def fused():
+        return gk.gemm_act_bwd(exe, a, b, dy, out_dtype=odt, **kw)
+
+    def plain():
+        return gk.gemm_act_bwd_plain(a, b, dy, **kw)
+
+    def library():
+        pre = torch.matmul(a, b if layout == "nn" else b.transpose(1, 2))
+        if c is not None:
+            pre = pre + c
+        if bias is not None:
+            pre = pre + bias
+        if epi in ("gelu", "bias_gelu"):
+            return torch.ops.aten.gelu_backward(dy, pre, approximate="tanh")
+        if epi in ("silu", "bias_silu"):
+            return torch.ops.aten.silu_backward(dy, pre)
+        return torch.ops.aten.threshold_backward(dy, pre, 0)
+
+    before = dict(gk.ROUTES)
+    got, want = fused(), plain()
+    torch.cuda.synchronize()
+    routes = {r: gk.ROUTES[r] - before[r] for r in gk.ROUTES
+              if gk.ROUTES[r] != before[r]}
+    if not torch.isfinite(got.float()).all():
+        fail(f"gemm_act_bwd {label}: output is not finite")
+    err = (got.float() - want).abs()
+    top = want.abs().max().item()
+    if oname == "float32":
+        tol = ACT_BWD_F32_TOL
+        nbad = int((err > tol * (want.abs() + top)).sum().item())
+    else:
+        tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+        nbad = int((err > tol).sum().item())
+    max_abs = err.max().item()
+    del got, want, err
+    nbytes = (2 * nbx * (m * k + k * n + m * n * (2 if acc else 1))
+              + odt.itemsize * nbx * m * n + (2 * n if bias is not None
+                                                else 0))
+    big = m * n * k >= 1 << 36
+    row = dict(phase="kernel", kernel="gemm_act_bwd", case=label,
+               main_path=main_path, shape=[nb, m, n, k], layout=layout,
+               epilogue=epi, dtype="bfloat16", out_dtype=oname,
+               accumulate=acc, blocks=[[r.bm, r.bn] for r in plan.regions],
+               route=next(iter(routes), None), routes=routes,
+               max_abs_err=max_abs, max_rel_err=max_abs / max(top, 1e-30),
+               tolerance=tol, mismatches=nbad,
+               ms=time_ms(torch, fused, 5 if big else 20),
+               plain_ms=time_ms(torch, plain, 2),
+               library_ms=time_ms(torch, library, 5 if big else 20),
+               **bound(nbytes, 2 * nbx * m * n * k, "bfloat16"))
+    emit(**row)
+    if nbad:
+        fail(f"gemm_act_bwd {label}: {nbad} elements outside the tolerance "
+             f"{tol}")
+    if list(routes) != [route]:
+        fail(f"gemm_act_bwd {label}: took route(s) {routes}, not {route}")
+    return [row]
 
 
 # Per-head scales of the heads_magnitude case: neighbouring heads that
@@ -2722,6 +2851,8 @@ def phase_kernels(torch):
     rows = []
     for case in gemm_cases():
         rows += run_gemm_case(torch, case, gen)
+    for case in gemm_act_bwd_cases():
+        rows += run_gemm_act_bwd_case(torch, case, gen)
     for case in flash_cases():
         rows += run_flash_case(torch, case, gen)
     for case in flash_bwd_cases():
@@ -2799,6 +2930,8 @@ def _read_counts():
             "engine_ssd_launches_bwd": st.get("ssd_chunk", {})
             .get("launches_bwd", 0),
             "engine_gemm_launches": st.get("gemm", {}).get("launches", 0),
+            "engine_gemm_launches_bwd": st.get("gemm", {})
+            .get("launches_bwd", 0),
             "engine_gemm_calls": st.get("gemm", {}).get("plan_hits", 0)
             + st.get("gemm", {}).get("plan_misses", 0),
             "engine_flash_launches": st.get("flash_attention", {})
@@ -2820,6 +2953,9 @@ def _gemm_launch_gap(counts):
         bad["gemm kernels vs engine"] = (
             counts["gemm_fused"] + counts["gemm_region"],
             counts["engine_gemm_launches"])
+    if counts["gemm_act_bwd"] != counts["engine_gemm_launches_bwd"]:
+        bad["gemm_act_bwd vs engine"] = (counts["gemm_act_bwd"],
+                                         counts["engine_gemm_launches_bwd"])
     return bad
 
 
@@ -3694,7 +3830,7 @@ def _train_want(cfg):
         # three expert GEMMs forward (up, gate with its silu, down) and, in
         # the backward, the gate's pre-activation recomputed to peel the
         # silu off, then one backward walk per expert GEMM
-        return {"engine_gemm_calls": 4 * fwd + 1,
+        return {"engine_gemm_calls": 4 * fwd + 1, **_act_bwd_want(cfg),
                 "flash_fwd_fused": fwd, "flash_fwd_dense": 0,
                 "flash_bwd_fused": L, "engine_flash_launches": fwd,
                 "engine_flash_launches_bwd": L,
@@ -3704,7 +3840,8 @@ def _train_want(cfg):
     if cfg.block_pattern == ("ssm",):
         # two projections a layer pass and the tied read-out; the scan with
         # its entering states forward, the reverse walk backward
-        return {"engine_gemm_calls": 2 * fwd + 1, "ssd_scan_fused": fwd,
+        return {"engine_gemm_calls": 2 * fwd + 1, **_act_bwd_want(cfg),
+                "ssd_scan_fused": fwd,
                 "ssd_chunk_diag": 0, "ssd_scan_bwd": L,
                 "engine_ssd_launches": fwd, "engine_ssd_launches_bwd": L,
                 "flash_fwd_fused": 0, "flash_bwd_fused": 0}
@@ -3715,7 +3852,7 @@ def _train_want(cfg):
         # an encoder layer and twice a decoder layer backward
         flash_fwd = 2 * (cfg.num_encoder_layers + 2 * L)
         flash_bwd = cfg.num_encoder_layers + 2 * L
-        return {**_encdec_gemm_want(cfg, passes=2),
+        return {**_encdec_gemm_want(cfg, passes=2), **_act_bwd_want(cfg),
                 "flash_fwd_fused": flash_fwd, "flash_fwd_dense": 0,
                 "flash_bwd_fused": flash_bwd,
                 "engine_flash_launches": flash_fwd,
@@ -3729,11 +3866,26 @@ def _train_want(cfg):
     if cfg.modality == "vision":
         gemms["engine_gemm_calls"] += 2
         gemms["gemm_fused"] += 2
-    return {**gemms,
+    return {**gemms, **_act_bwd_want(cfg),
             "flash_fwd_fused": _flash_calls(cfg, recompute=True),
             "flash_fwd_dense": 0, "flash_bwd_fused": flash,
             "engine_flash_launches": _flash_calls(cfg, recompute=True),
             "engine_flash_launches_bwd": flash}
+
+
+def _act_bwd_want(cfg):
+    """Fused recomputes of a training step (``gemm_act_bwd`` launches and
+    the gemm family's ``launches_bwd``): one for each GEMM with an
+    activation epilogue, whose backward runs once a step, remat or not --
+    the dense MLP's gate (gated) or up projection in every decoder and
+    encoder layer, RG-LRU's lin_y, a vision prefix's proj1.  The expert
+    GEMMs of a mixture of experts are the grouped family's; mamba2's
+    projections carry no activation."""
+    dense = cfg.num_layers if cfg.block_has_mlp and not cfg.num_experts \
+        else 0
+    n = dense + cfg.num_encoder_layers + _kinds(cfg).count("rec") \
+        + (cfg.modality == "vision")
+    return {"gemm_act_bwd": n, "engine_gemm_launches_bwd": n}
 
 
 def _encdec_gemm_want(cfg, passes):

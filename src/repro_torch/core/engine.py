@@ -240,6 +240,13 @@ def plan_for(desc: KernelDescriptor,
     return _resolve_plan(desc, get_config(), machine=machine)
 
 
+def resolve(desc: KernelDescriptor, *operands, **kw) -> Any:
+    """The plan :func:`dispatch` runs ``desc`` with on these operands (the
+    three tiers behind the plan cache): a caller that keeps it, such as a
+    backward that runs the forward's plan, resolves it once."""
+    return _resolve_plan(desc, get_config(), operands=operands, kw=kw)
+
+
 def dispatch(desc: KernelDescriptor, *operands, plan: Any = None, **kw) -> Any:
     """Run one kernel request: plan (three tiers behind the plan cache,
     unless ``plan`` is given), then execute.  Under :func:`trace_costs`
@@ -251,7 +258,7 @@ def dispatch(desc: KernelDescriptor, *operands, plan: Any = None, **kw) -> Any:
         return desc.meta_output()
     _seen_descs.setdefault(desc.cache_key(), desc)
     if plan is None:
-        plan = _resolve_plan(desc, get_config(), operands=operands, kw=kw)
+        plan = resolve(desc, *operands, **kw)
     with engine_work():
         return fam.execute(desc, plan, *operands, **kw)
 

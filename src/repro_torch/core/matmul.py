@@ -11,6 +11,16 @@ cotangent is rounded to the operands' dtype and dA / dB come out in the
 operands' dtypes, accumulated in fp32 -- bf16 gradients from bf16
 operands, as the reference's XLA path gives them.
 
+An activation epilogue's derivative needs the pre-activation, which the
+backward recomputes (span ``matmul.recompute``, attribute ``route``), as
+the reference's oracle does with XLA's dot of the bf16 operands and fp32
+accumulation.  bf16 operands on the card take route "fused": the engine's
+bf16 GEMM on the forward's plan, the derivative times the cotangent in its
+epilogue (``kernels/gemm/ops.py::act_bwd``).  The rest take route
+"plain" (``kernels/gemm/kernel.py::gemm_act_bwd_plain``): the fp32 product
+of the upcast operands (every bf16 product is exact in fp32; TF32 off) and
+autograd of the epilogue.
+
 A :class:`~repro_torch.optim.compression.QuantizedTensor` ``b`` (W8A16
 weights quantized at load) takes the inference path
 :func:`_w8a16_matmul`: the engine's quantized GEMM, or under ``torch`` the
@@ -24,14 +34,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import disable_tf32
-from repro_torch.kernels.epilogue import apply_epilogue
+from repro_torch.kernels.epilogue import ACTIVATIONS, apply_epilogue
 
 from .config import get_config
 from .descriptor import GemmDescriptor, check_bias
 from .trace import span
-
-# Epilogues with an activation, whose derivative needs the pre-activation.
-ACTIVATIONS = ("gelu", "silu", "relu", "bias_gelu", "bias_silu")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
@@ -99,8 +106,9 @@ def _w8a16_matmul(a, bq, be, layout, epilogue, bias, out_dtype):
 class _EngineGemm(torch.autograd.Function):
     """Engine GEMM with a differentiable front: the forward is the planned
     kernel dispatch, the backward is the reference's (``_engine_vjp_bwd``,
-    the VJP of its XLA oracle): the output cotangent in fp32 through the
-    epilogue, then :func:`_dot_bwd` for the operands."""
+    the VJP of its XLA oracle): the output cotangent through the epilogue
+    (:func:`_pre_activation_grad` for an activation), then
+    :func:`_dot_bwd` for the operands."""
 
     @staticmethod
     def forward(ctx, a, b, c, bias, layout, epilogue, out_dtype, plan):
@@ -108,32 +116,52 @@ class _EngineGemm(torch.autograd.Function):
         desc = GemmDescriptor.from_operands(
             a, b, layout=layout, accumulate=c is not None, epilogue=epilogue,
             out_dtype=out_dtype)
+        if plan is None and not a.is_meta:
+            # Resolved on the caller's thread, under its configuration, so
+            # that the backward (on autograd's thread) runs the same plan.
+            plan = engine.resolve(desc, a, b, bias=bias, c=c)
         ctx.save_for_backward(a, b, c, bias)
-        ctx.opts = (layout, epilogue)
+        ctx.opts = (desc, plan)
         return engine.dispatch(desc, a, b, plan=plan, bias=bias, c=c)
 
     @staticmethod
     def backward(ctx, g):
         a, b, c, bias = ctx.saved_tensors
-        layout, epilogue = ctx.opts
+        desc, plan = ctx.opts
         need_a, need_b, need_c, need_bias = ctx.needs_input_grad[:4]
-        g = g.float()  # the output cast's transpose
-        if epilogue in ACTIVATIONS:
-            # The activation's derivative needs the pre-activation: the only
-            # case that recomputes the forward product (fp32, as the oracle).
-            with span("matmul.recompute"):
-                pre = _product32(a, b, layout)
-                if c is not None:
-                    pre = pre + c.float()
-                pre.requires_grad_(True)
-                with torch.enable_grad():
-                    g, = torch.autograd.grad(
-                        apply_epilogue(pre, epilogue, bias), pre, g)
+        if desc.epilogue in ACTIVATIONS:
+            # fp32 where the bias's row sum or an fp32 C's gradient reads it.
+            wide = need_bias or (need_c and c.dtype == torch.float32)
+            g = _pre_activation_grad(desc, plan, a, b, c, bias, g, wide)
+        else:
+            g = g.float()  # the output cast's transpose
         dc = g.to(c.dtype) if need_c else None
         dbias = g.reshape(-1, g.shape[-1]).sum(0).to(bias.dtype) \
             if need_bias else None
-        da, db = _dot_bwd(a, b, g, layout, need_a, need_b)
+        da, db = _dot_bwd(a, b, g, desc.layout, need_a, need_b)
         return da, db, dc, dbias, None, None, None, None
+
+
+def _pre_activation_grad(desc, plan, a, b, c, bias, g, wide):
+    """The cotangent of the pre-activation ``c? + a @ op(b) (+ bias)``
+    given the output's ``g``: the one case of the backward that recomputes
+    the forward product.  Route "fused" (bf16 operands on the card) writes
+    it once, in ``a.dtype`` -- the rounding :func:`_dot_bwd` applies -- or
+    in fp32 where ``wide``; route "plain" gives fp32."""
+    fused = _fused_recompute(a)
+    with span("matmul.recompute", route="fused" if fused else "plain"):
+        if fused:
+            from repro_torch.kernels.gemm.ops import act_bwd
+            return act_bwd(desc, plan, a, b, g, bias=bias, c=c,
+                           out_dtype=torch.float32 if wide else a.dtype)
+        from repro_torch.kernels.gemm.kernel import gemm_act_bwd_plain
+        return gemm_act_bwd_plain(a, b, g, layout=desc.layout,
+                                  epilogue=desc.epilogue, bias=bias, c=c)
+
+
+def _fused_recompute(a) -> bool:
+    """Route "fused" is for bf16 operands on the card."""
+    return a.is_cuda and a.dtype == torch.bfloat16
 
 
 def _product32(a, b, layout):

@@ -21,6 +21,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.descriptor import BIAS_EPILOGUES
 
+# Epilogues with an activation, whose derivative needs the pre-activation.
+ACTIVATIONS = ("gelu", "silu", "relu", "bias_gelu", "bias_silu")
+
 
 def needs_bias(epilogue: Optional[str]) -> bool:
     """Does this epilogue consume a bias operand?"""
@@ -43,3 +46,4 @@ def apply_epilogue(x: torch.Tensor, epilogue: Optional[str],
     elif epilogue == "relu":
         x = torch.clamp_min(x, 0)
     return x
+

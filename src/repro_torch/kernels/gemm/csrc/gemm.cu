@@ -60,6 +60,20 @@
 //
 // The epilogue runs on the fp32 accumulator: + C_in, + bias, activation
 // (gelu is the tanh approximation), then the cast to the output type.
+//
+// gemm_act_bwd is the backward epilogue of an activation GEMM on the same
+// bf16 tile: the pre-activation's product again, then
+//   dpre = dy * act'(A @ op(B) + C_in + bias)
+// with the cotangent dy (bf16 or fp32, (nb, m, n)) read the way C_in is,
+// and dpre written once in the output type.  It replaces no TPU kernel:
+// the reference's backward recomputes the product with XLA's dot on the
+// bf16 operands, accumulating in fp32, as this does.  At the training
+// shapes (e.g. phi3-mini's gate, 32768 x 8192 x 3072) it is the forward's
+// product plus one read of dy and one write of dpre, so the tensor cores
+// bound it as they bound the forward.  It walks the forward plan's tile
+// table (gemm_fused's), on routes A, B and C; its kernel is a separate
+// entry point (gemm_bf16_bwd_kernel) over the tile routines' GRAD variant,
+// so the forward kernels compile as they did.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -185,6 +199,15 @@ struct F32Route {
   }
 };
 
+// Route R's tile with the backward epilogue (wgmma_tile.cuh's GRAD).
+template <typename R>
+struct ActGrad {
+  template <int BM, int BN>
+  static __device__ __forceinline__ void run(const Tile& t, const Maps& m) {
+    R::template run<BM, BN, true>(t, m);
+  }
+};
+
 template <typename T, int BM, int BN>
 __device__ __forceinline__ void tile(const Tile& t, const Maps& m) {
   if constexpr (std::is_same<T, F32Route>::value)
@@ -262,6 +285,31 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap ma16,
   tile_by_shape<R>(shape, t, Maps{&ma16, &ma, &mb});
 }
 
+// The backward epilogue's kernel: gemm_bf16_kernel's block with the
+// cotangent dy, over route R's GRAD tiles.
+struct GradArgs {
+  const void* dy;
+  int dy_dtype;
+};
+
+template <typename R>
+__global__ void __launch_bounds__(2 * WG_THREADS + PRODUCER_THREADS, 2)
+gemm_bf16_bwd_kernel(const __grid_constant__ CUtensorMap ma16,
+                     const __grid_constant__ CUtensorMap ma,
+                     const __grid_constant__ CUtensorMap mb,
+                     const __grid_constant__ GemmArgs g, const TileSrc src,
+                     const GradArgs d) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Tile t;
+  t.g = g;
+  t.dy = d.dy;
+  t.dy_dtype = d.dy_dtype;
+  const int shape = resolve_tile(src, t);
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  t.smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  tile_by_shape<ActGrad<R>>(shape, t, Maps{&ma16, &ma, &mb});
+}
+
 template <typename R>
 __global__ void __launch_bounds__(NT)
 gemm_f32_kernel(const __grid_constant__ GemmArgs g, const TileSrc src) {
@@ -283,15 +331,23 @@ int consumer_wgs(int route, int max_bm) {
   return route == ROUTE_C || max_bm > 64 ? 2 : 1;
 }
 
-template <typename R>
+// GRAD: the backward epilogue's kernel, with its cotangent `d`.
+template <typename R, bool GRAD = false>
 cudaError_t launch_bf16(const GemmArgs& g, const TileSrc& src, int tiles,
-                        int nb, cudaStream_t s) {
+                        int nb, cudaStream_t s, const GradArgs& d = {}) {
   constexpr bool tma = std::is_same<R, TmaRoute>::value;
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gemm_bf16_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        tma ? ring_bytes(2) : LD_SMEM);
+    const int bytes = tma ? ring_bytes(2) : LD_SMEM;
+    cudaError_t e;
+    if constexpr (GRAD)
+      e = cudaFuncSetAttribute(gemm_bf16_bwd_kernel<R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    else
+      e = cudaFuncSetAttribute(gemm_bf16_kernel<R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -326,8 +382,12 @@ cudaError_t launch_bf16(const GemmArgs& g, const TileSrc& src, int tiles,
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<R>, ma16,
-                                           ma, mb, g, src);
+  cudaError_t e;
+  if constexpr (GRAD)
+    e = cudaLaunchKernelEx(&cfg, gemm_bf16_bwd_kernel<R>, ma16, ma, mb, g,
+                           src, d);
+  else
+    e = cudaLaunchKernelEx(&cfg, gemm_bf16_kernel<R>, ma16, ma, mb, g, src);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -364,6 +424,31 @@ extern "C" int gemm_fused(const void* a, const void* b, const void* bias,
               consumer_wgs(route, max_bm)};
   return launch(g, src, in_dtype, route, num_tiles, nb,
                 static_cast<cudaStream_t>(stream));
+}
+
+// The backward epilogue over gemm_fused's tile table (bf16 operands only):
+// out = dy * act'(C? + A @ op(B) (+ bias)) for an activation epilogue `epi`.
+extern "C" int gemm_act_bwd(const void* a, const void* b, const void* bias,
+                            const void* c, const void* dy, void* out,
+                            const int* table, const int* blocks,
+                            int num_tiles, int nb, int m, int n, int k,
+                            int nt, int bias_dtype, int c_dtype,
+                            int dy_dtype, int out_dtype, int epi, int route,
+                            int split, int max_bm, void* stream) {
+  if (epi < EPI_GELU || epi > EPI_BIAS_SILU || num_tiles <= 0 || split < 1 ||
+      split > MAX_CLUSTER)
+    return cudaErrorInvalidValue;
+  GemmArgs g{a, b, bias, c, out, m, n, k, nt, bias_dtype, c_dtype, out_dtype,
+             epi};
+  TileSrc src{table, blocks, 0, 0, 0, 0, 0, 1, 1, split,
+              consumer_wgs(route, max_bm)};
+  const GradArgs d{dy, dy_dtype};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == ROUTE_C)
+    return launch_bf16<LdRoute, true>(g, src, num_tiles, nb, s, d);
+  if (route == ROUTE_A || route == ROUTE_B)
+    return launch_bf16<TmaRoute, true>(g, src, num_tiles, nb, s, d);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int gemm_region(const void* a, const void* b, const void* bias,

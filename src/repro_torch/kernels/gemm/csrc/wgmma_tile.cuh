@@ -15,6 +15,11 @@
 // A row alone, so A rows that the tile loads but does not own (another
 // group's, or padding that holds NaN) reach only rows that are never
 // stored.
+//
+// A GRAD tile (the dense GEMM's backward epilogue) ends in the activation's
+// derivative instead: dpre = dy * act'(acc + C_in + bias), with the
+// cotangent dy read the way C_in is.  GRAD is a template parameter, so the
+// forward tiles compile as they do without it.
 
 #pragma once
 
@@ -92,6 +97,8 @@ struct Tile {
   int rank, split, nwg;
   int bbatch, live;
   unsigned char* smem;
+  const void* dy;    // (nb, m, n) cotangent of a GRAD tile
+  int dy_dtype;
 };
 
 __device__ __forceinline__ float load_f(const void* p, int dtype, int64_t i) {
@@ -123,6 +130,25 @@ __device__ __forceinline__ float activate(float x, int epi) {
     x = fmaxf(x, 0.f);
   }
   return x;
+}
+
+// The derivative of the activation at x, as autograd of the plain form
+// (kernels/epilogue.py) gives it: gelu's tanh form differentiated term by
+// term, silu's s (1 + x (1 - s)), relu's step (1 at 0, clamp_min's).
+__device__ __forceinline__ float activate_grad(float x, int epi) {
+  if (epi == EPI_GELU || epi == EPI_BIAS_GELU) {
+    const float k0 = 0.7978845608028654f, k1 = 0.044715f;
+    const float x2 = x * x;
+    const float t = tanhf(k0 * (x + k1 * x2 * x));
+    return 0.5f * (1.f + t) +
+           0.5f * x * (1.f - t * t) * k0 * (1.f + 3.f * k1 * x2);
+  }
+  if (epi == EPI_SILU || epi == EPI_BIAS_SILU) {
+    const float s = 1.f / (1.f + expf(-x));
+    return s * (1.f + x * (1.f - s));
+  }
+  if (epi == EPI_RELU) return x >= 0.f ? 1.f : 0.f;
+  return 1.f;
 }
 
 __device__ __forceinline__ float epilogue(float x, const GemmArgs& g,
@@ -245,9 +271,10 @@ __device__ __forceinline__ void panel_mma(Acc<BM, BN>& acc, uint32_t a,
 }
 
 // The split-K reduction (partial sums into the cluster leader, in rank
-// order) and the epilogue from the registers.  Every thread of the block
-// calls it: the cluster barriers count them all.
-template <int BM, int BN>
+// order) and the epilogue from the registers (GRAD: the backward
+// epilogue).  Every thread of the block calls it: the cluster barriers
+// count them all.
+template <int BM, int BN, bool GRAD = false>
 __device__ __forceinline__ void finish_tile(Acc<BM, BN>& acc, const Tile& t,
                                             bool consumer) {
   using namespace sm90;
@@ -324,8 +351,9 @@ __device__ __forceinline__ void finish_tile(Acc<BM, BN>& acc, const Tile& t,
     load8(g.bias, g.bias_dtype, t.ocol + lc, min(g.n - t.ocol - lc, 8), bv);
   bar_sync(1, nact);
 
-  // Rows of eight columns: C_in, bias, activation and the cast, stored
-  // where the tile owns them.  Only the active warpgroups' rows are staged.
+  // Rows of eight columns: C_in, bias, activation (GRAD: dy times its
+  // derivative) and the cast, stored where the tile owns them.  Only the
+  // active warpgroups' rows are staged.
   const int staged = BM == 16 ? BM : 64 * nwg_act;
   for (int q = ct; q < staged * BN / 8; q += nact) {
     const int lr = q / (BN / 8);
@@ -346,17 +374,25 @@ __device__ __forceinline__ void finish_tile(Acc<BM, BN>& acc, const Tile& t,
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] += cin[e];
     }
+    if constexpr (GRAD) {
+      float dy[8] = {};
+      load8(t.dy, t.dy_dtype, o, n, dy);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = activate(v[e] + bv[e], g.epi);
+      for (int e = 0; e < 8; ++e)
+        v[e] = dy[e] * activate_grad(v[e] + bv[e], g.epi);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = activate(v[e] + bv[e], g.epi);
+    }
     store8(g.out, g.out_dtype, o, lo, hi, v);
   }
 }
 
 // Routes A and B: the TMA ring.  Block = nwg consumer warpgroups and one
 // producer warp (the last).  Each block sums the panels [p0, p1) of its
-// split-K share.
+// split-K share.  GRAD: the backward epilogue (finish_tile).
 struct TmaRoute {
-  template <int BM, int BN>
+  template <int BM, int BN, bool GRAD = false>
   static __device__ __forceinline__ void run(const Tile& t, const Maps& m) {
     using namespace sm90;
     const GemmArgs& g = t.g;
@@ -436,15 +472,15 @@ struct TmaRoute {
       wgmma_wait<0>();
       fence_regs(acc.d);
     }
-    finish_tile<BM, BN>(acc, t, consumer);
+    finish_tile<BM, BN, GRAD>(acc, t, consumer);
   }
 };
 
 // Route C: every thread loads pairs of neighbouring elements of the next
 // stage into registers while the current one is multiplied, then writes
-// them in the swizzled layouts TMA would have written.
+// them in the swizzled layouts TMA would have written.  GRAD as TmaRoute's.
 struct LdRoute {
-  template <int BM, int BN>
+  template <int BM, int BN, bool GRAD = false>
   static __device__ __forceinline__ void run(const Tile& t, const Maps&) {
     using namespace sm90;
     constexpr int THREADS = LD_WARPGROUPS * WG_THREADS;
@@ -538,7 +574,7 @@ struct LdRoute {
       if (p + 1 < steps) store(s ^ 1);
       __syncthreads();
     }
-    finish_tile<BM, BN>(acc, t, consumer);
+    finish_tile<BM, BN, GRAD>(acc, t, consumer);
   }
 };
 

@@ -5,6 +5,9 @@
     counterpart of the reference's ``build_fused_gemm_kernel``);
   * :func:`gemm_region` -- one launch per plan region, writing into the
     full C (the counterpart of ``build_gemm_kernel``);
+  * :func:`gemm_act_bwd` -- the backward epilogue of an activation GEMM
+    over ``gemm_fused``'s tile table, ``dy * act'(C? + A @ op(B) + bias?)``
+    (bf16 operands; no TPU kernel: the reference recomputes with XLA);
   * :func:`gemm_quant` -- the quantized form of ``gemm_fused``: int8 or
     e4m3 operands with their row and column scales, or a bf16 / fp32 A
     with an int8 / e4m3 B (W8A16), dequant fused into the epilogue (the
@@ -33,7 +36,8 @@ import torch
 from repro_torch.core.machine import FP8_DTYPE, H100_SXM
 from repro_torch.core.schedule import TileSchedule, pack_table
 from repro_torch.kernels import _build, disable_tf32
-from repro_torch.kernels.epilogue import apply_epilogue, needs_bias
+from repro_torch.kernels.epilogue import (ACTIVATIONS, apply_epilogue,
+                                          needs_bias)
 from repro_torch.kernels.gemm.ref import ref_quant_gemm
 
 # The H100_SXM palette owns the kernel's shapes: gemm.cu instantiates its
@@ -52,7 +56,8 @@ MIN_SPLIT_PANELS = 4
 # B's column panels in L2.
 RASTER_ROWS = 8
 
-LAUNCHES = {"gemm_fused": 0, "gemm_region": 0, "gemm_quant": 0}
+LAUNCHES = {"gemm_fused": 0, "gemm_region": 0, "gemm_quant": 0,
+            "gemm_act_bwd": 0}
 ROUTES = {"A": 0, "B": 0, "C": 0, "fp32": 0}
 _ROUTE_CODE = {"A": 0, "B": 1, "C": 2, "fp32": 0}
 # gemm_quant's routes (gemm_quant.cu's ROUTE_*), counted apart from the
@@ -194,6 +199,8 @@ def _lib(name: str = "gemm"):
             lib.gemm_fused.restype = I
             lib.gemm_region.argtypes = [P] * 5 + [I] * 18 + [P]
             lib.gemm_region.restype = I
+            lib.gemm_act_bwd.argtypes = [P] * 8 + [I] * 14 + [P]
+            lib.gemm_act_bwd.restype = I
         else:
             lib.gemm_quant.argtypes = [P] * 8 + [I] * 13 + [P]
             lib.gemm_quant.restype = I
@@ -274,6 +281,52 @@ def gemm_fused(exe: FusedGemm, a, b, *, layout: str = "nn",
     LAUNCHES["gemm_fused"] += 1
     ROUTES[route] += 1
     _build.check(status, "gemm_fused")
+    return out
+
+
+def gemm_act_bwd(exe: FusedGemm, a, b, dy, *, layout: str = "nn",
+                 epilogue: str, bias=None, c=None,
+                 out_dtype=torch.float32) -> torch.Tensor:
+    """The backward epilogue in one launch over the tile table: ``dy *
+    act'(C? + a @ op(b) + bias?)``, the cotangent of the pre-activation,
+    for ``dy (nb,m,n)`` the output's cotangent; ``a`` and ``b`` bf16."""
+    nb, m, n, k = _check_operands(a, b, bias, c, out_dtype, layout, epilogue)
+    if epilogue not in ACTIVATIONS:
+        raise ValueError(f"epilogue {epilogue!r} is not one of {ACTIVATIONS}")
+    if tuple(dy.shape) != (nb, m, n):
+        raise ValueError(f"dy has shape {tuple(dy.shape)}, expected "
+                         f"{(nb, m, n)}")
+    s = exe.schedule
+    if (s.m, s.n, s.k) != (m, n, k):
+        raise ValueError(f"schedule is for {(s.m, s.n, s.k)}, operands "
+                         f"are {(m, n, k)}")
+    if not a.is_cuda:
+        return gemm_act_bwd_plain(a, b, dy, layout=layout, epilogue=epilogue,
+                                  bias=bias, c=c, out_dtype=out_dtype)
+    if a.dtype != torch.bfloat16:
+        raise ValueError(f"gemm_act_bwd takes bfloat16 operands, got "
+                         f"{a.dtype}")
+    if dy.device != a.device or dy.dtype not in _DTYPE_CODE \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous float32 or bfloat16 "
+                         f"tensor on {a.device}")
+    if exe.table is None or exe.table.device != a.device:
+        raise ValueError(f"executor built for {exe.device}, operands on "
+                         f"{a.device}")
+    out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)
+    bias_dt, c_dt, out_dt = _codes(bias, c, out_dtype)
+    route = _route(a, b, exe.max_bm)
+    split = split_factor(s.num_tiles * nb, k, sm_count(a.device), route)
+    status = _lib().gemm_act_bwd(
+        _build.ptr(a), _build.ptr(b), _build.ptr(bias), _build.ptr(c),
+        _build.ptr(dy), _build.ptr(out), _build.ptr(exe.table),
+        _build.ptr(exe.blocks), s.num_tiles, nb, m, n, k,
+        int(layout == "nt"), bias_dt, c_dt, _DTYPE_CODE[dy.dtype], out_dt,
+        _EPILOGUE_CODE[epilogue], _ROUTE_CODE[route], split, exe.max_bm,
+        _build.stream_ptr(a))
+    LAUNCHES["gemm_act_bwd"] += 1
+    ROUTES[route] += 1
+    _build.check(status, "gemm_act_bwd")
     return out
 
 
@@ -437,6 +490,26 @@ def gemm_region_plain(a, b, out, region, *, layout="nn", epilogue=None,
         acc = acc + c[:, r0:r1, c0:c1].float()
     acc = apply_epilogue(acc, epilogue, None if bias is None else bias[c0:c1])
     out[:, r0:r1, c0:c1] = acc.to(out.dtype)
+
+
+def gemm_act_bwd_plain(a, b, dy, *, layout="nn", epilogue, bias=None, c=None,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """The backward epilogue's fp32 form: the pre-activation ``C? + a @
+    op(b)`` as one fp32 product of the upcast operands (exact products;
+    TF32 off), autograd of :func:`apply_epilogue` on it against ``dy``,
+    cast once to ``out_dtype``.  ``a`` and ``b`` rank 2 or batched alike;
+    the route of ``core.matmul``'s backward off the card's bf16 path."""
+    if a.is_cuda:
+        disable_tf32()
+    b32 = b.float()
+    pre = a.float() @ (b32 if layout == "nn" else b32.transpose(-1, -2))
+    if c is not None:
+        pre = pre + c.float()
+    pre.requires_grad_(True)
+    with torch.enable_grad():
+        g, = torch.autograd.grad(apply_epilogue(pre, epilogue, bias), pre,
+                                 dy.float())
+    return g.to(out_dtype)
 
 
 def gemm_quant_plain(a, b, sa, sb, *, layout="nn", epilogue=None, bias=None,

@@ -12,6 +12,11 @@ bit):
 
 Both report their launch counts through ``engine.count_launches``.
 
+:func:`act_bwd` is an activation GEMM's backward epilogue (the cotangent
+of the pre-activation) on the forward's plan: one ``gemm_act_bwd``
+launch over the plan's tile table, whatever its lowering, counted under
+``gemm_bwd`` (``engine.stats()["gemm"]["launches_bwd"]``).
+
 Edge strategies of the multi-launch lowering (``desc.edge``): ``"mask"``
 runs each region at its exact shape, the kernel masking the ragged edges;
 ``"pad"`` zero-pads each region's operands to its block multiples (rows to
@@ -41,7 +46,8 @@ from repro_torch.core.descriptor import (GemmDescriptor, check_bias,
                                          resolve_quant)
 from repro_torch.core.machine import torch_dtype
 from repro_torch.core.schedule import plan_launches, round_up
-from repro_torch.kernels.gemm.kernel import (K_PANEL, FusedGemm, gemm_fused,
+from repro_torch.kernels.gemm.kernel import (K_PANEL, FusedGemm,
+                                             gemm_act_bwd, gemm_fused,
                                              gemm_quant, gemm_region)
 from repro_torch.kernels.gemm.ref import ref_quant_gemm
 
@@ -101,6 +107,24 @@ def execute(desc: GemmDescriptor, plan: BlockingPlan, a, b, *, bias=None,
             else:
                 gemm_region(a3, b3, out, region, **kw)
     return out if desc.batch else out[0]
+
+
+def act_bwd(desc: GemmDescriptor, plan: BlockingPlan, a, b, dy, *,
+            bias=None, c=None, out_dtype=torch.float32) -> torch.Tensor:
+    """The backward epilogue of the GEMM ``desc`` ran forward with
+    ``plan``: ``dy * act'(c? + a @ op(b) + bias?)`` in ``out_dtype``, in
+    one launch over the plan's tile table (the fused executor, which the
+    forward built if its lowering was fused).  ``dy`` is the output's
+    cotangent, shaped as the output."""
+    batch = desc.batch
+    a3, b3, dy3 = ((t if batch else t[None]).contiguous() for t in (a, b, dy))
+    c3 = None if c is None else (c if batch else c[None]).contiguous()
+    bias = None if bias is None else bias.contiguous()
+    engine.count_launches("gemm_bwd", 1)
+    out = gemm_act_bwd(_fused_executor(desc, plan, a.device), a3, b3, dy3,
+                       layout=desc.layout, epilogue=desc.epilogue, bias=bias,
+                       c=c3, out_dtype=out_dtype)
+    return out if batch else out[0]
 
 
 def _pad(t, *sizes):

@@ -117,6 +117,21 @@ def test_gemm_dynamic_shared_memory_fits_h100(nwg):
     assert 1024 + 128 * (128 + 4) * 4 <= H100_SXM.vmem_bytes  # route C
 
 
+@pytest.mark.parametrize("fn", ["gemm_fused", "gemm_region",
+                                "gemm_act_bwd"])
+def test_gemm_c_signatures_match_the_ctypes_declarations(fn):
+    """Each extern "C" entry of gemm.cu takes the pointers and ints, in
+    that order, that kernel.py declares for ctypes (a mismatch shows only
+    as a wrong launch on the card)."""
+    sig = re.search(rf'extern "C" int {fn}\(([^)]*)\)', GEMM_CU).group(1)
+    kinds = ["P" if "*" in arg else "I" for arg in sig.split(",")]
+    decl = re.search(rf"lib\.{fn}\.argtypes = \[P\] \* (\d+) \+ "
+                     rf"\[I\] \* (\d+) \+ \[P\]",
+                     Path(gemm_kernel.__file__).read_text())
+    npre, nint = int(decl.group(1)), int(decl.group(2))
+    assert kinds == ["P"] * npre + ["I"] * nint + ["P"]
+
+
 def test_the_wgmma_tile_header_is_shared():
     """gemm.cu and grouped.cu include one bf16 tile header, so the grouped
     forward's ring, routes and epilogue are the dense GEMM's."""

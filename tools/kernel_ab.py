@@ -28,7 +28,14 @@ Kernels and cases (chip_smoke.py's operands and shapes):
     bytes); the other tile edge (``<case>:bt=<edge>``) and, where the tree
     counts routes, route B on the same view (``<case>:route=B``); the small
     case also its host microseconds a call (``host_us``: the least of 5
-    runs of 200 calls on the host clock).
+    runs of 200 calls on the host clock);
+  * ``gemm_act_bwd`` -- the backward of phi3-mini's gate GEMM at
+    phi3mini-train's rows (32,768 x 3,072 @ 3,072 x 8,192, silu, bf16):
+    the pre-activation's cotangent by ``gemm_act_bwd`` where the tree has
+    it (``fused``), by the fp32 recompute and autograd of the epilogue
+    (``plain``; ``plain_product`` its cuBLAS fp32 product alone), beside
+    the forward ``gemm_fused`` and cuBLAS's bf16 product of the same
+    operands (``cublas_bf16``); host-timed under CUDA events, 5 calls.
 
 Each call prints one JSON line: the card's name and power limit, the tree,
 the kernel, and for each case the device milliseconds of one call
@@ -40,6 +47,7 @@ tree counts routes.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import subprocess
 import sys
@@ -239,8 +247,48 @@ def transpose(torch, cs, gen):
     return out
 
 
+def gemm_act_bwd(torch, cs, gen):
+    from repro_torch.core import GemmDescriptor, plan_gemm
+    from repro_torch.kernels.epilogue import apply_epilogue
+    from repro_torch.kernels.gemm import kernel as gk
+    mm = importlib.import_module("repro_torch.core.matmul")
+
+    m, n, k, epi = 32768, 8192, 3072, "silu"
+    a = torch.randn((1, m, k), generator=gen, device="cuda").bfloat16()
+    b = (torch.randn((1, k, n), generator=gen, device="cuda")
+         * k ** -0.5).bfloat16()
+    dy = torch.randn((1, m, n), generator=gen, device="cuda").bfloat16()
+    plan = plan_gemm(GemmDescriptor(m=m, n=n, k=k, in_dtype="bfloat16",
+                                    out_dtype="bfloat16", epilogue=epi))
+    exe = gk.FusedGemm(plan.tile_schedule(), "cuda")
+
+    def plain():
+        pre = mm._product32(a, b, "nn").requires_grad_(True)
+        with torch.enable_grad():
+            return torch.autograd.grad(apply_epilogue(pre, epi), pre,
+                                       dy.float())[0]
+
+    calls = {
+        "forward": lambda: gk.gemm_fused(exe, a, b, epilogue=epi,
+                                         out_dtype=torch.bfloat16),
+        "plain": plain,
+        "plain_product": lambda: mm._product32(a, b, "nn"),
+        "cublas_bf16": lambda: torch.matmul(a, b)}
+    if hasattr(gk, "gemm_act_bwd"):
+        calls["fused"] = lambda: gk.gemm_act_bwd(
+            exe, a, b, dy, epilogue=epi, out_dtype=torch.bfloat16)
+    out = {}
+    for name, call in calls.items():
+        route = _route(gk.ROUTES, call, torch) \
+            if name in ("forward", "fused") else None
+        out[name] = dict(ms=cs.time_ms(torch, call, 5), route=route)
+        torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = {"decode": decode, "ssd_fwd": ssd_fwd, "ssd_bwd": ssd_bwd,
-           "grouped_bwd": grouped_bwd, "transpose": transpose}
+           "grouped_bwd": grouped_bwd, "transpose": transpose,
+           "gemm_act_bwd": gemm_act_bwd}
 
 
 def main() -> int:
